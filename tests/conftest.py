@@ -20,3 +20,8 @@ except ImportError:
     from _hypothesis_fallback import install
 
     install()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skipped on hosts without one")
