@@ -11,6 +11,7 @@ from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "qwen2-1.5b": "repro_torch.configs.qwen2_1p5b",
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b",
 }
 
 ARCH_IDS = tuple(_MODULES)

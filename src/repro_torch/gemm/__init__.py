@@ -39,6 +39,7 @@ from repro_torch.gemm.planner import (
     backends,
     clear_plan_cache,
     default_execute_backend,
+    grouped_matmul,
     matmul,
     plan,
     plan_cache_stats,
@@ -56,7 +57,7 @@ __all__ = [
     "PrecisionConfig", "SweepResult", "SweepRow", "UnknownBackendError",
     "VariantChoice",
     "backends", "clear_plan_cache", "default_execute_backend", "dtype_tag",
-    "get_backend", "matmul", "plan", "plan_cache_stats",
+    "get_backend", "grouped_matmul", "matmul", "plan", "plan_cache_stats",
     "plan_many", "plan_model_gemms", "register_backend",
     "reset_plan_cache_stats", "save_cache", "sweep", "warm_cache",
 ]

@@ -212,6 +212,25 @@ def matmul(x, w, *, backend: str | None = None):
     return out if x.ndim == 2 else out.reshape(*lead, n)
 
 
+def grouped_matmul(x, w):
+    """Grouped (expert-batched) matmul: ``(..., E, C, D) @ (E, D, F)``.
+
+    Routes through ``kernels.ops.grouped_gemm`` (the grouped CUDA kernel;
+    its plain version for CPU tensors).  Leading batch dims fold into the
+    capacity axis C: rows are independent, so one launch over
+    ``(E, lead * C, D)`` computes what the JAX package's ``jax.vmap`` over
+    the leading dims does, reading the expert weights once.
+    """
+    from repro_torch.kernels import ops
+    if x.ndim == 3:
+        return ops.grouped_gemm(x, w)
+    lead, (e, c, d) = x.shape[:-3], x.shape[-3:]
+    x3 = x.reshape(-1, e, c, d).transpose(0, 1).reshape(e, -1, d)
+    out = ops.grouped_gemm(x3.contiguous(), w)
+    out = out.reshape(e, -1, c, out.shape[-1]).transpose(0, 1)
+    return out.reshape(*lead, e, c, out.shape[-1])
+
+
 def plan_model_gemms(cfg, *, tokens: int = 4096,
                      backend: str = "analytic-tpu",
                      **plan_kwargs) -> list[GemmPlan]:

@@ -1,13 +1,15 @@
 """Build and load the CUDA kernels: ``nvcc`` into shared libraries, ``ctypes``.
 
-``kernels/csrc/gemm.cu`` is compiled at first use for ``sm_90a`` into one
-shared library per element type, all in parallel (one ``nvcc`` process
-each).  Libraries land in
-``build/repro_torch/<hash>/`` at the repository root (``.gitignore`` lists
-``build/``; ``REPRO_TORCH_BUILD_DIR`` moves it), keyed by a hash of the
-source and the flags, so an edit rebuilds and an unchanged tree reuses the
-build.  The sources expose plain ``extern "C"`` launchers and include no
-PyTorch header, which keeps a build to seconds.
+Each source of ``kernels/csrc/`` is compiled at first use for ``sm_90a``
+into one shared library per element type, all in parallel (one ``nvcc``
+process per library): ``gemm.cu`` for bf16, f32 and int8,
+``grouped_gemm.cu`` for bf16 and f32.  Both include ``tile_gemm.cuh``.
+Libraries land in ``build/repro_torch/<hash>/`` at the repository root
+(``.gitignore`` lists ``build/``; ``REPRO_TORCH_BUILD_DIR`` moves it), keyed
+by a hash of every file under ``csrc/`` and the flags, so an edit to any
+source or header rebuilds and an unchanged tree reuses the build.  The
+sources expose plain ``extern "C"`` launchers and include no PyTorch
+header, which keeps a build to seconds.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a host with no ``nvcc``.
@@ -20,15 +22,20 @@ import os
 import shutil
 import subprocess
 
-SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                      "gemm.cu")
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-#: element-type variant -> the define that selects it in csrc/gemm.cu
-VARIANTS = {"bf16": "REPRO_GEMM_BF16", "f32": "REPRO_GEMM_F32",
-            "int8": "REPRO_GEMM_INT8"}
+#: library name -> (source under csrc/, the define that selects its
+#: element type)
+TARGETS = {
+    "gemm_bf16": ("gemm.cu", "REPRO_GEMM_BF16"),
+    "gemm_f32": ("gemm.cu", "REPRO_GEMM_F32"),
+    "gemm_int8": ("gemm.cu", "REPRO_GEMM_INT8"),
+    "grouped_gemm_bf16": ("grouped_gemm.cu", "REPRO_GEMM_BF16"),
+    "grouped_gemm_f32": ("grouped_gemm.cu", "REPRO_GEMM_F32"),
+}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -51,21 +58,28 @@ def nvcc_path() -> str:
         "toolkit and an sm_90a card")
 
 
-def _lib_path(variant: str) -> str:
+def sources() -> list[str]:
+    """Every file under ``csrc/``, sorted: what the build hash covers."""
+    return sorted(os.path.join(CSRC, n) for n in os.listdir(CSRC)
+                  if n.endswith((".cu", ".cuh")))
+
+
+def _lib_path(target: str) -> str:
     h = hashlib.sha256()
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
+    for path in sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
-    return os.path.join(build_dir(), h.hexdigest()[:16],
-                        f"libgemm_{variant}.so")
+    return os.path.join(build_dir(), h.hexdigest()[:16], f"lib{target}.so")
 
 
 def build() -> dict[str, str]:
-    """Compile every variant that is not built yet, all in parallel;
-    returns ``{variant: library path}``.  Raises with nvcc's output if any
+    """Compile every library that is not built yet, all in parallel;
+    returns ``{target: library path}``.  Raises with nvcc's output if any
     compile fails."""
-    paths = {v: _lib_path(v) for v in VARIANTS}
-    todo = {v: p for v, p in paths.items() if not os.path.exists(p)}
+    paths = {t: _lib_path(t) for t in TARGETS}
+    todo = {t: p for t, p in paths.items() if not os.path.exists(p)}
     if not todo:
         return paths
     nvcc = nvcc_path()
@@ -73,8 +87,9 @@ def build() -> dict[str, str]:
     for v, path in todo.items():
         os.makedirs(os.path.dirname(path), exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, f"-D{VARIANTS[v]}",
-               "-o", tmp, SOURCE]
+        source, define = TARGETS[v]
+        cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, f"-D{define}",
+               "-o", tmp, os.path.join(CSRC, source)]
         procs[v] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, path)
@@ -88,28 +103,33 @@ def build() -> dict[str, str]:
         else:
             os.replace(tmp, path)
     if failed:
-        raise RuntimeError("nvcc failed for csrc/gemm.cu:\n"
-                           + "\n".join(failed))
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return paths
 
 
-def build_log(variant: str) -> str:
+def build_log(target: str) -> str:
     """nvcc's output (``-Xptxas -v``: registers, shared memory, spills) for
-    one built variant."""
-    with open(_lib_path(variant) + ".log") as f:
+    one built library."""
+    with open(_lib_path(target) + ".log") as f:
         return f.read()
 
 
-def load(variant: str) -> ctypes.CDLL:
-    """The loaded library of one variant, building it first if needed."""
-    lib = _LIBS.get(variant)
+def load(target: str) -> ctypes.CDLL:
+    """The loaded library of one target (e.g. ``"gemm_bf16"``), building
+    every library first if needed."""
+    lib = _LIBS.get(target)
     if lib is None:
-        lib = ctypes.CDLL(build()[variant])
+        lib = ctypes.CDLL(build()[target])
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.repro_gemm_tile.argtypes = [vp, vp, vp, vp, i32, i32, i32,
-                                        i64, i64, i64, i32, i32, i32, vp]
-        lib.repro_gemm_tile.restype = i32
+        if TARGETS[target][0] == "gemm.cu":
+            lib.repro_gemm_tile.argtypes = [vp, vp, vp, vp, i32, i32, i32,
+                                            i64, i64, i64, i32, i32, i32, vp]
+            lib.repro_gemm_tile.restype = i32
+        else:
+            lib.repro_grouped_gemm.argtypes = [vp, vp, vp, i32, i32, i32,
+                                               i32, i32, i32, i32, vp]
+            lib.repro_grouped_gemm.restype = i32
         lib.repro_cuda_error_string.argtypes = [i32]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        _LIBS[variant] = lib
+        _LIBS[target] = lib
     return lib

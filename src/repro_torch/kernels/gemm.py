@@ -149,7 +149,7 @@ def _check_cuda(*ts) -> None:
 def _launch(a, b, c_in, c_out, m: int, n: int, k: int, tile) -> None:
     from repro_torch.kernels import build
 
-    lib = build.load(_tag(a.dtype))
+    lib = build.load(f"gemm_{_tag(a.dtype)}")
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.repro_gemm_tile(

@@ -1,10 +1,11 @@
 """Plain PyTorch oracles for the GEMM kernels (the allclose ground truth).
 
 The same functions as ``repro.kernels.ref.gemm_ref`` /
-``gemm_ref_streamed``: int8 operands accumulate exactly in int32 (computed
-in float64, which is exact while every partial sum stays below 2**53, and
-``torch.matmul`` takes no integer tensors on CUDA), floating operands
-accumulate in float32 and round once to the input dtype.
+``gemm_ref_streamed`` / ``grouped_gemm_ref``: int8 operands accumulate
+exactly in int32 (computed in float64, which is exact while every partial
+sum stays below 2**53, and ``torch.matmul`` takes no integer tensors on
+CUDA), floating operands accumulate in float32 and round once to the input
+dtype.
 """
 from __future__ import annotations
 
@@ -44,3 +45,9 @@ def gemm_ref_streamed(a, b, c, bk: int):
         part = dot(a[:, kk:kk + bk], b[kk:kk + bk])
         c = (c.to(acc) + part).to(c.dtype)
     return c
+
+
+def grouped_gemm_ref(x, w):
+    """x: (E, C, D); w: (E, D, F) -> (E, C, F), summed in float32 and
+    rounded once to ``x.dtype``."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)

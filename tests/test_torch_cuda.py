@@ -6,8 +6,8 @@ has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Tolerances: int8 exact; f32 rtol 1e-5 / atol 1e-4; bf16 k-inner 2e-2;
-bf16 k-outer one bf16 ulp of the running |C| per pass.
+Tolerances: int8 exact; f32 rtol 1e-5 / atol 1e-4; bf16 k-inner and
+grouped 2e-2; bf16 k-outer one bf16 ulp of the running |C| per pass.
 """
 import numpy as np
 import pytest
@@ -115,3 +115,90 @@ def test_wrapper_rejects_c_in_another_dtype_on_the_card():
     with pytest.raises(ValueError, match="streams C"):
         K.gemm_k_outer(ta, tb, torch.zeros(64, 64, device="cuda"),
                        tile=TileConfig(64, 64, 128, GridOrder.K_OUTER))
+
+
+# ---------------------------------------------------------------------------
+# Grouped (per-expert) GEMM
+# ---------------------------------------------------------------------------
+
+#: granite-moe-3b-a800m's expert products: decode with max_batch 4
+#: (C = 4 x 8) and one request's prefill at bucket 32 (C = 8), the shapes
+#: the served run launches; a prefill at bucket 512 (C = 128); a ragged C
+GROUPED_SHAPES = [(40, 32, 1536, 512), (40, 32, 512, 1536),
+                  (40, 8, 1536, 512), (40, 8, 512, 1536),
+                  (40, 128, 1536, 512), (40, 128, 512, 1536),
+                  (40, 24, 1536, 512), (3, 24, 200, 72)]
+
+
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+@pytest.mark.parametrize("e,c,d,f", GROUPED_SHAPES)
+def test_grouped_kernel_matches_plain_version(e, c, d, f, dt):
+    from repro_torch.kernels import grouped_gemm as G
+
+    rng = np.random.default_rng(e + c + d + f)
+    # weights at the model's init scale (dense_init: std D^-1/2), so the
+    # outputs are O(1) as when served
+    x, w = operands_from_numpy(
+        rng.normal(size=(e, c, d)).astype(np.float32),
+        (rng.normal(size=(e, d, f)) * d ** -0.5).astype(np.float32),
+        device="cuda", dtype=dt)
+    before = G.LAUNCHES["grouped_gemm"]
+    got = G.grouped_gemm(x, w)
+    torch.cuda.synchronize()
+    assert G.LAUNCHES["grouped_gemm"] == before + 1
+    want = G.grouped_gemm_plain(x, w)
+    assert got.dtype == x.dtype and got.shape == want.shape
+    tol = (dict(rtol=2e-2, atol=2e-2) if dt == "bf16"
+           else dict(rtol=1e-5, atol=1e-4))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("first", ["gemm", "grouped"])
+def test_gemm_and_grouped_libraries_each_configure_their_kernel(first):
+    """Both libraries compile the same tile kernel from ``tile_gemm.cuh``;
+    each copy must get its own shared-memory attribute, whichever library
+    launches a register tile first (81,920 B here, over the 48 KB default)."""
+    from repro_torch.kernels import grouped_gemm as G
+
+    tile = TileConfig(32, 128, 256) if first == "gemm" else \
+        TileConfig(32, 64, 512)
+    x = torch.randn(3, 32, 520, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn(3, 520, 200, device="cuda", dtype=torch.bfloat16)
+    calls = [lambda: G.grouped_gemm(x, w, tile=tile),
+             lambda: K.gemm_k_inner(x[0], w[0], tile=tile)]
+    if first == "gemm":
+        calls.reverse()
+    outs = [call() for call in calls]
+    torch.cuda.synchronize()
+    got_g, got_k = outs if first == "grouped" else outs[::-1]
+    tol = dict(rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(got_g.float(),
+                               G.grouped_gemm_plain(x, w).float(), **tol)
+    torch.testing.assert_close(got_k.float(),
+                               K.gemm_k_inner_plain(x[0], w[0]).float(), **tol)
+
+
+def test_grouped_kernel_refuses_a_tile_over_the_shared_memory_limit():
+    from repro_torch.kernels import grouped_gemm as G
+
+    x = torch.zeros(2, 128, 512, dtype=torch.bfloat16, device="cuda")
+    w = torch.zeros(2, 512, 128, dtype=torch.bfloat16, device="cuda")
+    before = G.LAUNCHES["grouped_gemm"]
+    with pytest.raises(ValueError, match="shared memory"):
+        G.grouped_gemm(x, w, tile=TileConfig(128, 128, 512))
+    with pytest.raises(ValueError, match="contiguous"):
+        G.grouped_gemm(x.transpose(1, 2).contiguous().transpose(1, 2), w)
+    assert G.LAUNCHES["grouped_gemm"] == before
+
+
+def test_grouped_matmul_folds_the_batch_into_one_launch():
+    from repro_torch.kernels import grouped_gemm as G
+
+    x = torch.randn(4, 40, 8, 96, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn(40, 96, 64, device="cuda", dtype=torch.bfloat16)
+    before = G.LAUNCHES["grouped_gemm"]
+    out = gemm.grouped_matmul(x, w)
+    torch.cuda.synchronize()
+    assert G.LAUNCHES["grouped_gemm"] == before + 1
+    want = torch.einsum("becd,edf->becf", x.float(), w.float())
+    torch.testing.assert_close(out.float(), want, rtol=2e-2, atol=2e-2)
