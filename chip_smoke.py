@@ -6,13 +6,16 @@
 Run from the root of a checkout, on a machine with one sm_90 card and the
 CUDA toolkit.  It imports only ``repro_torch`` (from ``src/``), never JAX or
 the JAX package, and raises on the first failed check, so any failure exits
-non-zero.  It drives two paths of the port: the paper's GEMM loop (phases
-3-4) and serving granite-moe-3b-a800m at full width (phase 7).  Phases:
+non-zero.  It drives three paths of the port: the paper's GEMM loop
+(phases 3-4), serving granite-moe-3b-a800m at full width (phase 7), and
+the attention and norm entry points on that model's activations (phase
+9).  Phases:
 
 1. build   — compile every source of ``src/repro_torch/kernels/csrc/`` for
              sm_90a (one nvcc per library, all in parallel); print build
              seconds, register use, the grouped kernel's shared memory per
-             tile, and the card's name and power limit.
+             tile, the flash attention and RMSNorm kernels' registers and
+             shared memory per kernel, and the card's name and power limit.
 2. kernels — both loop orders against their plain PyTorch versions on the
              card: every tile the planner picks for the slice's shapes, in
              bf16, f32 and int8, on a divisible and a ragged shape; plus the
@@ -50,6 +53,23 @@ non-zero.  It drives two paths of the port: the paper's GEMM loop (phases
 8. greedy  — f32 compute and KV cache, full width cut to 4 layers: the
              engine's tokens must equal a per-request ``decode_step`` loop's,
              and so must its logits at every generated step.
+9. model   — granite-moe-3b-a800m at full width, depth cut to 4 layers,
+             bf16: one prefill at bucket 32 and one decode step at batch 4
+             with ``blockwise_attention`` and ``apply_norm`` wrapped (in
+             this script only) to record their inputs and outputs: q, k, v
+             (1, 32, 24, 64) and norms (1, 32, 1536) and (4, 1, 1536).
+             ``ops.flash_attention`` and ``rmsnorm`` run on those exact
+             tensors and are held against the model's own outputs and
+             against their plain versions.
+10. attention/norm timing — both kernels against their plain versions at
+             granite's and Qwen2-1.5B's full widths (attention (1, S, 24,
+             64) for S in 32, 256, 4096 causal in bf16 and f32, S = 4096
+             non-causal, S = 32768 causal in bf16 (the plain version one
+             head at a time: all 24 heads' f32 scores would take 103 GB),
+             Qwen2-1.5B's (1, 4096, 12, 128) causal; RMSNorm of 4, 32, 4096
+             and 32768 rows of 1536 in bf16 and f32), each timed beside its
+             plain version, one PyTorch call (SDPA, ``F.rms_norm``) and its
+             bound.
 
 With tied embeddings and random weights, the token's own embedding
 dominates the last hidden state, so greedy decoding echoes the input token
@@ -60,7 +80,8 @@ slot mix-up would give.
 
 Launch counters are zeroed just before each path and read just after it:
 phases 3-4 must launch both GEMM kernels, phase 7 the grouped kernel and
-at least one GEMM kernel.  The line before the last is the
+at least one GEMM kernel, phases 9 and 10 (each) the flash attention and
+RMSNorm kernels.  The line before the last is the
 ``{"kernels": [...]}`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Samples, the fitted manifest and the
 per-shape timings and the serving profile are written under ``--out``
@@ -75,7 +96,12 @@ cross a rounding boundary once per pass).  Served logits against the
 per-request loop: f32 rtol = atol = 1e-4 per element (phase 8); bf16 0.1
 relative L2 per step (phase 7: the bucketed prefill and the batch of 4 take
 other bf16 rounding paths than one-token decode at batch 1, through 32
-layers).
+layers).  Flash attention against its plain version: f32 rtol = atol =
+1e-5, bf16 3e-2 (``tests/test_kernels.py``'s); against the model's
+blockwise attention f32 2e-5, bf16 3e-2.  RMSNorm, against its plain
+version and the model's norm: f32 rtol = atol = 1e-5; bf16 one bf16 ulp of
+|y| (``rsqrtf`` and the sum order differ from PyTorch's, and one f32
+last-bit difference can cross a bf16 rounding boundary).
 """
 from __future__ import annotations
 
@@ -84,6 +110,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -136,30 +163,50 @@ def k_outer_peak(a, b, c, bk):
     return peak
 
 
-def compare(order, tag, got, want, *, passes=1, peak=None):
-    """Max |got - want|; raises when it is outside the stated tolerance."""
+def held(name, tag, got, want, allowed=None):
+    """Max |got - want|; raises when an element differs from ``want`` by
+    more than ``allowed`` (a float, or a tensor shaped like ``want``), or,
+    for int8, at all."""
     import torch
     check(tuple(got.shape) == tuple(want.shape) and got.dtype == want.dtype,
-          f"{order}/{tag}: got {tuple(got.shape)} {got.dtype}, want "
+          f"{name}/{tag}: got {tuple(got.shape)} {got.dtype}, want "
           f"{tuple(want.shape)} {want.dtype}")
     if tag == "int8":
         err = (got.long() - want.long()).abs().max().item()
-        check(err == 0, f"{order}/int8 not exact: max err {err}")
+        check(err == 0, f"{name}/int8 not exact: max err {err}")
         return float(err)
     g, w = got.float(), want.float()
-    check(bool(torch.isfinite(g).all()), f"{order}/{tag}: non-finite output")
+    check(bool(torch.isfinite(g).all()), f"{name}/{tag}: non-finite output")
     diff = (g - w).abs()
-    if tag == "f32":
-        bad = diff > 1e-4 + 1e-5 * w.abs()
-    elif order in ("gemm_k_inner", "grouped_gemm"):
-        bad = diff > 2e-2 + 2e-2 * w.abs()
-    else:
-        bad = diff > passes * bf16_ulp(peak)
-    nbad = int(bad.sum().item())
+    nbad = int((diff > allowed).sum().item())
     err = float(diff.max().item())
-    check(nbad == 0, f"{order}/{tag}: {nbad} elements outside tolerance "
+    check(nbad == 0, f"{name}/{tag}: {nbad} elements outside tolerance "
                      f"(max abs err {err})")
     return err
+
+
+def within(want, rtol, atol):
+    """The allowed |difference| per element: atol + rtol * |want|."""
+    return atol + rtol * want.float().abs()
+
+
+def compare(order, tag, got, want, *, passes=1, peak=None):
+    """:func:`held` with the GEMM kernels' stated tolerances."""
+    if tag == "int8":
+        allowed = None
+    elif tag == "f32":
+        allowed = within(want, 1e-5, 1e-4)
+    elif order in ("gemm_k_inner", "grouped_gemm"):
+        allowed = within(want, 2e-2, 2e-2)
+    else:
+        allowed = passes * bf16_ulp(peak)
+    return held(order, tag, got, want, allowed)
+
+
+def norm_tolerance(tag, want):
+    """RMSNorm's: one bf16 ulp of |want| in bf16, rtol = atol = 1e-5 in
+    f32."""
+    return bf16_ulp(want) if tag == "bf16" else within(want, 1e-5, 1e-5)
 
 
 def seeded(m, n, k, tag, seed, device):
@@ -196,6 +243,37 @@ def cuda_ms(fn, min_total_ms=200.0, max_reps=50):
     e.record()
     e.synchronize()
     return s.elapsed_time(e) / reps
+
+
+def ptxas_entries(log):
+    """[(kernel, registers, static shared memory bytes, spill line)] from an
+    ``nvcc -Xptxas -v`` log, kernel names demangled and shortened where
+    ``c++filt`` is found."""
+    entries, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"name": m.group(1), "spill": ""}
+            entries.append(cur)
+        elif cur is not None and "spill" in line:
+            cur["spill"] = line.strip()
+        elif cur is not None and "registers" in line:
+            cur["registers"] = int(line.split("Used ")[1].split(" ")[0])
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(
+            e["name"] for e in entries), capture_output=True, text=True,
+            timeout=60).stdout.splitlines()
+    except OSError:
+        names = []
+    if len(names) != len(entries):
+        names = [e["name"] for e in entries]
+    # "void repro::(anonymous namespace)::flash_fwd<float, 64>(...)" ->
+    # "flash_fwd<float, 64>"
+    short = [re.search(r"(\w+<[^()]*>)\(", n) for n in names]
+    return [(m.group(1) if m else n, e.get("registers"), e.get("smem"),
+             e["spill"]) for n, m, e in zip(names, short, entries)]
 
 
 def grouped_bound(e, c, d, f, tag):
@@ -576,6 +654,263 @@ def greedy_phase(dev):
             "other_request_rel_l2": mixed, "min_top1_gap": min(gaps)}
 
 
+#: phase 10: attention shapes (B, S, H, D) at full width, causal, dtypes
+ATTN_SHAPES = (
+    ("granite S=32", (1, 32, 24, 64), True, ("bf16", "f32")),
+    ("granite S=256", (1, 256, 24, 64), True, ("bf16", "f32")),
+    ("granite S=4096", (1, 4096, 24, 64), True, ("bf16", "f32")),
+    ("granite S=4096 full", (1, 4096, 24, 64), False, ("bf16", "f32")),
+    ("granite S=32768", (1, 32768, 24, 64), True, ("bf16",)),
+    ("qwen2-1.5b S=4096", (1, 4096, 12, 128), True, ("bf16", "f32")),
+)
+#: phase 10: RMSNorm rows of D = 1536 (both models' d_model)
+NORM_ROWS = (4, 32, 4096, 32768)
+NORM_D = 1536
+#: the shapes phase 9 records from the served model (bucket-32 prefill,
+#: decode at max_batch 4); the kernels line sums phase 10's times at these
+SERVED_ATTN = (1, 32, 24, 64)
+SERVED_NORM_ROWS = (32, 4)
+#: from this length on, the plain attention runs one head at a time
+PLAIN_PER_HEAD_FROM = 16384
+#: flash attention against its plain version, and against the model's
+#: blockwise attention (rtol = atol)
+FLASH_TOL = {"f32": 1e-5, "bf16": 3e-2}
+FLASH_MODEL_TOL = {"f32": 2e-5, "bf16": 3e-2}
+
+
+def attention_bound(b, s, h, d, causal, tag):
+    """(ms, "bytes" | "operations"): q, k, v read once and o written once
+    over 3.35 TB/s; 4*B*H*D operations per visible (query, key) pair over
+    the dtype's peak."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    t_bytes = 4 * b * s * h * d * ELEM_BYTES[tag] / HBM_BYTES_PER_S
+    t_ops = 4.0 * b * h * d * pairs / PEAK_OPS[tag]
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def norm_bound(rows, d, tag):
+    """(ms, "bytes"): x read and y written once, the f32 scale read once,
+    over 3.35 TB/s (four operations per element are far below the ridge)."""
+    return (2 * rows * d * ELEM_BYTES[tag] + 4 * d) / HBM_BYTES_PER_S * 1e3, \
+        "bytes"
+
+
+def plain_attention(FA, q, k, v, causal):
+    """The plain version; one head at a time at long sequences, where all
+    heads' f32 scores at once would not fit on the card."""
+    import torch
+    if q.shape[1] < PLAIN_PER_HEAD_FROM:
+        return FA.flash_attention_plain(q, k, v, causal=causal)
+    return torch.cat([FA.flash_attention_plain(
+        q[:, :, i:i + 1], k[:, :, i:i + 1], v[:, :, i:i + 1], causal=causal)
+        for i in range(q.shape[2])], dim=2)
+
+
+def model_kernels_phase(dev, FA, R, ops):
+    """Phase 9: granite's own attention and norm activations through the
+    entry points.  Returns the launches and max |err| of each kernel."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.models.model import LM
+
+    phase(9, "flash attention and RMSNorm on granite-moe-3b-a800m's own "
+             "activations")
+    full = get_config("granite-moe-3b-a800m")
+    cfg = dataclasses.replace(full, n_layers=4, block_pattern=("moe",) * 4)
+    print(f"depth cut {full.n_layers} -> {cfg.n_layers} layers; widths as "
+          f"published (d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.head_dim}, {cfg.n_kv_heads} KV heads); {cfg.compute_dtype}")
+    lm = LM(cfg, device=dev)
+    gen = torch.Generator(dev).manual_seed(5)
+    params = lm.compute_params(lm.init(gen))
+    rec = {"attn": [], "norm": []}
+    blockwise, norm = attn_mod.blockwise_attention, layers_mod.apply_norm
+
+    def recording_attention(q, k, v, *, chunk, causal, prefix_len=0):
+        out = blockwise(q, k, v, chunk=chunk, causal=causal,
+                        prefix_len=prefix_len)
+        rec["attn"].append((q, k, v, causal, prefix_len, out))
+        return out
+
+    def recording_norm(p, x, c):
+        y = norm(p, x, c)
+        rec["norm"].append((x, p["scale"], c.norm_eps, c.norm_type, y))
+        return y
+
+    attn_mod.blockwise_attention = recording_attention
+    layers_mod.apply_norm = recording_norm
+    try:
+        tokens = torch.randint(0, cfg.vocab_size, (1, 32), generator=gen,
+                               device=dev)
+        lm.prefill(params, {"tokens": tokens})          # bucket 32
+        caches = lm.init_cache(4, 64)
+        lm.decode_step(params, caches, tokens[:, :4].T.contiguous(), 0)
+        torch.cuda.synchronize()
+    finally:
+        attn_mod.blockwise_attention = blockwise
+        layers_mod.apply_norm = norm
+    del params, caches, lm
+    attn_shapes = sorted({tuple(r[0].shape) for r in rec["attn"]})
+    norm_shapes = sorted({tuple(r[0].shape) for r in rec["norm"]})
+    print(f"recorded {len(rec['attn'])} attention calls {attn_shapes} "
+          f"(KV already repeated to {cfg.n_heads} heads) and "
+          f"{len(rec['norm'])} norm calls {norm_shapes}")
+    check(attn_shapes == [SERVED_ATTN], f"attention shapes {attn_shapes} "
+                                        f"are not {[SERVED_ATTN]}")
+    want_norms = sorted((1, n, NORM_D) if n == 32 else (n, 1, NORM_D)
+                        for n in SERVED_NORM_ROWS)
+    check(norm_shapes == want_norms, f"norm shapes {norm_shapes} are not "
+                                     f"{want_norms}")
+    check(all(r[3] and not r[4] for r in rec["attn"]),
+          "the model's attention was not plain causal")
+    check(all(r[3] == "rmsnorm" for r in rec["norm"]),
+          "the model's norm is not an RMSNorm")
+
+    # the main path: the entry points on the model's own tensors
+    FA.reset_launch_counts()
+    R.reset_launch_counts()
+    flash_out = [ops.flash_attention(q, k, v, causal=True)
+                 for q, k, v, *_ in rec["attn"]]
+    norm_out = [R.rmsnorm(x, scale, eps=eps)
+                for x, scale, eps, *_ in rec["norm"]]
+    torch.cuda.synchronize()
+    launches = {**FA.LAUNCHES, **R.LAUNCHES}
+    print(f"entry-point launches on the model's tensors: {launches}")
+    for name_, n_ in launches.items():
+        check(n_ > 0, f"{name_} was never launched in phase 9")
+
+    err = {"flash_attention": 0.0, "rmsnorm": 0.0}
+    model_err = {"flash_attention": 0.0, "rmsnorm": 0.0}
+    for got, (q, k, v, _, _, out) in zip(flash_out, rec["attn"]):
+        tag = "bf16" if q.dtype == torch.bfloat16 else "f32"
+        want = FA.flash_attention_plain(q, k, v, causal=True)
+        err["flash_attention"] = max(err["flash_attention"], held(
+            "flash_attention", tag, got, want,
+            within(want, FLASH_TOL[tag], FLASH_TOL[tag])))
+        model_err["flash_attention"] = max(
+            model_err["flash_attention"],
+            held("flash_attention vs blockwise_attention", tag, got, out,
+                 within(out, FLASH_MODEL_TOL[tag], FLASH_MODEL_TOL[tag])))
+    for got, (x, scale, eps, _, out) in zip(norm_out, rec["norm"]):
+        tag = "bf16" if x.dtype == torch.bfloat16 else "f32"
+        want = R.rmsnorm_plain(x, scale, eps=eps)
+        err["rmsnorm"] = max(err["rmsnorm"], held(
+            "rmsnorm", tag, got, want, norm_tolerance(tag, want)))
+        model_err["rmsnorm"] = max(model_err["rmsnorm"], held(
+            "rmsnorm vs apply_norm", tag, got, out, norm_tolerance(tag, out)))
+    print(f"max |err| against the plain versions: {err}; against the "
+          f"model's own blockwise_attention / apply_norm: {model_err}")
+    rec.clear()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": err,
+            "model_max_abs_err": model_err, "attention_shapes": attn_shapes,
+            "norm_shapes": norm_shapes}
+
+
+def attention_norm_phase(dev, FA, R, ops):
+    """Phase 10: both kernels against their plain versions at full width,
+    then timed beside the plain version, one PyTorch call and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    phase(10, "flash attention and RMSNorm vs plain versions, and timing")
+    FA.reset_launch_counts()
+    R.reset_launch_counts()
+    rows = []
+    for i, (name, (b, s, h, d), causal, tags) in enumerate(ATTN_SHAPES):
+        for tag in tags:
+            g = torch.Generator(dev).manual_seed(500 + i)
+            dt = {"bf16": torch.bfloat16, "f32": torch.float32}[tag]
+            q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev,
+                                   dtype=dt) for _ in range(3))
+            got = ops.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            want = plain_attention(FA, q, k, v, causal)
+            err = held("flash_attention", tag, got, want,
+                       within(want, FLASH_TOL[tag], FLASH_TOL[tag]))
+            del got, want
+            long_ = s >= PLAIN_PER_HEAD_FROM
+            ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal),
+                         min_total_ms=50.0 if long_ else 200.0)
+            pms = cuda_ms(lambda: plain_attention(FA, q, k, v, causal),
+                          min_total_ms=100.0, max_reps=1 if long_ else 10)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal))
+            bms, by = attention_bound(b, s, h, d, causal, tag)
+            pairs = s * (s + 1) // 2 if causal else s * s
+            rows.append({"kernel": "flash_attention", "shape_name": name,
+                         "shape": [b, s, h, d], "causal": causal,
+                         "dtype": tag, "max_abs_err": err,
+                         "served": (b, s, h, d) == SERVED_ATTN and causal
+                         and tag == "bf16",
+                         "plain_per_head": long_, "ms": ms, "plain_ms": pms,
+                         "library_ms": lib, "bound_ms": bms, "bound_by": by,
+                         "tflops": 4.0 * b * h * d * pairs / ms / 1e9,
+                         "bound_share": bms / ms})
+            print(f"flash {name:<20}{'causal' if causal else 'full':<7}"
+                  f"{tag:<5}: {ms:.4f} ms ({rows[-1]['tflops']:.3f} TFLOP/s, "
+                  f"{100 * bms / ms:.2f}% of the bound), plain {pms:.4f} ms"
+                  f"{' (one head at a time)' if long_ else ''}, SDPA "
+                  f"{lib:.4f} ms, bound {bms:.4f} ms ({by}); max |err| "
+                  f"{err:.3g}")
+            del q, k, v, qt, kt, vt
+            torch.cuda.empty_cache()
+    for i, n in enumerate(NORM_ROWS):
+        for tag in ("bf16", "f32"):
+            g = torch.Generator(dev).manual_seed(600 + i)
+            dt = {"bf16": torch.bfloat16, "f32": torch.float32}[tag]
+            x = torch.randn((n, NORM_D), generator=g, device=dev, dtype=dt)
+            scale = torch.randn((NORM_D,), generator=g, device=dev)
+            eps = 1e-5
+            got = R.rmsnorm(x, scale, eps=eps)
+            torch.cuda.synchronize()
+            want = R.rmsnorm_plain(x, scale, eps=eps)
+            err = held("rmsnorm", tag, got, want, norm_tolerance(tag, want))
+            ms = cuda_ms(lambda: R.rmsnorm(x, scale, eps=eps))
+            pms = cuda_ms(lambda: R.rmsnorm_plain(x, scale, eps=eps))
+            w = scale.to(dt)
+            lib = cuda_ms(lambda: F.rms_norm(x, (NORM_D,), weight=w, eps=eps))
+            bms, by = norm_bound(n, NORM_D, tag)
+            rows.append({"kernel": "rmsnorm", "shape_name": f"{n} rows",
+                         "shape": [n, NORM_D], "dtype": tag,
+                         "max_abs_err": err,
+                         "served": n in SERVED_NORM_ROWS and tag == "bf16",
+                         "ms": ms, "plain_ms": pms, "library_ms": lib,
+                         "bound_ms": bms, "bound_by": by,
+                         "gb_per_s": (2 * n * NORM_D * ELEM_BYTES[tag]
+                                      + 4 * NORM_D) / ms / 1e6,
+                         "bound_share": bms / ms})
+            print(f"rmsnorm {n:>6} x {NORM_D} {tag:<5}: {ms:.4f} ms "
+                  f"({rows[-1]['gb_per_s']:.1f} GB/s, {100 * bms / ms:.2f}% "
+                  f"of the bound), plain {pms:.4f} ms, F.rms_norm "
+                  f"{lib:.4f} ms, bound {bms:.5f} ms; max |err| {err:.3g}")
+            del x, scale, w
+    launches = {**FA.LAUNCHES, **R.LAUNCHES}
+    print(f"phase 10 launches: {launches}")
+    for name_, n_ in launches.items():
+        check(n_ > 0, f"{name_} was never launched in phase 10")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def kernel_entry(name, source, replaces, launches, max_err, rows):
+    """One entry of the kernels line: times summed over ``rows``."""
+    t_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+    t_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_err,
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": sum(r["library_ms"] for r in rows)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join(HERE, "build",
@@ -603,9 +938,11 @@ def main(argv=None) -> int:
     from repro_torch.core.mobilenet import TABLE2
     from repro_torch.core.tpu_model import GemmShape, GridOrder, TileConfig
     from repro_torch.gemm.api import GemmProblem
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import gemm as K
     from repro_torch.kernels import grouped_gemm as G
+    from repro_torch.kernels import rmsnorm as R
     from repro_torch.machines import resolve
 
     os.makedirs(args.out, exist_ok=True)
@@ -622,24 +959,27 @@ def main(argv=None) -> int:
     print(f"built {sorted(paths)} for sm_90a in "
           f"{time.perf_counter() - t0:.2f} s ({build.build_dir()})")
     for v in paths:
-        regs, spills = [], []
         log = build.build_log(v)
         with open(os.path.join(args.out, f"ptxas_{v}.log"), "w") as f:
             f.write(log)
-        for line in log.splitlines():
-            if "registers" in line:
-                regs.append(int(line.split("Used ")[1].split(" ")[0]))
-            if "spill" in line and not (" 0 bytes spill stores" in line
-                                        and " 0 bytes spill loads" in line):
-                spills.append(line.strip())
+        entries = ptxas_entries(log)
+        regs = [r for _, r, _, _ in entries]
+        spills = [sp for *_, sp in entries if not (
+            " 0 bytes spill stores" in sp and " 0 bytes spill loads" in sp)]
         print(f"ptxas {v}: {len(regs)} kernels, registers "
               f"{min(regs)}..{max(regs)}, {len(spills)} with spills")
+        if v.startswith(("flash_attention", "rmsnorm")):
+            print("  " + ", ".join(f"{fn} {r} registers / {smem} B static "
+                                   f"shared memory"
+                                   for fn, r, smem, _ in entries))
     for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         tiles = {str(G.grouped_tile(c, dt)): K.smem_bytes(G.grouped_tile(c, dt),
                                                           tag)
                  for c in (8, 24, 32, 128)}
         print(f"grouped {tag}: dynamic shared memory per tile {tiles} "
               f"(a block may claim {K.MAX_SMEM_BYTES})")
+    print(f"flash attention: dynamic shared memory per block by head dim "
+          f"{ {d: FA.smem_bytes(d) for d in FA.HEAD_DIMS} }; RMSNorm: none")
     print(f"device: {card}, {torch.cuda.device_count()} visible, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     print(smi("name,power.limit"))
@@ -819,41 +1159,35 @@ def main(argv=None) -> int:
     grouped_rows, grouped_err = grouped_phase(args, dev, G)
     served = serve_phase(K, G)
     greedy = greedy_phase(dev)
+    model_k = model_kernels_phase(dev, FA, R, ops)
+    attn_rows = attention_norm_phase(dev, FA, R, ops)
 
-    kernels = []
-    for kname, line in (("gemm_k_inner", 56), ("gemm_k_outer", 89)):
-        rs = [r for r in rows if r["kernel"] == kname]
-        t_ops = sum(r["bound_ms"] for r in rs if r["bound_by"] == "operations")
-        t_bytes = sum(r["bound_ms"] for r in rs if r["bound_by"] == "bytes")
-        kernels.append({
-            "name": kname, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/gemm.cu",
-            "replaces": f"src/repro/kernels/gemm.py:{line}",
-            "launches": launches[kname], "max_abs_err": max_err[kname],
-            "ms": sum(r["ms"] for r in rs),
-            "plain_ms": sum(r["plain_ms"] for r in rs),
-            "bound_ms": sum(r["bound_ms"] for r in rs),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": sum(r["library_ms"] for r in rs)})
-    rs = [r for r in grouped_rows if r["served"]]
-    t_ops = sum(r["bound_ms"] for r in rs if r["bound_by"] == "operations")
-    t_bytes = sum(r["bound_ms"] for r in rs if r["bound_by"] == "bytes")
-    kernels.append({
-        "name": "grouped_gemm", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
-        "replaces": "src/repro/kernels/grouped_gemm.py:37",
-        "launches": served["grouped_gemm"], "max_abs_err": grouped_err,
-        "ms": sum(r["ms"] for r in rs),
-        "plain_ms": sum(r["plain_ms"] for r in rs),
-        "bound_ms": sum(r["bound_ms"] for r in rs),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": sum(r["library_ms"] for r in rs)})
+    csrc = "src/repro_torch/kernels/csrc"
+    kernels = [kernel_entry(kname, f"{csrc}/gemm.cu",
+                            f"src/repro/kernels/gemm.py:{line}",
+                            launches[kname], max_err[kname],
+                            [r for r in rows if r["kernel"] == kname])
+               for kname, line in (("gemm_k_inner", 56), ("gemm_k_outer", 89))]
+    kernels.append(kernel_entry(
+        "grouped_gemm", f"{csrc}/grouped_gemm.cu",
+        "src/repro/kernels/grouped_gemm.py:37", served["grouped_gemm"],
+        grouped_err, [r for r in grouped_rows if r["served"]]))
+    for kname, line in (("flash_attention", 68), ("rmsnorm", 29)):
+        kernels.append(kernel_entry(
+            kname, f"{csrc}/{kname}.cu",
+            f"src/repro/kernels/{kname}.py:{line}",
+            model_k["launches"][kname], model_k["max_abs_err"][kname],
+            [r for r in attn_rows if r["kernel"] == kname and r["served"]]))
     with open(os.path.join(args.out, "timings.json"), "w") as f:
         json.dump({"device": card, "power": smi("name,power.limit"),
                    "rows": rows, "grouped_rows": grouped_rows,
-                   "serve": served, "greedy": greedy}, f, indent=1)
+                   "serve": served, "greedy": greedy,
+                   "model_kernels": model_k,
+                   "attention_norm_rows": attn_rows}, f, indent=1)
     print(f"\n(GEMM times are sums over the five Qwen2-1.5B GEMMs, grouped "
-          f"times over the four bf16 shapes of the served run; "
+          f"times over the four bf16 shapes of the served run, flash "
+          f"attention and RMSNorm times over the bf16 shapes phase 9 "
+          f"recorded from the model; "
           f"{time.perf_counter() - t_start:.1f} s in all)")
     print(smi("name,power.limit"))
     print(json.dumps({"kernels": kernels}))

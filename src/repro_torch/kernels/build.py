@@ -3,7 +3,8 @@
 Each source of ``kernels/csrc/`` is compiled at first use for ``sm_90a``
 into one shared library per element type, all in parallel (one ``nvcc``
 process per library): ``gemm.cu`` for bf16, f32 and int8,
-``grouped_gemm.cu`` for bf16 and f32.  Both include ``tile_gemm.cuh``.
+``grouped_gemm.cu``, ``flash_attention.cu`` and ``rmsnorm.cu`` for bf16 and
+f32.  The two GEMM sources include ``tile_gemm.cuh``.
 Libraries land in ``build/repro_torch/<hash>/`` at the repository root
 (``.gitignore`` lists ``build/``; ``REPRO_TORCH_BUILD_DIR`` moves it), keyed
 by a hash of every file under ``csrc/`` and the flags, so an edit to any
@@ -21,20 +22,58 @@ import hashlib
 import os
 import shutil
 import subprocess
+from typing import NamedTuple
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-#: library name -> (source under csrc/, the define that selects its
-#: element type)
+_VP, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                         ctypes.c_float)
+
+#: each launcher's ctypes argument types.  Every pointer and the stream is a
+#: c_void_p: a bare Python int would go through as a 32-bit int and cut it.
+_GEMM_ARGS = (_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I64, _I64, _I64, _I32,
+              _I32, _I32, _VP)
+_GROUPED_ARGS = (_VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
+                 _VP)
+#: q, k, v, o; B, S, Skv, H, D; q, k, v strides (batch, seq, head); causal;
+#: stream
+_FLASH_ARGS = (_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32,
+               *(_I64,) * 9, _I32, _VP)
+#: x, scale (f32), y; rows, D; eps; stream
+_RMSNORM_ARGS = (_VP, _VP, _VP, _I32, _I32, _F32, _VP)
+
+
+class Target(NamedTuple):
+    """One shared library: its source under csrc/, the define that selects
+    its element type, and its launcher's name and ctypes argument types."""
+    source: str
+    define: str
+    launcher: str
+    argtypes: tuple
+
+
 TARGETS = {
-    "gemm_bf16": ("gemm.cu", "REPRO_GEMM_BF16"),
-    "gemm_f32": ("gemm.cu", "REPRO_GEMM_F32"),
-    "gemm_int8": ("gemm.cu", "REPRO_GEMM_INT8"),
-    "grouped_gemm_bf16": ("grouped_gemm.cu", "REPRO_GEMM_BF16"),
-    "grouped_gemm_f32": ("grouped_gemm.cu", "REPRO_GEMM_F32"),
+    "gemm_bf16": Target("gemm.cu", "REPRO_GEMM_BF16", "repro_gemm_tile",
+                        _GEMM_ARGS),
+    "gemm_f32": Target("gemm.cu", "REPRO_GEMM_F32", "repro_gemm_tile",
+                       _GEMM_ARGS),
+    "gemm_int8": Target("gemm.cu", "REPRO_GEMM_INT8", "repro_gemm_tile",
+                        _GEMM_ARGS),
+    "grouped_gemm_bf16": Target("grouped_gemm.cu", "REPRO_GEMM_BF16",
+                                "repro_grouped_gemm", _GROUPED_ARGS),
+    "grouped_gemm_f32": Target("grouped_gemm.cu", "REPRO_GEMM_F32",
+                               "repro_grouped_gemm", _GROUPED_ARGS),
+    "flash_attention_bf16": Target("flash_attention.cu", "REPRO_ELEM_BF16",
+                                   "repro_flash_attention", _FLASH_ARGS),
+    "flash_attention_f32": Target("flash_attention.cu", "REPRO_ELEM_F32",
+                                  "repro_flash_attention", _FLASH_ARGS),
+    "rmsnorm_bf16": Target("rmsnorm.cu", "REPRO_ELEM_BF16", "repro_rmsnorm",
+                           _RMSNORM_ARGS),
+    "rmsnorm_f32": Target("rmsnorm.cu", "REPRO_ELEM_F32", "repro_rmsnorm",
+                          _RMSNORM_ARGS),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -64,14 +103,14 @@ def sources() -> list[str]:
                   if n.endswith((".cu", ".cuh")))
 
 
-def _lib_path(target: str) -> str:
+def _lib_path(name: str) -> str:
     h = hashlib.sha256()
     for path in sources():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
-    return os.path.join(build_dir(), h.hexdigest()[:16], f"lib{target}.so")
+    return os.path.join(build_dir(), h.hexdigest()[:16], f"lib{name}.so")
 
 
 def build() -> dict[str, str]:
@@ -87,9 +126,9 @@ def build() -> dict[str, str]:
     for v, path in todo.items():
         os.makedirs(os.path.dirname(path), exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
-        source, define = TARGETS[v]
-        cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, f"-D{define}",
-               "-o", tmp, os.path.join(CSRC, source)]
+        spec = TARGETS[v]
+        cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, f"-D{spec.define}",
+               "-o", tmp, os.path.join(CSRC, spec.source)]
         procs[v] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, path)
@@ -107,29 +146,36 @@ def build() -> dict[str, str]:
     return paths
 
 
-def build_log(target: str) -> str:
+def build_log(name: str) -> str:
     """nvcc's output (``-Xptxas -v``: registers, shared memory, spills) for
     one built library."""
-    with open(_lib_path(target) + ".log") as f:
+    target(name)
+    with open(_lib_path(name) + ".log") as f:
         return f.read()
 
 
-def load(target: str) -> ctypes.CDLL:
+def target(name: str) -> Target:
+    """The :class:`Target` of one library; raises ValueError for a name
+    ``TARGETS`` does not list."""
+    try:
+        return TARGETS[name]
+    except KeyError:
+        raise ValueError(f"no CUDA library {name!r}: the targets are "
+                         f"{sorted(TARGETS)}") from None
+
+
+def load(name: str) -> ctypes.CDLL:
     """The loaded library of one target (e.g. ``"gemm_bf16"``), building
-    every library first if needed."""
-    lib = _LIBS.get(target)
+    every library first if needed; its launcher takes the argument types
+    its :class:`Target` names and returns a CUDA error code."""
+    spec = target(name)
+    lib = _LIBS.get(name)
     if lib is None:
-        lib = ctypes.CDLL(build()[target])
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        if TARGETS[target][0] == "gemm.cu":
-            lib.repro_gemm_tile.argtypes = [vp, vp, vp, vp, i32, i32, i32,
-                                            i64, i64, i64, i32, i32, i32, vp]
-            lib.repro_gemm_tile.restype = i32
-        else:
-            lib.repro_grouped_gemm.argtypes = [vp, vp, vp, i32, i32, i32,
-                                               i32, i32, i32, i32, vp]
-            lib.repro_grouped_gemm.restype = i32
-        lib.repro_cuda_error_string.argtypes = [i32]
+        lib = ctypes.CDLL(build()[name])
+        launcher = getattr(lib, spec.launcher)
+        launcher.argtypes = list(spec.argtypes)
+        launcher.restype = _I32
+        lib.repro_cuda_error_string.argtypes = [_I32]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        _LIBS[target] = lib
+        _LIBS[name] = lib
     return lib

@@ -120,8 +120,8 @@ def _on_cpu(*ts) -> bool:
         raise ValueError(f"operands on different devices: {sorted(devs)}")
     dev = devs.pop()
     if dev not in ("cpu", "cuda"):
-        raise ValueError(f"the GEMM kernels run on CUDA tensors (CPU tensors "
-                         f"run their plain versions), not on {dev!r}")
+        raise ValueError(f"the kernels run on CUDA tensors (CPU tensors run "
+                         f"their plain versions), not on {dev!r}")
     return dev == "cpu"
 
 

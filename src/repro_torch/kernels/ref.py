@@ -1,7 +1,9 @@
-"""Plain PyTorch oracles for the GEMM kernels (the allclose ground truth).
+"""Plain PyTorch oracles for every CUDA kernel (the allclose ground truth).
 
 The same functions as ``repro.kernels.ref.gemm_ref`` /
-``gemm_ref_streamed`` / ``grouped_gemm_ref``: int8 operands accumulate
+``gemm_ref_streamed`` / ``grouped_gemm_ref`` / ``flash_attention_ref``,
+plus ``rmsnorm_ref``, the oracle ``tests/test_kernels.py`` writes inline
+for the RMSNorm kernel.  For the GEMMs, int8 operands accumulate
 exactly in int32 (computed in float64, which is exact while every partial
 sum stays below 2**53, and ``torch.matmul`` takes no integer tensors on
 CUDA), floating operands accumulate in float32 and round once to the input
@@ -51,3 +53,27 @@ def grouped_gemm_ref(x, w):
     """x: (E, C, D); w: (E, D, F) -> (E, C, F), summed in float32 and
     rounded once to ``x.dtype``."""
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True):
+    """q, k, v: (B, S, H, D) -> (B, S, H, D), plain softmax attention:
+    f32 scores scaled by D**-0.5, the causal mask top-left aligned
+    (key j visible to query i when j <= i, also when Skv != S) and filled
+    with -1e30, softmax, the f32 product with V, cast to ``q.dtype``."""
+    s, d = q.shape[1], q.shape[3]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        * (d ** -0.5)
+    if causal:
+        mask = torch.tril(torch.ones((s, k.shape[1]), dtype=torch.bool,
+                                     device=q.device))
+        scores = torch.where(mask, scores, -1e30)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def rmsnorm_ref(x, scale, *, eps: float):
+    """x: (..., D); scale: (D,) -> x * rsqrt(mean(x**2) + eps) * scale,
+    computed in f32 and cast to ``x.dtype``."""
+    xf = x.float()
+    ms = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)

@@ -1,0 +1,114 @@
+"""Fused RMSNorm as a hand-written CUDA kernel.
+
+``rmsnorm(x, scale)`` computes ``x * rsqrt(mean(x**2) + eps) * scale`` over
+the last axis in one launch of ``csrc/rmsnorm.cu``; it replaces
+``repro.kernels.rmsnorm.rmsnorm`` (src/repro/kernels/rmsnorm.py:29).  The
+statistics are f32, ``scale`` is cast to f32 (exact from bf16) and the
+output has x's dtype; bf16 and f32 x are taken, anything else raises.
+
+Bound on an H100: bytes (each row read once and written once for four
+operations per element).  One warp per row with 16-byte loads, the row
+held in registers between the sum of squares and the scaling; D must be a
+multiple of 8 (bf16) or 4 (f32) and at most :func:`max_dim`.
+
+``block_rows`` only decides which calls are accepted: as the JAX kernel
+asserts, ``rows % min(block_rows, rows)`` must be 0, else ValueError, on
+any device.  The kernel's own block is 8 rows.
+
+``rmsnorm_plain`` beside it is the same function in plain PyTorch
+(``ref.rmsnorm_ref``).  The wrapper runs it only when its operands lie on
+the CPU; CUDA operands launch the kernel or raise.
+``LAUNCHES["rmsnorm"]`` counts kernel launches, one per call, and nothing
+else.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.gemm import _on_cpu
+
+#: kernel launches since the last reset
+LAUNCHES = {"rmsnorm": 0}
+_TAGS = {torch.bfloat16: "bf16", torch.float32: "f32"}
+#: 16-byte vectors one lane holds, at most (csrc/rmsnorm.cu)
+MAX_VECS_PER_LANE = 32
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES["rmsnorm"] = 0
+
+
+def vector_elems(dtype) -> int:
+    """Elements of ``dtype`` in one 16-byte load."""
+    return 16 // torch.empty((), dtype=dtype).element_size()
+
+
+def max_dim(dtype) -> int:
+    """The widest row the kernel takes: 32 lanes x 32 vectors."""
+    return 32 * MAX_VECS_PER_LANE * vector_elems(dtype)
+
+
+def rmsnorm_plain(x, scale, *, eps: float = 1e-5):
+    """Plain PyTorch version of :func:`rmsnorm`."""
+    return ref.rmsnorm_ref(x, scale, eps=eps)
+
+
+def _check(x, scale, block_rows: int) -> int:
+    """The row count; raises ValueError for what neither path takes."""
+    if x.ndim < 1 or tuple(scale.shape) != (x.shape[-1],):
+        raise ValueError(f"scale {tuple(scale.shape)} does not match the "
+                         f"last axis of x {tuple(x.shape)}")
+    if x.dtype not in _TAGS:
+        raise ValueError(f"the RMSNorm kernel takes bf16 or f32 x, not "
+                         f"{x.dtype}")
+    rows = math.prod(x.shape[:-1])
+    br = min(block_rows, rows)
+    if br <= 0 or rows % br:
+        raise ValueError(f"{rows} rows are not a multiple of "
+                         f"min(block_rows, rows) = {br}")
+    return rows
+
+
+def _launch(x, scale, y, rows: int, eps: float) -> None:
+    from repro_torch.kernels import build
+
+    d = x.shape[-1]
+    lib = build.load(f"rmsnorm_{_TAGS[x.dtype]}")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.repro_rmsnorm(x.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                                rows, d, eps, stream)
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"rmsnorm kernel launch failed for {rows} x {d}: "
+                           f"{msg} (cuda error {err})")
+
+
+def rmsnorm(x, scale, *, eps: float = 1e-5, block_rows: int = 256):
+    """x: (..., D); scale: (D,) -> the same shape and dtype as x."""
+    rows = _check(x, scale, block_rows)
+    if _on_cpu(x, scale):
+        return rmsnorm_plain(x, scale, eps=eps)
+    d = x.shape[-1]
+    vec = vector_elems(x.dtype)
+    if d % vec or d > max_dim(x.dtype):
+        raise ValueError(f"the RMSNorm kernel takes D a multiple of {vec} "
+                         f"and at most {max_dim(x.dtype)} for {x.dtype}, "
+                         f"not {d}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("the RMSNorm kernel takes a contiguous, 16-byte "
+                         "aligned x")
+    if rows >= 2 ** 31:
+        raise ValueError(f"{rows} rows exceed int32")
+    if x.device != scale.device:
+        raise ValueError("x and scale on different CUDA devices")
+    s32 = scale.to(torch.float32).contiguous()
+    if s32.data_ptr() % 16:
+        s32 = s32.clone()
+    y = torch.empty_like(x, memory_format=torch.contiguous_format)
+    _launch(x, s32, y, rows, float(eps))
+    LAUNCHES["rmsnorm"] += 1
+    return y

@@ -7,7 +7,9 @@ has only PyTorch:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Tolerances: int8 exact; f32 rtol 1e-5 / atol 1e-4; bf16 k-inner and
-grouped 2e-2; bf16 k-outer one bf16 ulp of the running |C| per pass.
+grouped 2e-2; bf16 k-outer one bf16 ulp of the running |C| per pass; flash
+attention f32 rtol = atol = 1e-5, bf16 3e-2; RMSNorm f32 1e-5, bf16 one
+bf16 ulp of |y|.
 """
 import numpy as np
 import pytest
@@ -47,8 +49,12 @@ def _streamed_ulp(a, b, c, bk):
         acc = (acc.float() + a[:, k0:k0 + bk].float()
                @ b[k0:k0 + bk].float()).to(c.dtype)
         peak = torch.maximum(peak, acc.float().abs())
-    return torch.exp2(torch.floor(torch.log2(peak.clamp_min(2.0 ** -126)))
-                      - 7)
+    return _bf16_ulp(peak)
+
+
+def _bf16_ulp(y):
+    return torch.exp2(torch.floor(torch.log2(y.float().abs().clamp_min(
+        2.0 ** -126))) - 7)
 
 
 @pytest.mark.parametrize("dt", ["bf16", "f32", "int8"])
@@ -202,3 +208,104 @@ def test_grouped_matmul_folds_the_batch_into_one_launch():
     assert G.LAUNCHES["grouped_gemm"] == before + 1
     want = torch.einsum("becd,edf->becf", x.float(), w.float())
     torch.testing.assert_close(out.float(), want, rtol=2e-2, atol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention and RMSNorm
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s,skv,h,d", [
+    (1, 32, 32, 24, 64),       # granite's served prefill at bucket 32
+    (2, 256, 256, 3, 64),
+    (1, 512, 512, 2, 128),
+    (1, 100, 100, 2, 128),     # S past the kernel's 64-row tile
+    (1, 128, 256, 2, 64),      # Skv != S: the causal mask is top-left
+    (1, 256, 128, 2, 128),
+])
+def test_flash_attention_kernel_matches_plain_version(b, s, skv, h, d,
+                                                      causal, dt):
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(s + skv + d)
+    q, k, v = operands_from_numpy(
+        *(rng.normal(size=shape).astype(np.float32)
+          for shape in ((b, s, h, d), (b, skv, h, d), (b, skv, h, d))),
+        device="cuda", dtype=dt)
+    before = FA.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["flash_attention"] == before + 1
+    want = FA.flash_attention_plain(q, k, v, causal=causal)
+    assert got.dtype == q.dtype and got.shape == want.shape
+    tol = 3e-2 if dt == "bf16" else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_kernel_reads_strided_operands():
+    """q, k, v as (B, S, H, D) views of (B, H, S, D) tensors: the kernel
+    reads them through their strides, no copies."""
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = (torch.randn(2, 3, 128, 64, device="cuda").transpose(1, 2)
+               for _ in range(3))
+    got = FA.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, FA.flash_attention_plain(q, k, v),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take():
+    from repro_torch.kernels import flash_attention as FA
+
+    q = torch.zeros(1, 64, 2, 32, device="cuda")
+    before = FA.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="head dims"):
+        FA.flash_attention_fwd(q, q, q)
+    q = torch.zeros(1, 64, 2, 128, device="cuda")[..., ::2]
+    with pytest.raises(ValueError, match="unit stride"):
+        FA.flash_attention_fwd(q, q, q)
+    assert FA.LAUNCHES["flash_attention"] == before
+
+
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+@pytest.mark.parametrize("shape", [(4, 1, 1536), (1, 32, 1536), (4096, 1536),
+                                   (13, 128), (2, 24, 64), (8, 4096)])
+def test_rmsnorm_kernel_matches_plain_version(shape, dt):
+    from repro_torch.kernels import rmsnorm as R
+
+    rng = np.random.default_rng(sum(shape))
+    x = operands_from_numpy(rng.normal(size=shape).astype(np.float32),
+                            device="cuda", dtype=dt)
+    scale = operands_from_numpy(
+        rng.normal(size=shape[-1]).astype(np.float32), device="cuda",
+        dtype=dt)
+    rows = x.numel() // shape[-1]
+    before = R.LAUNCHES["rmsnorm"]
+    got = R.rmsnorm(x, scale, eps=1e-6, block_rows=rows)
+    torch.cuda.synchronize()
+    assert R.LAUNCHES["rmsnorm"] == before + 1
+    want = R.rmsnorm_plain(x, scale, eps=1e-6)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    if dt == "f32":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert bool(((got.float() - want.float()).abs()
+                     <= _bf16_ulp(want)).all())
+
+
+def test_rmsnorm_kernel_refuses_ragged_rows_and_widths():
+    from repro_torch.kernels import rmsnorm as R
+
+    before = R.LAUNCHES["rmsnorm"]
+    x = torch.zeros(300, 1536, dtype=torch.bfloat16, device="cuda")
+    s = torch.ones(1536, device="cuda")
+    with pytest.raises(ValueError, match="rows are not a multiple"):
+        R.rmsnorm(x, s)                       # 300 % min(256, 300) != 0
+    with pytest.raises(ValueError, match="multiple of 8"):
+        R.rmsnorm(x[:, :100], s[:100], block_rows=300)
+    with pytest.raises(ValueError, match="contiguous"):
+        R.rmsnorm(x[:, 8:], s[8:], block_rows=300)
+    assert R.LAUNCHES["rmsnorm"] == before

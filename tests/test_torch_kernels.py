@@ -6,6 +6,10 @@ tensors lie on the CPU); those are held against the Pallas kernels of
 inputs, with ``tests/test_kernels.py``'s tolerances.  The CUDA kernels
 themselves are tested on the card by ``tests/test_torch_cuda.py``.
 """
+import ctypes
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -21,7 +25,7 @@ from repro.kernels.ops import matmul as jax_matmul
 from repro_torch.core.tpu_model import GridOrder, TileConfig
 from repro_torch.interop import operands_from_numpy
 from repro_torch.kernels import gemm as K
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
 
 
 GEMM_CASES = [
@@ -199,3 +203,41 @@ def test_plain_oracles_match_jnp_oracles():
         ref.gemm_ref(ta, tb, tc).numpy(),
         np.asarray(jref.gemm_ref(jnp.array(a), jnp.array(b), jnp.array(c))),
         rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# kernels/build.py: per-target launcher signatures
+# ---------------------------------------------------------------------------
+
+_CTYPE_OF = {"int64_t": ctypes.c_int64, "int": ctypes.c_int,
+             "float": ctypes.c_float}
+
+
+def _c_signature(source: str, launcher: str) -> list:
+    """The ctypes types of ``launcher``'s parameters, read from its
+    ``extern "C"`` definition in ``csrc/<source>``: pointers are c_void_p."""
+    with open(os.path.join(build.CSRC, source)) as f:
+        text = f.read()
+    found = re.search(rf"\bint\s+{launcher}\s*\(([^)]*)\)", text)
+    assert found, f"{launcher} is not defined in {source}"
+    types = []
+    for param in found.group(1).split(","):
+        decl = param.rsplit(None, 1)[0] if "*" not in param else "*"
+        types.append(ctypes.c_void_p if decl == "*"
+                     else _CTYPE_OF[decl.replace("const", "").strip()])
+    return types
+
+
+@pytest.mark.parametrize("name", sorted(build.TARGETS))
+def test_every_target_names_its_launcher_and_signature(name):
+    spec = build.target(name)
+    assert os.path.isfile(os.path.join(build.CSRC, spec.source))
+    assert spec.launcher.startswith("repro_") and spec.define
+    assert list(spec.argtypes) == _c_signature(spec.source, spec.launcher)
+
+
+def test_unknown_target_raises_before_building():
+    with pytest.raises(ValueError, match="no CUDA library"):
+        build.load("flash_attention_int8")
+    with pytest.raises(ValueError, match="no CUDA library"):
+        build.build_log("not_a_target")
