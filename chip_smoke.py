@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py [--out DIR]
+    python3 chip_smoke.py [--out DIR] [--parent DIR]
 
 Run from the root of a checkout, on a machine with one sm_90 card and the
 CUDA toolkit.  It imports only ``repro_torch`` (from ``src/``), never JAX or
@@ -13,14 +13,23 @@ the attention and norm entry points on that model's activations (phase
 
 1. build   — compile every source of ``src/repro_torch/kernels/csrc/`` for
              sm_90a (one nvcc per library, all in parallel); print build
-             seconds, register use, the grouped kernel's shared memory per
-             tile, the flash attention and RMSNorm kernels' registers and
-             shared memory per kernel, and the card's name and power limit.
+             seconds, register use, the bf16 GEMM (wgmma) kernels'
+             registers and spills, the grouped kernel's shared memory per
+             tile, the wgmma route's configuration at every planner tile,
+             the flash attention and RMSNorm kernels' registers and shared
+             memory per kernel, and the card's name and power limit.  Where
+             the toolkit has ``cuobjdump``, fail unless the gemm_bf16
+             library's SASS holds HGMMA instructions.
 2. kernels — both loop orders against their plain PyTorch versions on the
-             card: every tile the planner picks for the slice's shapes, in
-             bf16, f32 and int8, on a divisible and a ragged shape; plus the
-             bf16 finding that k-outer's per-pass rounding costs more than
-             twice k-inner's error.
+             card: every tile the planner picks for the slice's shapes (the
+             Qwen2-1.5B GEMMs, Table-2 in all three dtypes, granite's
+             logits GEMM at M = 4, 8, 32, 128), in bf16, f32 and int8, on a
+             divisible shape and one whose last k-outer pass is ragged;
+             the Table-2 shapes whose rows TMA cannot read in place (K = 27,
+             1; N = 49, 196) in bf16; every bf16 launch on the wgmma route
+             and every f32 and int8 one on the CUDA cores; plus the bf16
+             finding that k-outer's per-pass rounding costs more than twice
+             k-inner's error.
 3. main    — the Qwen2-1.5B GEMMs at tokens=4096, planned on ``cuda`` for
              ``h100`` and executed (k-inner, then pinned to k-outer with the
              same tile), each checked against its plain version.
@@ -28,7 +37,14 @@ the attention and norm entry points on that model's activations (phase
              int8 and bf16) -> ``fit_from_store`` -> ``validate_spec``, plus
              k-outer Qwen samples held out of the fit.
 5. timing  — each kernel at the Qwen2-1.5B shapes with CUDA events, beside
-             its plain version, ``torch.matmul`` and its roofline bound.
+             its plain version, ``torch.matmul`` and its roofline bound
+             (TFLOP/s and share of the bound; for k-outer also the C-stream
+             floor its variant defines); k-inner with two shared-memory
+             stages against as many as fit, in turns; with ``--parent DIR``
+             (an export of an earlier commit) also that tree's times, in
+             the order parent, change, change, parent.
+             Phases 3, 4, 5 and 7 fail unless every bf16 GEMM launch went
+             through the wgmma route.
 6. grouped — the grouped (MoE expert) kernel against its plain version in
              bf16 and f32 at granite's serving shapes (decode with
              max_batch 4: C = 32; one request's prefill at bucket 32: C = 8),
@@ -48,8 +64,10 @@ the attention and norm entry points on that model's activations (phase
              through a per-request ``decode_step`` loop fed the served
              tokens: their logits must agree with the served run's.  Then a
              second engine's drain (4 requests x 6 tokens) runs under
-             ``torch.profiler``: device time by kernel and the device's busy
-             share of the drain's wall time.
+             ``torch.profiler``: device time by kernel (the wgmma GEMM's
+             rows printed whatever their rank) and the device's busy share
+             of the drain's wall time; then the served logits GEMM at
+             decode (4 rows) is timed alone beside ``torch.matmul``.
 8. greedy  — f32 compute and KV cache, full width cut to 4 layers: the
              engine's tokens must equal a per-request ``decode_step`` loop's,
              and so must its logits at every generated step.
@@ -66,8 +84,10 @@ the attention and norm entry points on that model's activations (phase
              64) for S in 32, 256, 4096 causal in bf16 and f32, S = 4096
              non-causal, S = 32768 causal in bf16 (the plain version one
              head at a time: all 24 heads' f32 scores would take 103 GB),
-             Qwen2-1.5B's (1, 4096, 12, 128) causal; RMSNorm of 4, 32, 4096
-             and 32768 rows of 1536 in bf16 and f32), each timed beside its
+             Qwen2-1.5B's (1, 4096, 12, 128) causal, head dims 16, 32,
+             160, 192 and 256 and B * H = 70,000; RMSNorm of 4, 32, 4096
+             and 32768 rows of 1536 in bf16 and f32, kimi-k2-1t's 7168, a
+             ragged D = 1001 and a non-contiguous x), each timed beside its
              plain version, one PyTorch call (SDPA, ``F.rms_norm``) and its
              bound.
 
@@ -276,6 +296,203 @@ def ptxas_entries(log):
              e["spill"]) for n, m, e in zip(names, short, entries)]
 
 
+def planner_tiles(gemm, get_config, model_gemm_shapes, table2, GemmShape):
+    """Every tile the planner picks on ``cuda`` for ``h100`` for the slice's
+    shapes: the Qwen2-1.5B GEMMs at tokens=4096, Table-2 in int8, bf16 and
+    f32, and granite-moe-3b-a800m's logits GEMM at M = 4, 8, 32, 128."""
+    granite = get_config("granite-moe-3b-a800m")
+    shapes = list(model_gemm_shapes(get_config("qwen2-1.5b"), tokens=4096))
+    shapes += [GemmShape(r.m, r.n, r.k, dtype=tag) for tag in
+               ("int8", "bf16", "f32") for r in table2]
+    shapes += [GemmShape(m, granite.padded_vocab, granite.d_model,
+                         dtype="bf16") for m in (4, 8, 32, 128)]
+    return sorted({(d.selection.bm, d.selection.bn, d.selection.bk)
+                   for d in gemm.plan_many(shapes, backend="cuda",
+                                           machine="h100")})
+
+
+def sass_check(build, lib):
+    """Fails unless the bf16 GEMM library's SASS holds HGMMA (wgmma)
+    instructions; says so where the toolkit has no cuobjdump."""
+    import shutil
+    cands = [os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
+             shutil.which("cuobjdump") or ""]
+    tool = next((c for c in cands if c and os.access(c, os.X_OK)), None)
+    if tool is None:
+        print("cuobjdump not found: the HGMMA check of the gemm_bf16 SASS "
+              "could not run")
+        return
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300).stdout
+    n = sass.count("HGMMA")
+    print(f"gemm_bf16 SASS ({tool}): {n} HGMMA instructions, "
+          f"{sass.count('UTMALDG')} TMA loads (UTMALDG)")
+    check(n > 0, "the gemm_bf16 library's SASS has no HGMMA instruction")
+
+
+def snapshot(K):
+    """(GEMM launches so far, launches by route so far)."""
+    return sum(K.LAUNCHES.values()), dict(K.ROUTES)
+
+
+def all_on_wgmma(K, label, since=None):
+    """Fails unless every GEMM launch since ``since`` (a :func:`snapshot`;
+    None: since the last reset) went through the tensor-core route."""
+    n0, r0 = since or (0, {r: 0 for r in K.ROUTES})
+    n = sum(K.LAUNCHES.values()) - n0
+    routes = {r: K.ROUTES[r] - r0[r] for r in K.ROUTES}
+    print(f"{label}: {n} GEMM launches, by route {routes}")
+    check(n > 0 and routes == {"wgmma": n, "cuda_cores": 0},
+          f"{label}: {n} bf16 GEMM launches, by route {routes}: not every "
+          f"one went through wgmma")
+
+
+def c_stream_ms(m, n, k, bk):
+    """k-outer's C stream: C (bf16) read and written once per pass, over
+    3.35 TB/s."""
+    return m * n * 2 * 2 * -(-k // bk) / HBM_BYTES_PER_S * 1e3
+
+
+def gemm_timings(K, shapes, dev, *, plain=True, quiet=False):
+    """Both GEMM kernels at ``shapes`` [(name, m, n, k, (bm, bn, bk))] in
+    bf16, timed with CUDA events beside their plain versions (when
+    ``plain``), ``torch.matmul`` and their bound.  Takes only the kernel
+    module's ``gemm_k_inner`` / ``gemm_k_outer`` / ``*_plain``, so it also
+    times an older tree's module."""
+    import torch
+    from repro_torch.core.tpu_model import GridOrder, TileConfig
+
+    rows = []
+    for i, (name, m, n, k, (bm, bn, bk)) in enumerate(shapes):
+        a, b = seeded(m, n, k, "bf16", 2000 + i, dev)
+        c0 = torch.zeros((m, n), dtype=torch.bfloat16, device=dev)
+        ti = TileConfig(bm, bn, bk, GridOrder.K_INNER)
+        to = TileConfig(bm, bn, bk, GridOrder.K_OUTER)
+        lib = cuda_ms(lambda: torch.matmul(a, b))
+        for kname, fn, plain_fn, c_in in (
+                ("gemm_k_inner", lambda: K.gemm_k_inner(a, b, tile=ti),
+                 lambda: K.gemm_k_inner_plain(a, b), False),
+                ("gemm_k_outer", lambda: K.gemm_k_outer(a, b, c0, tile=to),
+                 lambda: K.gemm_k_outer_plain(a, b, c0, bk=bk), True)):
+            ms = cuda_ms(fn)
+            pms = cuda_ms(plain_fn, min_total_ms=100.0, max_reps=10) \
+                if plain else None
+            bms, by = bound(m, n, k, "bf16", c_in)
+            row = {"kernel": kname, "gemm": name, "shape": [m, n, k],
+                   "tile": str(to if c_in else ti), "ms": ms,
+                   "plain_ms": pms, "library_ms": lib, "bound_ms": bms,
+                   "bound_by": by, "tflops": 2.0 * m * n * k / ms / 1e9,
+                   "bound_share": bms / ms}
+            if c_in:
+                row["c_stream_ms"] = c_stream_ms(m, n, k, bk)
+            rows.append(row)
+            if not quiet:
+                floor = (f", C-stream floor {row['c_stream_ms']:.4f} ms"
+                         if c_in else "")
+                print(f"{kname:<13}{name:<8}{m}x{n}x{k}: {ms:.4f} ms "
+                      f"({row['tflops']:.2f} TFLOP/s, "
+                      f"{100 * row['bound_share']:.1f}% of the bound), "
+                      f"plain {pms:.4f} ms, torch.matmul {lib:.4f} ms, "
+                      f"bound {bms:.4f} ms ({by}){floor}")
+        del a, b, c0
+        torch.cuda.empty_cache()
+    if not quiet:
+        for kname in ("gemm_k_inner", "gemm_k_outer"):
+            mine = [r for r in rows if r["kernel"] == kname]
+            floor = (f", C-stream floor "
+                     f"{sum(r['c_stream_ms'] for r in mine):.4f} ms"
+                     if kname == "gemm_k_outer" else "")
+            print(f"{kname} over the five GEMMs: "
+                  f"{sum(r['ms'] for r in mine):.4f} ms, torch.matmul "
+                  f"{sum(r['library_ms'] for r in mine):.4f} ms, bound "
+                  f"{sum(r['bound_ms'] for r in mine):.4f} ms{floor}")
+    return rows
+
+
+def stage_timings(K, shapes, dev):
+    """k-inner at each shape with the stage cap ``K.WGMMA_STAGES`` at its
+    value (two: two blocks share an SM at the planner's tile) and at four
+    (as many as fit: one block per SM), in turns; returns the rows (ms by
+    the stages a block kept) and prints the sums."""
+    import torch
+    from repro_torch.core.tpu_model import TileConfig
+
+    rows = []
+    default = K.WGMMA_STAGES
+    for i, (name, m, n, k, (bm, bn, bk)) in enumerate(shapes):
+        tile = TileConfig(bm, bn, bk)
+        a, b = seeded(m, n, k, "bf16", 2000 + i, dev)
+        times = {}
+        try:
+            for cap in (default, 4, 4, default):
+                K.WGMMA_STAGES = cap
+                st = K.wgmma_config(tile).stages
+                times.setdefault(st, []).append(cuda_ms(
+                    lambda: K.gemm_k_inner(a, b, tile=tile)))
+        finally:
+            K.WGMMA_STAGES = default
+        rows.append({"gemm": name, "shape": [m, n, k],
+                     "ms_by_stages": {st: min(v) for st, v in
+                                      times.items()}})
+        del a, b
+        torch.cuda.empty_cache()
+    sums = {}
+    for r in rows:
+        for st, v in r["ms_by_stages"].items():
+            sums[st] = sums.get(st, 0.0) + v
+    print(f"gemm_k_inner over the five GEMMs by shared-memory stages (the "
+          f"faster of two turns each): "
+          + ", ".join(f"{st} stage(s) {v:.4f} ms" for st, v in
+                      sorted(sums.items())))
+    return rows
+
+
+def parent_gemm_times(parent, shapes, out):
+    """Phase 5's GEMM times of an older tree (``parent``, an export of an
+    earlier commit), timed by this script's :func:`gemm_timings` in a
+    process that imports that tree's ``repro_torch``."""
+    path = os.path.join(out, "parent_gemm_times.json")
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "--time-gemms-of", os.path.abspath(parent), "--out",
+                    path, "--shapes", json.dumps(shapes)], check=True,
+                   timeout=1800)
+    with open(path) as f:
+        return json.load(f)
+
+
+def time_gemms_of(tree, shapes, path):
+    """The child process of :func:`parent_gemm_times`."""
+    sys.path.insert(0, os.path.join(tree, "src"))
+    import torch
+    from repro_torch.kernels import gemm as K
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = gemm_timings(K, [(n, m, nn, k, tuple(t)) for n, m, nn, k, t in
+                            shapes], torch.device("cuda", 0), plain=False,
+                        quiet=True)
+    with open(path, "w") as f:
+        json.dump(rows, f)
+    return 0
+
+
+def compare_with_parent(rows, again, parent):
+    """Prints the parent's and this tree's GEMM times, timed in the order
+    parent, change, change, parent on one card."""
+    print("parent vs this change on this card (order: parent, change, "
+          "change, parent; ms):")
+    for kname in ("gemm_k_inner", "gemm_k_outer"):
+        sums = []
+        for rs in (parent[0], rows, again, parent[1]):
+            sums.append(sum(r["ms"] for r in rs if r["kernel"] == kname))
+        for r0, r1, r2, r3 in zip(*[[r for r in rs if r["kernel"] == kname]
+                                    for rs in (parent[0], rows, again,
+                                               parent[1])]):
+            print(f"  {kname:<13}{r1['gemm']:<8}parent {r0['ms']:.4f} / "
+                  f"{r3['ms']:.4f}, change {r1['ms']:.4f} / {r2['ms']:.4f}")
+        print(f"  {kname} sum: parent {sums[0]:.4f} / {sums[3]:.4f}, change "
+              f"{sums[1]:.4f} / {sums[2]:.4f} "
+              f"({min(sums[0], sums[3]) / min(sums[1], sums[2]):.1f}x)")
+
+
 def grouped_bound(e, c, d, f, tag):
     """(ms, "bytes" | "operations") of the grouped product: x, w read once
     and y written once over 3.35 TB/s; 2ecdf operations over the peak."""
@@ -468,9 +685,11 @@ def serve_phase(K, G):
             "granite-moe-3b-a800m", smoke=False, n_requests=8, max_new=12,
             max_batch=4, max_len=256, seed=0, device="cuda")
         launches = {**K.LAUNCHES, **G.LAUNCHES}
+        routes = dict(K.ROUTES)
     finally:
         serve_mod.ServingEngine, G._launch = engine_cls, launch
     print(f"serving-path launches: {launches}")
+    all_on_wgmma(K, "phase 7's served run")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     checked = {GROUPED_SHAPES[n] for n in SERVED_SHAPES}
     print(f"grouped shapes launched: {sorted(shapes)}")
@@ -500,7 +719,8 @@ def serve_phase(K, G):
            "decode_step_ms": 1e3 * sum(decode) / max(len(decode), 1),
            "step_ms_all": 1e3 * sum(all_steps) / len(all_steps),
            "grouped_per_forward": per_fwd, "peak_memory_gb": peak_gb,
-           "grouped_shapes": sorted(shapes), **launches}
+           "grouped_shapes": sorted(shapes), "gemm_routes": routes,
+           **launches}
     print(f"{res['tokens']} tokens in {res['seconds']:.3f} s: "
           f"{res['tokens_per_s']:.2f} tok/s; {res['steps']} steps "
           f"({res['decode_steps']} without admissions: "
@@ -514,6 +734,7 @@ def serve_phase(K, G):
     held.clear()
     torch.cuda.empty_cache()
     res["profile"] = profile_serving(cfg)
+    res["logits_gemm"] = served_logits_timing(cfg, torch.device("cuda", 0))
     torch.cuda.empty_cache()
     return res
 
@@ -594,10 +815,36 @@ def profile_serving(cfg):
           f"device events")
     for r in rows[:12]:
         print(f"  {r['device_ms']:9.3f} ms {r['count']:6d}x  {r['name'][:90]}")
+    gemm_rows = [r for r in rows if "wgmma_gemm" in r["name"]]
+    for r in gemm_rows:
+        print(f"  GEMM (wgmma): {r['device_ms']:.4f} ms over {r['count']} "
+              f"calls, {r['device_ms'] / r['count']:.4f} ms per call  "
+              f"{r['name'][:60]}")
     del eng, lm
     return {"wall_ms": wall_ms, "steps": steps, "device_busy_ms": busy,
             "device_events": sum(r["count"] for r in rows),
-            "top": rows[:25]}
+            "top": rows[:25], "gemm_rows": gemm_rows}
+
+
+def served_logits_timing(cfg, dev):
+    """The served logits GEMM at decode (M = max_batch 4 rows against the
+    (d_model, padded vocab) head) on the planner's tile, timed with CUDA
+    events beside ``torch.matmul`` and its bound (the head's bytes)."""
+    import torch
+    from repro_torch import gemm
+
+    m, n, k = 4, cfg.padded_vocab, cfg.d_model
+    plan = gemm.plan((m, n, k), backend="cuda", machine="h100",
+                     dtype="bf16")
+    a, b = seeded(m, n, k, "bf16", 9, dev)
+    ms = cuda_ms(lambda: plan.execute(a, b))
+    lib = cuda_ms(lambda: torch.matmul(a, b))
+    bms, by = bound(m, n, k, "bf16", False)
+    print(f"served logits GEMM at decode {m}x{n}x{k}, tile {plan.selection}: "
+          f"{ms:.4f} ms per call, torch.matmul {lib:.4f} ms, bound "
+          f"{bms:.4f} ms ({by})")
+    return {"shape": [m, n, k], "tile": str(plan.selection), "ms": ms,
+            "library_ms": lib, "bound_ms": bms, "bound_by": by}
 
 
 def greedy_phase(dev):
@@ -662,10 +909,25 @@ ATTN_SHAPES = (
     ("granite S=4096 full", (1, 4096, 24, 64), False, ("bf16", "f32")),
     ("granite S=32768", (1, 32768, 24, 64), True, ("bf16",)),
     ("qwen2-1.5b S=4096", (1, 4096, 12, 128), True, ("bf16", "f32")),
+    # head dims the 64- and 128-wide instantiations hold past their width,
+    # and the 256-wide one: the smoke configs' 16, stablelm-12b's 160,
+    # xlstm-125m's 192, paligemma-3b's 256; B * H past 65,535
+    ("smoke D=16", (2, 128, 4, 16), True, ("bf16", "f32")),
+    ("D=32", (1, 256, 8, 32), True, ("bf16", "f32")),
+    ("stablelm-12b D=160", (1, 2048, 32, 160), True, ("bf16", "f32")),
+    ("xlstm-125m D=192", (1, 2048, 4, 192), True, ("bf16", "f32")),
+    ("paligemma-3b D=256", (1, 2048, 8, 256), True, ("bf16", "f32")),
+    ("B*H=70000 D=16", (1000, 64, 70, 16), True, ("bf16",)),
 )
 #: phase 10: RMSNorm rows of D = 1536 (both models' d_model)
 NORM_ROWS = (4, 32, 4096, 32768)
 NORM_D = 1536
+#: phase 10: RMSNorm past the register path (name, rows, D, layout):
+#: kimi-k2-1t's d_model 7168 (two passes in f32), a D that is no multiple
+#: of the vector width (scalar path), a non-contiguous x (copied first)
+NORM_EXTRA = (("kimi-k2-1t d_model", 4096, 7168, "contiguous"),
+              ("ragged D", 4096, 1001, "contiguous"),
+              ("non-contiguous x", 4096, 1536, "transposed"))
 #: the shapes phase 9 records from the served model (bucket-32 prefill,
 #: decode at max_batch 4); the kernels line sums phase 10's times at these
 SERVED_ATTN = (1, 32, 24, 64)
@@ -859,12 +1121,17 @@ def attention_norm_phase(dev, FA, R, ops):
                   f"{err:.3g}")
             del q, k, v, qt, kt, vt
             torch.cuda.empty_cache()
-    for i, n in enumerate(NORM_ROWS):
+    norms = [(f"{n} rows", n, NORM_D, "contiguous") for n in NORM_ROWS]
+    for i, (nname, n, nd, layout) in enumerate(norms + list(NORM_EXTRA)):
         for tag in ("bf16", "f32"):
             g = torch.Generator(dev).manual_seed(600 + i)
             dt = {"bf16": torch.bfloat16, "f32": torch.float32}[tag]
-            x = torch.randn((n, NORM_D), generator=g, device=dev, dtype=dt)
-            scale = torch.randn((NORM_D,), generator=g, device=dev)
+            if layout == "transposed":
+                x = torch.randn((nd, n), generator=g, device=dev,
+                                dtype=dt).t()
+            else:
+                x = torch.randn((n, nd), generator=g, device=dev, dtype=dt)
+            scale = torch.randn((nd,), generator=g, device=dev)
             eps = 1e-5
             got = R.rmsnorm(x, scale, eps=eps)
             torch.cuda.synchronize()
@@ -873,18 +1140,21 @@ def attention_norm_phase(dev, FA, R, ops):
             ms = cuda_ms(lambda: R.rmsnorm(x, scale, eps=eps))
             pms = cuda_ms(lambda: R.rmsnorm_plain(x, scale, eps=eps))
             w = scale.to(dt)
-            lib = cuda_ms(lambda: F.rms_norm(x, (NORM_D,), weight=w, eps=eps))
-            bms, by = norm_bound(n, NORM_D, tag)
-            rows.append({"kernel": "rmsnorm", "shape_name": f"{n} rows",
-                         "shape": [n, NORM_D], "dtype": tag,
-                         "max_abs_err": err,
-                         "served": n in SERVED_NORM_ROWS and tag == "bf16",
+            lib = cuda_ms(lambda: F.rms_norm(x, (nd,), weight=w, eps=eps))
+            bms, by = norm_bound(n, nd, tag)
+            path = R.kernel_input(x)[1]
+            rows.append({"kernel": "rmsnorm", "shape_name": nname,
+                         "shape": [n, nd], "dtype": tag, "layout": layout,
+                         "path": path, "max_abs_err": err,
+                         "served": (n in SERVED_NORM_ROWS and nd == NORM_D
+                                    and tag == "bf16"),
                          "ms": ms, "plain_ms": pms, "library_ms": lib,
                          "bound_ms": bms, "bound_by": by,
-                         "gb_per_s": (2 * n * NORM_D * ELEM_BYTES[tag]
-                                      + 4 * NORM_D) / ms / 1e6,
+                         "gb_per_s": (2 * n * nd * ELEM_BYTES[tag]
+                                      + 4 * nd) / ms / 1e6,
                          "bound_share": bms / ms})
-            print(f"rmsnorm {n:>6} x {NORM_D} {tag:<5}: {ms:.4f} ms "
+            print(f"rmsnorm {nname:<19}{n:>6} x {nd} {tag:<5}{layout:<11}"
+                  f"{path:<10}: {ms:.4f} ms "
                   f"({rows[-1]['gb_per_s']:.1f} GB/s, {100 * bms / ms:.2f}% "
                   f"of the bound), plain {pms:.4f} ms, F.rms_norm "
                   f"{lib:.4f} ms, bound {bms:.5f} ms; max |err| {err:.3g}")
@@ -915,7 +1185,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join(HERE, "build",
                                                   "chip_smoke"))
+    ap.add_argument("--parent", default=None,
+                    help="an export of an earlier commit (git archive) "
+                         "whose phase-5 GEMM times to take on the same card, "
+                         "in the order parent, change, change, parent")
+    ap.add_argument("--time-gemms-of", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--shapes", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.time_gemms_of:
+        return time_gemms_of(args.time_gemms_of, json.loads(args.shapes),
+                             args.out)
 
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print(f"error: {SRC}/repro_torch not found; run chip_smoke.py from "
@@ -972,6 +1251,10 @@ def main(argv=None) -> int:
             print("  " + ", ".join(f"{fn} {r} registers / {smem} B static "
                                    f"shared memory"
                                    for fn, r, smem, _ in entries))
+        if v == "gemm_bf16":
+            for fn, r, _, sp in entries:
+                print(f"  {fn}: {r} registers; {sp or 'no spill line'}")
+    sass_check(build, paths["gemm_bf16"])
     for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         tiles = {str(G.grouped_tile(c, dt)): K.smem_bytes(G.grouped_tile(c, dt),
                                                           tag)
@@ -980,6 +1263,16 @@ def main(argv=None) -> int:
               f"(a block may claim {K.MAX_SMEM_BYTES})")
     print(f"flash attention: dynamic shared memory per block by head dim "
           f"{ {d: FA.smem_bytes(d) for d in FA.HEAD_DIMS} }; RMSNorm: none")
+    picks = planner_tiles(gemm, get_config, model_gemm_shapes, TABLE2,
+                          GemmShape)
+    for t in picks:
+        for order in ("k_inner", "k_outer"):
+            c = K.wgmma_config(TileConfig(*t), k_outer=order == "k_outer")
+            print(f"wgmma {t[0]}x{t[1]}x{t[2]} {order}: N = {c.nw}, "
+                  f"{c.consumers} consumer warpgroup(s), {c.rounds} "
+                  f"round(s), slab {c.ks} deep, {c.stages} stage(s) of "
+                  f"{c.stage_bytes} B, {c.smem_bytes} B dynamic shared "
+                  f"memory, {c.threads} threads")
     print(f"device: {card}, {torch.cuda.device_count()} visible, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     print(smi("name,power.limit"))
@@ -987,19 +1280,12 @@ def main(argv=None) -> int:
     # -- phase 2 ---------------------------------------------------------
     phase(2, "kernels vs plain versions on the card")
     qwen = get_config("qwen2-1.5b")
-    picks = set()
-    for d in gemm.plan_many(model_gemm_shapes(qwen, tokens=4096),
-                            backend="cuda", machine="h100"):
-        picks.add((d.selection.bm, d.selection.bn, d.selection.bk))
-    for tag in ("int8", "bf16", "f32"):
-        for d in gemm.plan_many([GemmShape(r.m, r.n, r.k, dtype=tag)
-                                 for r in TABLE2],
-                                backend="cuda", machine="h100"):
-            picks.add((d.selection.bm, d.selection.bn, d.selection.bk))
-    picks = sorted(picks)
     print(f"planner tiles for the slice: {picks}")
+    # 390 = 3 x 128 + 6: the k-outer passes end on a ragged one
     shapes = [(512, 512, 512), (300, 520, 390)]
     checked = 0
+    K.reset_launch_counts()
+    expect = {"wgmma": 0, "cuda_cores": 0}
     for i, (bm, bn, bk) in enumerate(picks):
         for tag in ("int8", "bf16", "f32"):
             for (m, n, k) in shapes:
@@ -1015,10 +1301,51 @@ def main(argv=None) -> int:
                         K.gemm_k_outer_plain(a, b, c0, bk=bk), passes=passes,
                         peak=k_outer_peak(a, b, c0, bk) if tag == "bf16"
                         else None)
+                expect[K.route(a.dtype)] += 1 + passes
                 checked += 2
     torch.cuda.synchronize()
     print(f"{checked} kernel/plain comparisons passed "
-          f"({len(picks)} tiles x 3 dtypes x {len(shapes)} shapes x 2 orders)")
+          f"({len(picks)} tiles x 3 dtypes x {len(shapes)} shapes x 2 "
+          f"orders, the last k-outer pass of {shapes[1]} ragged)")
+    unaligned = [(r.m, r.n, r.k) for r in TABLE2
+                 if r.k % 8 or r.n % 8]
+    for j, ((m, n, k), d) in enumerate(zip(unaligned, gemm.plan_many(
+            [GemmShape(m, n, k, dtype="bf16") for m, n, k in unaligned],
+            backend="cuda", machine="h100"))):
+        a, b = seeded(m, n, k, "bf16", 200 + j, dev)
+        c0 = torch.zeros((m, n), dtype=torch.bfloat16, device=dev)
+        t = d.selection
+        copies = K.COPIES["aligned"]
+        compare("gemm_k_inner", "bf16",
+                K.gemm_k_inner(a, b, tile=TileConfig(t.bm, t.bn, t.bk)),
+                K.gemm_k_inner_plain(a, b))
+        compare("gemm_k_outer", "bf16",
+                K.gemm_k_outer(a, b, c0, tile=TileConfig(
+                    t.bm, t.bn, t.bk, GridOrder.K_OUTER)),
+                K.gemm_k_outer_plain(a, b, c0, bk=t.bk),
+                passes=-(-k // t.bk), peak=k_outer_peak(a, b, c0, t.bk))
+        expect["wgmma"] += 1 + -(-k // t.bk)
+        print(f"Table-2 {m}x{n}x{k} (bf16, tile {t.bm}x{t.bn}x{t.bk}): both "
+              f"orders match; {K.COPIES['aligned'] - copies} operand(s) "
+              f"copied to TMA-aligned rows")
+        if k <= t.bk:
+            # one k-outer pass: how far kernel and plain version each lie
+            # from the float64 product rounded to bf16
+            exact = (a.double() @ b.double()).to(torch.bfloat16)
+            got = K.gemm_k_outer(a, b, c0, tile=TileConfig(
+                t.bm, t.bn, t.bk, GridOrder.K_OUTER))
+            want = K.gemm_k_outer_plain(a, b, c0, bk=t.bk)
+            expect["wgmma"] += 1
+            print(f"  one pass: {int((got != exact).sum())} kernel and "
+                  f"{int((want != exact).sum())} plain-version elements of "
+                  f"{m * n} differ from the float64 product rounded to bf16")
+    torch.cuda.synchronize()
+    routes = dict(K.ROUTES)
+    print(f"phase 2 launches by route: {routes}, expected {expect} (every "
+          f"bf16 launch on wgmma, every f32 and int8 one on the CUDA "
+          f"cores); aligned copies {K.COPIES['aligned']}")
+    check(routes == expect, f"phase 2 launches by route {routes} are not "
+                            f"{expect}")
     a, b = seeded(128, 256, 512, "bf16", 7, dev)
     exact = a.double() @ b.double()
     inner = K.gemm_k_inner(a, b, tile=TileConfig(64, 128, 64))
@@ -1060,6 +1387,7 @@ def main(argv=None) -> int:
               f"match their plain versions")
         del out, want, a, b, c0
         torch.cuda.empty_cache()
+    all_on_wgmma(K, "phase 3")
 
     # -- phase 4 ---------------------------------------------------------
     phase(4, "loop: run_campaign -> fit_from_store -> validate_spec")
@@ -1070,6 +1398,7 @@ def main(argv=None) -> int:
             os.remove(path)
     qshapes = [(pl.problem.m, pl.problem.n, pl.problem.k) for pl in plans]
     for tag in ("int8", "bf16"):
+        before = snapshot(K)
         res = measure.run_campaign("table2", harness="cuda", machine="h100",
                                    dtype=tag, store=store)
         print(f"table2/{tag}: {len(res.samples)} samples, "
@@ -1079,8 +1408,11 @@ def main(argv=None) -> int:
             problems=[GemmProblem(m, n, k, dtype=tag) for m, n, k in qshapes])
         print(f"qwen2-1.5b/{tag}: {len(res.samples)} samples, "
               f"{res.measured_seconds:.4g} s measured")
+        if tag == "bf16":
+            all_on_wgmma(K, "phase 4's bf16 campaigns", before)
     harness = measure.get_harness("cuda")
     held_samples = []
+    before = snapshot(K)
     for pl in plans:
         t = pl.selection
         pinned = gemm.plan(pl.problem, backend="cuda", machine="h100",
@@ -1092,6 +1424,7 @@ def main(argv=None) -> int:
             meta={"grid": "qwen2-1.5b-k_outer"})
         measure.SampleStore(held).append(s)
         held_samples.append(s)
+    all_on_wgmma(K, "phase 4's held-out k-outer samples", before)
     spec, rep = measure.fit_from_store(
         store, "h100", name="h100-fit", date=time.strftime("%Y-%m-%d"),
         on_nonpositive="drop", manifest_dir=args.out)
@@ -1128,33 +1461,20 @@ def main(argv=None) -> int:
 
     # -- phase 5 ---------------------------------------------------------
     phase(5, "timing at the Qwen2-1.5B shapes (CUDA events)")
-    rows = []
-    for i, (name, plan) in enumerate(zip(names, plans)):
-        p, t = plan.problem, plan.selection
-        a, b = seeded(p.m, p.n, p.k, "bf16", 2000 + i, dev)
-        c0 = torch.zeros((p.m, p.n), dtype=torch.bfloat16, device=dev)
-        ti = TileConfig(t.bm, t.bn, t.bk, GridOrder.K_INNER)
-        to = TileConfig(t.bm, t.bn, t.bk, GridOrder.K_OUTER)
-        lib = cuda_ms(lambda: torch.matmul(a, b))
-        for kname, fn, plain, c_in in (
-                ("gemm_k_inner", lambda: K.gemm_k_inner(a, b, tile=ti),
-                 lambda: K.gemm_k_inner_plain(a, b), False),
-                ("gemm_k_outer", lambda: K.gemm_k_outer(a, b, c0, tile=to),
-                 lambda: K.gemm_k_outer_plain(a, b, c0, bk=t.bk), True)):
-            ms = cuda_ms(fn)
-            pms = cuda_ms(plain, min_total_ms=100.0, max_reps=10)
-            bms, by = bound(p.m, p.n, p.k, "bf16", c_in)
-            rows.append({"kernel": kname, "gemm": name,
-                         "shape": [p.m, p.n, p.k],
-                         "tile": str(to if c_in else ti),
-                         "ms": ms, "plain_ms": pms, "library_ms": lib,
-                         "bound_ms": bms, "bound_by": by,
-                         "tflops": 2.0 * p.m * p.n * p.k / ms / 1e9})
-            print(f"{kname:<13}{name:<8}{p.m}x{p.n}x{p.k}: {ms:.4f} ms "
-                  f"({rows[-1]['tflops']:.2f} TFLOP/s), plain {pms:.4f} ms, "
-                  f"torch.matmul {lib:.4f} ms, bound {bms:.4f} ms ({by})")
-        del a, b, c0
-        torch.cuda.empty_cache()
+    gemm_shapes = [(name, pl.problem.m, pl.problem.n, pl.problem.k,
+                    (pl.selection.bm, pl.selection.bn, pl.selection.bk))
+                   for name, pl in zip(names, plans)]
+    before = snapshot(K)
+    parent = []
+    if args.parent:
+        parent.append(parent_gemm_times(args.parent, gemm_shapes, args.out))
+    rows = gemm_timings(K, gemm_shapes, dev)
+    if args.parent:
+        again = gemm_timings(K, gemm_shapes, dev, quiet=True)
+        parent.append(parent_gemm_times(args.parent, gemm_shapes, args.out))
+        compare_with_parent(rows, again, parent)
+    stage_rows = stage_timings(K, gemm_shapes, dev)
+    all_on_wgmma(K, "phase 5", before)
 
     grouped_rows, grouped_err = grouped_phase(args, dev, G)
     served = serve_phase(K, G)
@@ -1163,7 +1483,7 @@ def main(argv=None) -> int:
     attn_rows = attention_norm_phase(dev, FA, R, ops)
 
     csrc = "src/repro_torch/kernels/csrc"
-    kernels = [kernel_entry(kname, f"{csrc}/gemm.cu",
+    kernels = [kernel_entry(kname, f"{csrc}/wgmma_gemm.cuh",
                             f"src/repro/kernels/gemm.py:{line}",
                             launches[kname], max_err[kname],
                             [r for r in rows if r["kernel"] == kname])
@@ -1180,7 +1500,8 @@ def main(argv=None) -> int:
             [r for r in attn_rows if r["kernel"] == kname and r["served"]]))
     with open(os.path.join(args.out, "timings.json"), "w") as f:
         json.dump({"device": card, "power": smi("name,power.limit"),
-                   "rows": rows, "grouped_rows": grouped_rows,
+                   "rows": rows, "stage_rows": stage_rows,
+                   "parent_rows": parent, "grouped_rows": grouped_rows,
                    "serve": served, "greedy": greedy,
                    "model_kernels": model_k,
                    "attention_norm_rows": attn_rows}, f, indent=1)

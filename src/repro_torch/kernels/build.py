@@ -4,7 +4,8 @@ Each source of ``kernels/csrc/`` is compiled at first use for ``sm_90a``
 into one shared library per element type, all in parallel (one ``nvcc``
 process per library): ``gemm.cu`` for bf16, f32 and int8,
 ``grouped_gemm.cu``, ``flash_attention.cu`` and ``rmsnorm.cu`` for bf16 and
-f32.  The two GEMM sources include ``tile_gemm.cuh``.
+f32.  The bf16 build of ``gemm.cu`` includes ``wgmma_gemm.cuh`` (the
+tensor-core route), every other GEMM build ``tile_gemm.cuh``.
 Libraries land in ``build/repro_torch/<hash>/`` at the repository root
 (``.gitignore`` lists ``build/``; ``REPRO_TORCH_BUILD_DIR`` moves it), keyed
 by a hash of every file under ``csrc/`` and the flags, so an edit to any
@@ -36,6 +37,12 @@ _VP, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 #: c_void_p: a bare Python int would go through as a 32-bit int and cut it.
 _GEMM_ARGS = (_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I64, _I64, _I64, _I32,
               _I32, _I32, _VP)
+#: maps; Cin, Cout; M, N, K; ldc; k0, k1; bm, bn, ks, stages, group; stream
+_WGMMA_ARGS = (_VP, _VP, _VP, _I32, _I32, _I32, _I64, _I32, _I32, _I32,
+               _I32, _I32, _I32, _I32, _VP)
+#: A, B, C; M, N, K; lda, ldb, ldc; bm, bn, ks; maps (384 bytes, written)
+_WGMMA_ENCODE_ARGS = (_VP, _VP, _VP, _I32, _I32, _I32, _I64, _I64, _I64,
+                      _I32, _I32, _I32, _VP)
 _GROUPED_ARGS = (_VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
                  _VP)
 #: q, k, v, o; B, S, Skv, H, D; q, k, v strides (batch, seq, head); causal;
@@ -48,16 +55,20 @@ _RMSNORM_ARGS = (_VP, _VP, _VP, _I32, _I32, _F32, _VP)
 
 class Target(NamedTuple):
     """One shared library: its source under csrc/, the define that selects
-    its element type, and its launcher's name and ctypes argument types."""
+    its element type, its launcher's name and ctypes argument types, and
+    any other exported function as ``(name, argtypes)`` pairs (each returns
+    an error code, as the launcher does)."""
     source: str
     define: str
     launcher: str
     argtypes: tuple
+    helpers: tuple = ()
 
 
 TARGETS = {
-    "gemm_bf16": Target("gemm.cu", "REPRO_GEMM_BF16", "repro_gemm_tile",
-                        _GEMM_ARGS),
+    "gemm_bf16": Target("gemm.cu", "REPRO_GEMM_BF16", "repro_gemm_wgmma",
+                        _WGMMA_ARGS, (("repro_gemm_wgmma_encode",
+                                       _WGMMA_ENCODE_ARGS),)),
     "gemm_f32": Target("gemm.cu", "REPRO_GEMM_F32", "repro_gemm_tile",
                        _GEMM_ARGS),
     "gemm_int8": Target("gemm.cu", "REPRO_GEMM_INT8", "repro_gemm_tile",
@@ -166,15 +177,18 @@ def target(name: str) -> Target:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of one target (e.g. ``"gemm_bf16"``), building
-    every library first if needed; its launcher takes the argument types
-    its :class:`Target` names and returns a CUDA error code."""
+    every library first if needed; its launcher and helpers take the
+    argument types its :class:`Target` names and return a CUDA error
+    code."""
     spec = target(name)
     lib = _LIBS.get(name)
     if lib is None:
         lib = ctypes.CDLL(build()[name])
-        launcher = getattr(lib, spec.launcher)
-        launcher.argtypes = list(spec.argtypes)
-        launcher.restype = _I32
+        for fn_name, argtypes in ((spec.launcher, spec.argtypes),
+                                  *spec.helpers):
+            fn = getattr(lib, fn_name)
+            fn.argtypes = list(argtypes)
+            fn.restype = _I32
         lib.repro_cuda_error_string.argtypes = [_I32]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib

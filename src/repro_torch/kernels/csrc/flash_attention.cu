@@ -17,6 +17,12 @@
 // itself, 64 at a time; m and l live in registers (one copy per query row,
 // held by the 16 threads that share the row) and so does acc.
 //
+// Head dims.  The kernel is compiled for the widths D = 64, 128 and 256 and
+// takes the true head dim d <= D at run time: d <= 64 runs the 64-wide
+// instantiation, 64 < d <= 128 the 128-wide one, 128 < d <= 256 the
+// 256-wide one.  Loads past d read zero, which adds nothing to q.k, stores
+// past d are skipped, and the scale is d**-0.5 of the true d.
+//
 // Layout.  q, k and v are read in their (B, S, H, D) layout through the
 // batch, sequence and head strides the wrapper passes (D has unit stride);
 // nothing is copied into the Pallas wrapper's (B*H, S, D) layout.  The
@@ -26,12 +32,15 @@
 // the q, k and v tiles alone would take 192 KB of the 227 KB a block may
 // claim.  This kernel stages a 64 x D query tile (scaled, f32), a 64 x D key
 // tile and a 64 x D value tile in shared memory as f32, plus the 64 x 64
-// probabilities: 70,144 B at D = 64, 119,296 B at D = 128.  The q and k
+// probabilities: 70,144 B at D = 64, 119,296 B at D = 128, 217,600 B at
+// D = 256 (of the 232,448 a block may claim).  The q and k
 // rows are padded to D + 1 floats and the p rows to 80, so the reads below
 // are free of bank conflicts.  256 threads form a 16 x 16 grid; thread
 // (ty, tx) owns query rows ty + 16i (i < 4), score columns tx + 16j (j < 4)
 // and output columns tx + 16c (c < D/16).  Rows and keys past S or Skv are
-// masked, so S and Skv need not divide the tile.
+// masked, so S and Skv need not divide the tile.  Blocks run on a
+// (B*H, ceil(S/64)) grid: B*H on gridDim.x (up to 2^31 - 1), the query
+// tiles on gridDim.y (up to 65,535, so S up to 4,194,240).
 //
 // Masked blocks.  With causal on, the key loop stops after the block that
 // holds the tile's last query: every later key is masked for every row of
@@ -117,8 +126,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o, int S, int Skv, int H,
           int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb, int64_t kss,
-          int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh, int causal,
-          float scale) {
+          int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh, int d,
+          int causal, float scale) {
   static_assert(D % 32 == 0, "the padded rows assume D % 32 == 0");
   using E = Elem<T>;
   constexpr int kLD = D + 1;      // padded row stride of the q and k tiles
@@ -131,8 +140,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int q0 = blockIdx.x * kBQ;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = blockIdx.y * kBQ;
   const T* qb = q + b * qsb + h * qsh;
   const T* kb = k + b * ksb + h * ksh;
   const T* vb = v + b * vsb + h * vsh;
@@ -140,7 +149,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int r = e / D, c = e % D;
     const int qi = q0 + r;
-    Qs[r * kLD + c] = qi < S ? E::up(qb[qi * qss + c]) * scale : 0.0f;
+    Qs[r * kLD + c] =
+        qi < S && c < d ? E::up(qb[qi * qss + c]) * scale : 0.0f;
   }
 
   float m[kRows], l[kRows], acc[kRows][kOut];
@@ -159,7 +169,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = tid; e < kBK * D; e += kThreads) {
       const int r = e / D, c = e % D;
       const int kj = k0 + r;
-      const bool in = kj < Skv;
+      const bool in = kj < Skv && c < d;
       Ks[r * kLD + c] = in ? E::up(kb[kj * kss + c]) : 0.0f;
       Vs[r * D + c] = in ? E::up(vb[kj * vss + c]) : 0.0f;
     }
@@ -228,16 +238,16 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + ty + 16 * i;
     if (qi >= S) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* orow = o + ((static_cast<int64_t>(b) * S + qi) * H + h) * D;
+    T* orow = o + ((static_cast<int64_t>(b) * S + qi) * H + h) * d;
 #pragma unroll
     for (int c = 0; c < kOut; ++c)
-      E::put(orow + tx + 16 * c, acc[i][c] / den);
+      if (tx + 16 * c < d) E::put(orow + tx + 16 * c, acc[i][c] / den);
   }
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int Skv, int H, const int64_t* st,
+                   int B, int S, int Skv, int H, int d, const int64_t* st,
                    int causal, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   static bool configured = false;
@@ -248,13 +258,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  // D**-0.5 rounded once to f32, as the JAX kernel's Python float scale
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
-  const dim3 grid((S + kBQ - 1) / kBQ, B * H);
+  // d**-0.5 of the true head dim, rounded once to f32, as the JAX kernel's
+  // Python float scale
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
+  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   flash_fwd<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), S, Skv, H, st[0], st[1],
-      st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal != 0, scale);
+      st[2], st[3], st[4], st[5], st[6], st[7], st[8], d, causal != 0,
+      scale);
   return cudaGetLastError();
 }
 
@@ -273,27 +285,29 @@ extern "C" {
 
 // o (B, S, H, D), contiguous = attention of q (B, S, H, D) over k, v
 // (B, Skv, H, D), each given by its (batch, sequence, head) strides in
-// elements with unit stride on D.  D is 64 or 128.  Launches on `stream`
-// and returns cudaGetLastError() (0 on success).
+// elements with unit stride on D.  D is 1 to 256 (the 64-, 128- or 256-wide
+// instantiation, the smallest that holds it).  Launches on `stream` and
+// returns cudaGetLastError() (0 on success).
 int repro_flash_attention(const void* q, const void* k, const void* v,
                           void* o, int B, int S, int Skv, int H, int D,
                           int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb,
                           int64_t kss, int64_t ksh, int64_t vsb, int64_t vss,
                           int64_t vsh, int causal, void* stream) {
-  if (B <= 0 || S <= 0 || Skv <= 0 || H <= 0) return cudaErrorInvalidValue;
-  if (static_cast<int64_t>(B) * H > 65535) return cudaErrorInvalidValue;
+  if (B <= 0 || S <= 0 || Skv <= 0 || H <= 0 || D <= 0 || D > 256)
+    return cudaErrorInvalidValue;
+  if (static_cast<int64_t>(B) * H > 2147483647LL ||
+      (static_cast<int64_t>(S) + repro::kBQ - 1) / repro::kBQ > 65535)
+    return cudaErrorInvalidValue;
   const int64_t st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      return repro::launch<ReproElem, 64>(q, k, v, o, B, S, Skv, H, st,
-                                          causal, s);
-    case 128:
-      return repro::launch<ReproElem, 128>(q, k, v, o, B, S, Skv, H, st,
-                                           causal, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (D <= 64)
+    return repro::launch<ReproElem, 64>(q, k, v, o, B, S, Skv, H, D, st,
+                                        causal, s);
+  if (D <= 128)
+    return repro::launch<ReproElem, 128>(q, k, v, o, B, S, Skv, H, D, st,
+                                         causal, s);
+  return repro::launch<ReproElem, 256>(q, k, v, o, B, S, Skv, H, D, st,
+                                       causal, s);
 }
 
 const char* repro_cuda_error_string(int code) {

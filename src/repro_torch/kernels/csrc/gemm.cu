@@ -1,6 +1,10 @@
 // Tiled GEMM kernels for Hopper (sm_90a): the two loop orders the planner
 // chooses between, with the plan's (bm, bn, bk) as the thread-block tile.
 //
+// bf16 runs on the tensor cores (wgmma fed by TMA, wgmma_gemm.cuh: its note
+// gives the design and what bounds it); f32 and int8 run on the CUDA cores
+// (tile_gemm.cuh), as described below.
+//
 // Replaces the Pallas TPU kernels of src/repro/kernels/gemm.py:
 //   * gemm_k_inner (:56, body _k_inner_kernel :43): output-stationary, k
 //     innermost, the B3A2C0 analogue.  Here: one launch; every block owns one
@@ -13,12 +17,11 @@
 //     reads its C tile, adds its A_k.B_k in f32 (int32) and writes C back
 //     rounded to C's dtype: the per-pass rounding of ref.gemm_ref_streamed.
 //
-// What bounds it on an H100: at the planner's tiles the products are far
-// above the card's ridge point (about 295 flop per byte in bf16), so the
-// bound is arithmetic.  This first version multiplies on the CUDA cores
-// (FP32 FMA, exact int32 multiply-add; no tensor cores, no TF32), so it runs
-// against the 67 TFLOP/s FP32 rate, not the 989 TFLOP/s bf16 tensor-core
-// rate; wgmma and TMA are later work.  Its design keeps the CUDA cores fed:
+// What bounds the f32 and int8 builds on an H100: at the planner's tiles
+// the products are far above the card's ridge point, so the bound is
+// arithmetic.  They multiply on the CUDA cores (FP32 FMA, exact int32
+// multiply-add; no TF32, which would not compute the f32 function), against
+// the 67 TFLOP/s FP32 rate.  The design keeps the CUDA cores fed:
 // each thread owns an RM x RN register tile of C, so one k step costs RM + RN
 // shared-memory reads for RM * RN multiply-adds; a warp reads one A value
 // (broadcast) and 32 consecutive B values (no bank conflicts).
@@ -27,17 +30,52 @@
 // exact) and stores outside C are skipped, so any (M, N, K) runs on the
 // plan's tile without padded copies.
 //
-// The tile kernel itself is tile_gemm.cuh's (shared with grouped_gemm.cu);
-// this file is its plain-GEMM entry point, one group.
+// The CUDA-core tile kernel is tile_gemm.cuh's (shared with
+// grouped_gemm.cu); this file is its plain-GEMM entry point, one group.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -DREPRO_GEMM_<BF16|F32|INT8> gemm.cu
-// One shared library per element type, each exporting the same plain C
-// interface (repro_gemm_tile), loaded with ctypes by kernels/build.py.
+// One shared library per element type, loaded with ctypes by
+// kernels/build.py: the bf16 one exports repro_gemm_wgmma_encode and
+// repro_gemm_wgmma, the f32 and int8 ones repro_gemm_tile.
 
+#if defined(REPRO_GEMM_BF16)
+#include "wgmma_gemm.cuh"
+#else
 #include "tile_gemm.cuh"
+#endif
 
 extern "C" {
+
+#if defined(REPRO_GEMM_BF16)
+
+// Encode the tensor maps of A (M, K), B (K, N) and C (M, N), bf16
+// row-major with row strides lda, ldb, ldc, for a bm x bn tile staged ks
+// deep; writes three CUtensorMap (384 bytes) to `maps`.  A and B need rows
+// of a multiple of 8 elements and 16-byte aligned bases; C's map is left
+// empty when C has neither (the kernel then writes C directly).  Returns
+// 0, a CUDA error code, or 100000 + the driver's CUresult.
+int repro_gemm_wgmma_encode(const void* A, const void* B, const void* C,
+                            int M, int N, int K, int64_t lda, int64_t ldb,
+                            int64_t ldc, int bm, int bn, int ks, void* maps) {
+  return repro::wgmma_encode(A, B, C, M, N, K, lda, ldb, ldc, bm, bn, ks,
+                             maps);
+}
+
+// Cout = Cin + A[:, k0:k1] . B[k0:k1, :] (Cin null, or Cout) over the
+// bm x bn tiles, in slabs ks deep through `stages` shared-memory stages, on
+// the maps of repro_gemm_wgmma_encode; blocks walk M fastest within groups
+// of `group` m tiles.  k-inner is one call over [0, K); k-outer one call
+// per k block with Cin = Cout.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
+int repro_gemm_wgmma(const void* maps, const void* Cin, void* Cout, int M,
+                     int N, int K, int64_t ldc, int k0, int k1, int bm,
+                     int bn, int ks, int stages, int group, void* stream) {
+  return repro::wgmma_gemm_launch(maps, Cin, Cout, M, N, K, ldc, k0, k1, bm,
+                                  bn, ks, stages, group, stream);
+}
+
+#else
 
 // C = A.B (Cin null) or C = round(Cin + A.B) over an M x N x K problem with
 // row-major strides lda/ldb/ldc, on a bm x bn x bk thread-block tile.
@@ -50,7 +88,13 @@ int repro_gemm_tile(const void* A, const void* B, const void* Cin, void* Cout,
                                             stream);
 }
 
+#endif
+
 const char* repro_cuda_error_string(int code) {
+#if defined(REPRO_GEMM_BF16)
+  if (code >= repro::kDriverErrorBase)
+    return "cuTensorMapEncodeTiled failed (driver CUresult = code - 100000)";
+#endif
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

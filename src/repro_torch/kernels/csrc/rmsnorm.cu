@@ -17,10 +17,18 @@
 // sum reduced across the warp with shuffles, 16-byte stores.  8 rows (warps)
 // per block of 256 threads; rows need not divide anything.
 //
-// D must be a multiple of 8 (bf16) or 4 (f32), so a row is a whole number
-// of 16-byte vectors, and at most 32 vectors per lane: D <= 8192 in bf16,
-// 4096 in f32.  The launcher refuses anything else, as kernels/rmsnorm.py
-// does first.
+// Three paths, chosen by the launcher (kernels/rmsnorm.py:path mirrors the
+// rule):
+//   * registers: x, y and scale 16-byte aligned, D a multiple of 8 (bf16)
+//     or 4 (f32), so every row is a whole number of aligned 16-byte
+//     vectors, and at most 32 vectors per lane (D <= 8192 in bf16, 4096 in
+//     f32): the row is read once and held in registers, as above.
+//   * two-pass: the same alignment, a wider row (kimi-k2's d_model 7168 in
+//     f32): the row is read twice from device memory, once for the sum of
+//     squares and once for the scaling, in 16-byte vectors.
+//   * scalar: D not a multiple of the vector width, or a base that is not
+//     16-byte aligned: element loads, lane j taking elements j, j + 32, ...,
+//     the last group masked at D, and the row read twice as above.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -DREPRO_ELEM_<BF16|F32> rmsnorm.cu
@@ -107,11 +115,74 @@ rmsnorm_rows(const T* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
+// The two-pass paths: one warp per row, which is read once for the sum of
+// squares and once more for the scaling.  kVecLoads: 16-byte vectors (the
+// row a whole number of aligned vectors); else one element per lane per
+// step, masked at D.
+template <typename T, bool kVecLoads>
+__global__ void __launch_bounds__(kWarps * 32)
+rmsnorm_two_pass(const T* __restrict__ x, const float* __restrict__ scale,
+                 T* __restrict__ y, int rows, int D, float eps) {
+  using E = Elem<T>;
+  constexpr int kVec = 16 / sizeof(T);
+  const int lane = threadIdx.x & 31;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kWarps +
+                      (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const T* xr = x + row * D;
+  T* yr = y + row * D;
+  const int nvec = D / kVec;
+  float ss = 0.0f;
+  if (kVecLoads) {
+    for (int vi = lane; vi < nvec; vi += 32) {
+      const uint4 v = reinterpret_cast<const uint4*>(xr)[vi];
+      const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const float f = E::up(e[j]);
+        ss += f * f;
+      }
+    }
+  } else {
+    for (int c = lane; c < D; c += 32) {
+      const float f = E::up(xr[c]);
+      ss += f * f;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  const float r = rsqrtf(ss / static_cast<float>(D) + eps);
+  if (kVecLoads) {
+    for (int vi = lane; vi < nvec; vi += 32) {
+      uint4 v = reinterpret_cast<const uint4*>(xr)[vi];
+      T* e = reinterpret_cast<T*>(&v);
+      const float* sc = scale + vi * kVec;
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) E::put(e + j, E::up(e[j]) * r * sc[j]);
+      reinterpret_cast<uint4*>(yr)[vi] = v;
+    }
+  } else {
+    for (int c = lane; c < D; c += 32)
+      E::put(yr + c, E::up(xr[c]) * r * scale[c]);
+  }
+}
+
 template <typename T, int NV>
 cudaError_t launch(const void* x, const void* scale, void* y, int rows,
                    int D, float eps, cudaStream_t stream) {
   const int blocks = (rows + kWarps - 1) / kWarps;
   rmsnorm_rows<T, NV><<<blocks, kWarps * 32, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(scale),
+      static_cast<T*>(y), rows, D, eps);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kVecLoads>
+cudaError_t launch_two_pass(const void* x, const void* scale, void* y,
+                            int rows, int D, float eps, cudaStream_t stream) {
+  const int blocks = (rows + kWarps - 1) / kWarps;
+  rmsnorm_two_pass<T, kVecLoads><<<blocks, kWarps * 32, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(scale),
       static_cast<T*>(y), rows, D, eps);
   return cudaGetLastError();
@@ -130,19 +201,25 @@ typedef float ReproElem;
 
 extern "C" {
 
-// y (rows, D) = rmsnorm of x (rows, D), both contiguous and 16-byte
-// aligned, with an f32 scale (D,), also aligned.  Launches on `stream` and
+// y (rows, D) = rmsnorm of x (rows, D), both contiguous, with an f32 scale
+// (D,).  Any D and any base: the path follows from D and the alignment of
+// x, y and scale (see the note at the top).  Launches on `stream` and
 // returns cudaGetLastError() (0 on success).
 int repro_rmsnorm(const void* x, const void* scale, void* y, int rows, int D,
                   float eps, void* stream) {
   constexpr int kVec = 16 / sizeof(ReproElem);
-  if (rows <= 0 || D <= 0 || D % kVec != 0) return cudaErrorInvalidValue;
+  if (rows <= 0 || D <= 0) return cudaErrorInvalidValue;
   const uintptr_t align = reinterpret_cast<uintptr_t>(x) |
                           reinterpret_cast<uintptr_t>(scale) |
                           reinterpret_cast<uintptr_t>(y);
-  if (align % 16 != 0) return cudaErrorMisalignedAddress;
-  const int per_lane = (D / kVec + 31) / 32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (align % 16 != 0 || D % kVec != 0)
+    return repro::launch_two_pass<ReproElem, false>(x, scale, y, rows, D, eps,
+                                                    s);
+  const int per_lane = (D / kVec + 31) / 32;
+  if (per_lane > repro::kMaxVecs)
+    return repro::launch_two_pass<ReproElem, true>(x, scale, y, rows, D, eps,
+                                                   s);
 #define REPRO_NV_CASE(NV_)                                                   \
   if (per_lane <= NV_)                                                       \
     return repro::launch<ReproElem, NV_>(x, scale, y, rows, D, eps, s);

@@ -7,9 +7,13 @@ of ``csrc/flash_attention.cu``; it replaces
 (src/repro/kernels/flash_attention.py:68).  q is scaled by ``D**-0.5`` in
 f32, the causal mask is top-left aligned (key j visible to query i when
 j <= i) and filled with -1e30, the softmax runs online in f32 and the
-output is cast to q's dtype.  bf16 and f32 are taken, at head dims
-:data:`HEAD_DIMS`; anything else raises.  There is no GQA: callers repeat
-the KV heads, as for the JAX kernel.
+output is cast to q's dtype.  bf16 and f32 are taken, at any head dim up
+to :data:`MAX_HEAD_DIM`: the kernel is compiled for the widths
+:data:`HEAD_DIMS` and a head dim runs on the smallest that holds it
+(:func:`compiled_width`), loads past it reading zero and stores past it
+skipped; a wider head dim raises.  B * H and S are limited only by the
+grid (:func:`_check_grid`).  There is no GQA: callers repeat the KV heads,
+as for the JAX kernel.
 
 Bound on an H100: bytes at the served prefill (S = 32), operations from a
 few hundred positions on.  The kernel keeps the scores out of device
@@ -37,8 +41,10 @@ from repro_torch.kernels.gemm import _on_cpu
 #: kernel launches since the last reset
 LAUNCHES = {"flash_attention": 0}
 _TAGS = {torch.bfloat16: "bf16", torch.float32: "f32"}
-#: head dims the kernel is compiled for
-HEAD_DIMS = (64, 128)
+#: head-dim widths the kernel is compiled for
+HEAD_DIMS = (64, 128, 256)
+#: the widest head dim taken
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 #: the kernel's tile: query rows per block, keys per step
 BLOCK_Q = 64
 BLOCK_K = 64
@@ -48,12 +54,34 @@ def reset_launch_counts() -> None:
     LAUNCHES["flash_attention"] = 0
 
 
+def compiled_width(d: int) -> int:
+    """The compiled head-dim width that runs head dim ``d``: the smallest
+    of :data:`HEAD_DIMS` that holds it.  Raises ValueError past
+    :data:`MAX_HEAD_DIM`."""
+    for width in HEAD_DIMS:
+        if 0 < d <= width:
+            return width
+    raise ValueError(f"the flash attention kernel takes head dims from 1 "
+                     f"to {MAX_HEAD_DIM}, not {d}")
+
+
 def smem_bytes(d: int) -> int:
-    """Dynamic shared memory one block claims: the f32 q and k tiles with
-    rows padded to D + 1, the v tile, and the probabilities with rows
-    padded to BLOCK_K + 16."""
-    return 4 * (BLOCK_Q * (d + 1) + BLOCK_K * (d + 1) + BLOCK_K * d
+    """Dynamic shared memory one block claims at head dim ``d``: the f32
+    q and k tiles with rows padded to D + 1, the v tile, and the
+    probabilities with rows padded to BLOCK_K + 16, where D is the
+    compiled width that runs ``d``."""
+    w = compiled_width(d)
+    return 4 * (BLOCK_Q * (w + 1) + BLOCK_K * (w + 1) + BLOCK_K * w
                 + BLOCK_Q * (BLOCK_K + 16))
+
+
+def _check_grid(b: int, s: int, h: int, skv: int) -> None:
+    """The launch grid is (B*H, ceil(S/BLOCK_Q)): B*H on gridDim.x, the
+    query tiles on gridDim.y (at most 65,535)."""
+    if b * h >= 2 ** 31 or -(-s // BLOCK_Q) > 65535 or skv >= 2 ** 31:
+        raise ValueError(f"B * H = {b * h}, S = {s}, Skv = {skv}: the grid "
+                         f"takes B * H < 2**31 and S <= "
+                         f"{65535 * BLOCK_Q}")
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True):
@@ -107,17 +135,13 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, block_q: int = 128,
     if _on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal)
     b, s, h, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the flash attention kernel is compiled for head "
-                         f"dims {HEAD_DIMS}, not {d}")
+    compiled_width(d)
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("the flash attention kernel takes a unit stride on "
                          "the head dim")
     if len({t.device for t in (q, k, v)}) != 1:
         raise ValueError("operands on different CUDA devices")
-    if b * h > 65535 or max(s, k.shape[1]) >= 2 ** 31:
-        raise ValueError(f"B * H = {b * h} over 65535 or a sequence over "
-                         f"int32")
+    _check_grid(b, s, h, k.shape[1])
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o

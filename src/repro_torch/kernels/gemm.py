@@ -15,20 +15,35 @@ thread-block tile:
   **C3B2A0/B3C2A0 analogue** (C streamed).  The caller's ``c`` is never
   mutated: it is cloned once and the passes update the clone in place.
 
-Bound on an H100: at the planner's tiles both are arithmetic-bound (far
-above the ~295 flop/byte bf16 ridge point); this first version multiplies
-on the CUDA cores (FP32 FMA, int32 multiply-add, no TF32), so it runs
-against 67 TFLOP/s, not the tensor cores' 989.  Design notes are in the
-CUDA source.
+Two routes, by operand dtype (:func:`route`):
+
+* ``"wgmma"``: bf16 runs on the tensor cores, ``wgmma.mma_async`` fed by
+  TMA through a ring of shared-memory stages (``csrc/wgmma_gemm.cuh``),
+  configured by :func:`wgmma_config`.  The tensor maps are encoded once per
+  wrapper call; a k-outer pass differs only in its k0.  TMA needs 16-byte
+  aligned bases and row strides: an operand without them is first copied
+  once into an aligned buffer (:func:`aligned_copy`, counted in
+  ``COPIES``).
+* ``"cuda_cores"``: f32 and int8 run the register-tiled kernel of
+  ``csrc/tile_gemm.cuh`` (FP32 FMA, exact int32 multiply-add; no TF32,
+  which would not compute the f32 function), configured by
+  :func:`launch_config`.
+
+Bound on an H100: at the planner's tiles and Qwen2-1.5B's shapes k-inner is
+bound by operations; at decode (M of a few rows) by the bytes of B; k-outer
+by the C stream its variant defines.  Design notes are in the CUDA sources.
 
 Each kernel has a plain PyTorch version beside it (``*_plain``), the same
 function computed by ``kernels/ref.py``.  A wrapper runs the plain version
 only when its operands lie on the CPU; CUDA operands launch the kernel or
 raise.  ``LAUNCHES`` counts kernel launches, one per launch, and nothing
 else.  Unlike the Pallas kernels, these mask ragged edges themselves, so
-shapes need not divide the tile.
+shapes need not divide the tile.  ``ROUTES`` counts the same launches by
+route, so a run can show that every bf16 launch used ``wgmma``.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -43,13 +58,23 @@ MAX_REGISTER_TILE = 64
 
 #: kernel launches since the last reset, by kernel name
 LAUNCHES = {"gemm_k_inner": 0, "gemm_k_outer": 0}
+#: the same launches by route: tensor cores (bf16) or CUDA cores
+ROUTES = {"wgmma": 0, "cuda_cores": 0}
+#: operands copied into a TMA-aligned buffer before a wgmma launch
+COPIES = {"aligned": 0}
 
 _TAGS = {torch.bfloat16: "bf16", torch.float32: "f32", torch.int8: "int8"}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ROUTES, COPIES):
+        for name in counts:
+            counts[name] = 0
+
+
+def route(dtype) -> str:
+    """``"wgmma"`` for bf16 operands, ``"cuda_cores"`` for f32 and int8."""
+    return "wgmma" if _tag(dtype) == "bf16" else "cuda_cores"
 
 
 def _tag(dtype) -> str:
@@ -70,9 +95,10 @@ def out_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 def smem_bytes(tile: TileConfig, dtype) -> int:
-    """Dynamic shared memory one block of either kernel claims: the A and B
+    """Dynamic shared memory one block of the CUDA-core kernel
+    (``tile_gemm.cuh``: f32, int8 and the grouped GEMM) claims: the A and B
     slabs (bm x bk and bk x bn) in the operand dtype; the accumulator lives
-    in registers."""
+    in registers.  The wgmma route's is :func:`wgmma_config`'s."""
     s = DTYPE_BYTES[_tag(dtype)]
     return (tile.bm * tile.bk + tile.bk * tile.bn) * s
 
@@ -102,6 +128,119 @@ def launch_config(tile: TileConfig, dtype) -> tuple[int, int, int]:
         raise ValueError(f"tile {tile}: {need} bytes of shared memory exceed "
                          f"the {MAX_SMEM_BYTES} a Hopper block may claim")
     return threads, rm, rn
+
+
+#: bf16 columns of one 128-byte-swizzled TMA box (csrc/wgmma_gemm.cuh)
+WGMMA_BOX_COLS = 64
+#: shared-memory stages a wgmma block keeps in flight, at most; fewer when
+#: fewer fit (see :func:`wgmma_config`).  Two: at the planner's 64x128x128
+#: tile two 48 KB stages leave room for a second block on the SM, which
+#: measured faster than four stages and one block (PERF.md, PR 14).
+WGMMA_STAGES = 2
+
+
+class WgmmaConfig(NamedTuple):
+    """How ``csrc/wgmma_gemm.cuh`` runs one bf16 tile."""
+    nw: int           #: the instruction's N (m64nNk16)
+    consumers: int    #: consumer warpgroups (each owns a 64 x nw unit)
+    rounds: int       #: passes over K, when the tile has more units
+    ks: int           #: slab depth: bk, or less when two slabs do not fit
+    stages: int       #: shared-memory stages in the ring
+    stage_bytes: int
+    smem_bytes: int   #: dynamic shared memory one block claims
+    threads: int      #: consumers x 128 + one producer warp
+
+
+def _wgmma_stage(bm: int, bn: int, ks: int,
+                 c_tile: bool) -> tuple[int, int]:
+    """(bytes of one stage, bytes after the stages) for a bm x bn tile
+    staged ks deep, as ``Geom`` in csrc/wgmma_gemm.cuh lays them out: a
+    stage holds A in ceil(ks/64) bands of max(bm, 8) rows and B in
+    max(bn, 64)/64 bands of max(ks, 16) rows, 128 bytes a row; after the
+    stages come the bf16 C tile (``c_tile``), the pad an m64 read of a
+    band shorter than 64 rows reaches into, and one C-tile mbarrier."""
+    bmp = max(bm, 8)
+    a = -(-ks // WGMMA_BOX_COLS) * bmp * 128
+    b = max(bn, WGMMA_BOX_COLS) // WGMMA_BOX_COLS * max(ks, 16) * 128
+    pad = (64 - bmp) * 128 if bmp < 64 else 0
+    c = -(-bm * bn * 2 // 128) * 128 if c_tile else 0
+    return a + b, c + pad + 8
+
+
+def _wgmma_smem(stage_bytes: int, rest: int, stages: int) -> int:
+    # the stages with two mbarriers each, then the rest
+    return stages * (stage_bytes + 16) + rest
+
+
+def wgmma_config(tile: TileConfig, *, k_outer: bool = False) -> WgmmaConfig:
+    """How the tensor-core route runs the bf16 ``tile``; raises ValueError
+    for a tile it does not take.  The slab is the plan's bk deep unless two
+    such slabs do not fit in a block's shared memory, then the deepest
+    power of two (at least 16) that fits twice.  The stages are as many as
+    fit, at most :data:`WGMMA_STAGES`, and for a k-outer pass (one bk
+    block) at most its slabs: a deeper ring would hold nothing."""
+    bm, bn, bk = tile.bm, tile.bn, tile.bk
+    if not (_pow2(bm) and _pow2(bn) and _pow2(bk)):
+        raise ValueError(f"tile {tile}: the kernels take power-of-two "
+                         f"bm, bn, bk")
+    ks = bk
+    # C goes through a tile in shared memory where TMA can move its rows
+    # (bn >= 8; the launcher also checks C's alignment, and a tile reserved
+    # but unused only costs shared memory)
+    c_tile = bn >= 8
+    while ks > 16 and _wgmma_smem(*_wgmma_stage(bm, bn, ks, c_tile), 2) \
+            > MAX_SMEM_BYTES:
+        ks //= 2
+    stage, rest = _wgmma_stage(bm, bn, ks, c_tile)
+    fit = (MAX_SMEM_BYTES - rest) // (stage + 16)
+    if fit < 1:
+        raise ValueError(
+            f"tile {tile}: one {stage}-byte stage exceeds the "
+            f"{MAX_SMEM_BYTES} bytes of shared memory a Hopper block may "
+            f"claim")
+    stages = min(fit, WGMMA_STAGES, bk // ks if k_outer else fit)
+    bnp = max(bn, WGMMA_BOX_COLS)
+    nw = min(bnp, 256)
+    units = -(-max(bm, 8) // 64) * (bnp // nw)
+    consumers = 1 if units < 2 else 2
+    return WgmmaConfig(nw, consumers, -(-units // consumers), ks, stages,
+                       stage, _wgmma_smem(stage, rest, stages),
+                       consumers * 128 + 32)
+
+
+def check_tile(tile: TileConfig, dtype, *, k_outer: bool = False):
+    """The route's config for ``tile`` (:func:`wgmma_config` for bf16,
+    :func:`launch_config` otherwise); raises ValueError for a tile the
+    route does not take, on any device."""
+    if route(dtype) == "wgmma":
+        return wgmma_config(tile, k_outer=k_outer)
+    return launch_config(tile, dtype)
+
+
+def _tma_row_stride(t) -> int:
+    """The row stride a tensor map is given for row-major ``t``: its own,
+    or, for a single row (never stepped), its width rounded up to 8."""
+    return t.stride(0) if t.shape[0] > 1 else -(-t.shape[1] // 8) * 8
+
+
+def needs_aligned_copy(t) -> bool:
+    """Whether TMA cannot read the row-major bf16 matrix ``t`` in place: a
+    base that is not 16-byte aligned, or a row stride that is not a
+    multiple of 16 bytes (8 elements)."""
+    return t.data_ptr() % 16 != 0 or _tma_row_stride(t) % 8 != 0
+
+
+def aligned_copy(t):
+    """``t`` copied once into a buffer whose row stride is its width rounded
+    up to 8 elements (16 bytes), returned as the view of ``t``'s logical
+    extent (the tensor map is given that extent, so the padding is never
+    read)."""
+    rows, cols = t.shape
+    buf = torch.empty((rows, -(-cols // 8) * 8), dtype=t.dtype,
+                      device=t.device)
+    view = buf[:, :cols]
+    view.copy_(t)
+    return view
 
 
 def gemm_k_inner_plain(a, b):
@@ -163,15 +302,82 @@ def _launch(a, b, c_in, c_out, m: int, n: int, k: int, tile) -> None:
                            f"tile {tile}: {msg} (cuda error {err})")
 
 
+def _wgmma_maps(lib, a, b, c, m: int, n: int, k: int, tile, cfg):
+    """The tensor maps of A, B and C (384 bytes) of one wrapper call, after
+    copying an operand TMA cannot read in place; returns (maps, the
+    operands used), which the caller keeps alive until its launches are
+    enqueued."""
+    import ctypes
+
+    if needs_aligned_copy(a):
+        a = aligned_copy(a)
+        COPIES["aligned"] += 1
+    if needs_aligned_copy(b):
+        b = aligned_copy(b)
+        COPIES["aligned"] += 1
+    maps = ctypes.create_string_buffer(384)
+    err = lib.repro_gemm_wgmma_encode(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
+        _tma_row_stride(a), _tma_row_stride(b), c.stride(0), tile.bm,
+        tile.bn, cfg.ks, maps)
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"tensor maps for {m}x{n}x{k} on tile {tile}: "
+                           f"{msg} (error {err})")
+    return maps, (a, b)
+
+
+#: L2 bytes a group of m tiles may claim for the A rows it shares
+RASTER_L2_BYTES = 16 << 20
+
+
+def raster_group(m: int, k: int, bm: int) -> int:
+    """How many m tiles the blocks of one launch walk before the next n
+    tile: as many as keep the A rows they share (``bm`` x ``k`` bf16 each,
+    ``k`` the depth one launch reads) within :data:`RASTER_L2_BYTES` of L2,
+    at least 1, at most all of them."""
+    return max(1, min(-(-m // bm), RASTER_L2_BYTES // (bm * k * 2)))
+
+
+def _launch_wgmma(lib, maps, c_in, c_out, m: int, n: int, k: int, k0: int,
+                  k1: int, tile, cfg, group: int) -> None:
+    with torch.cuda.device(c_out.device):
+        stream = torch.cuda.current_stream(c_out.device).cuda_stream
+        err = lib.repro_gemm_wgmma(
+            maps, None if c_in is None else c_in.data_ptr(),
+            c_out.data_ptr(), m, n, k, c_out.stride(0), k0, k1, tile.bm,
+            tile.bn, cfg.ks, cfg.stages, group, stream)
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"wgmma gemm launch failed for {m}x{n}x{k} "
+                           f"(k {k0}..{k1}) on tile {tile}: {msg} (cuda "
+                           f"error {err})")
+    ROUTES["wgmma"] += 1
+
+
 def gemm_k_inner(a, b, *, tile: TileConfig):
     """C = A @ B, output-stationary (B3A2C0 analogue)."""
     m, n, k = _check_operands(a, b)
-    launch_config(tile, a.dtype)
+    cfg = check_tile(tile, a.dtype)
     if _on_cpu(a, b):
         return gemm_k_inner_plain(a, b)
     _check_cuda(a, b)
     out = torch.empty((m, n), dtype=out_dtype(a.dtype), device=a.device)
-    _launch(a, b, None, out, m, n, k, tile)
+    if route(a.dtype) == "cuda_cores":
+        _launch(a, b, None, out, m, n, k, tile)
+        ROUTES["cuda_cores"] += 1
+    elif out.numel() and k == 0:
+        out.zero_()
+        return out
+    elif out.numel():
+        from repro_torch.kernels import build
+
+        lib = build.load("gemm_bf16")
+        maps, _keep = _wgmma_maps(lib, a, b, out, m, n, k, tile, cfg)
+        _launch_wgmma(lib, maps, None, out, m, n, k, 0, k, tile, cfg,
+                      raster_group(m, k, tile.bm))
+    else:
+        return out
     LAUNCHES["gemm_k_inner"] += 1
     return out
 
@@ -180,7 +386,7 @@ def gemm_k_outer(a, b, c, *, tile: TileConfig):
     """C + A @ B with C streamed once per k block (C3B2A0/B3C2A0 analogue);
     C is rounded to its dtype after every pass."""
     m, n, k = _check_operands(a, b)
-    launch_config(tile, a.dtype)
+    cfg = check_tile(tile, a.dtype, k_outer=True)
     if tuple(c.shape) != (m, n):
         raise ValueError(f"C {tuple(c.shape)} does not match the "
                          f"{m}x{n} product")
@@ -193,10 +399,24 @@ def gemm_k_outer(a, b, c, *, tile: TileConfig):
     _check_cuda(a, b, c)
     out = c.clone(memory_format=torch.contiguous_format)
     bk = tile.bk
+    if route(a.dtype) == "cuda_cores":
+        for k0 in range(0, k, bk):
+            span = min(bk, k - k0)
+            _launch(a[:, k0:k0 + span], b[k0:k0 + span], out, out, m, n,
+                    span, tile)
+            LAUNCHES["gemm_k_outer"] += 1
+            ROUTES["cuda_cores"] += 1
+        return out
+    if not (out.numel() and k):
+        return out
+    from repro_torch.kernels import build
+
+    lib = build.load("gemm_bf16")
+    maps, _keep = _wgmma_maps(lib, a, b, out, m, n, k, tile, cfg)
+    group = raster_group(m, min(bk, k), tile.bm)
     for k0 in range(0, k, bk):
-        span = min(bk, k - k0)
-        _launch(a[:, k0:k0 + span], b[k0:k0 + span], out, out, m, n, span,
-                tile)
+        _launch_wgmma(lib, maps, out, out, m, n, k, k0, min(k0 + bk, k), tile,
+                      cfg, group)
         LAUNCHES["gemm_k_outer"] += 1
     return out
 

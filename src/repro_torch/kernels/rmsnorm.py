@@ -7,9 +7,20 @@ statistics are f32, ``scale`` is cast to f32 (exact from bf16) and the
 output has x's dtype; bf16 and f32 x are taken, anything else raises.
 
 Bound on an H100: bytes (each row read once and written once for four
-operations per element).  One warp per row with 16-byte loads, the row
-held in registers between the sum of squares and the scaling; D must be a
-multiple of 8 (bf16) or 4 (f32) and at most :func:`max_dim`.
+operations per element).  One warp per row.  Any D and any x are taken;
+:func:`path` names the kernel path a call takes:
+
+* ``"registers"``: D a multiple of 8 (bf16) or 4 (f32), at most
+  :func:`max_dim`, x 16-byte aligned: 16-byte loads, the row held in
+  registers between the sum of squares and the scaling (read once);
+* ``"two-pass"``: the same, with a wider row: 16-byte loads, the row read
+  twice from device memory (once for the sum, once for the scaling);
+* ``"scalar"``: D not a multiple of the vector width, or x not 16-byte
+  aligned: element loads with the last group masked at D, the row read
+  twice.
+
+A non-contiguous x is first copied into a contiguous tensor by the
+wrapper (one copy of x, :func:`kernel_input`).
 
 ``block_rows`` only decides which calls are accepted: as the JAX kernel
 asserts, ``rows % min(block_rows, rows)`` must be 0, else ValueError, on
@@ -49,6 +60,25 @@ def vector_elems(dtype) -> int:
 def max_dim(dtype) -> int:
     """The widest row the kernel takes: 32 lanes x 32 vectors."""
     return 32 * MAX_VECS_PER_LANE * vector_elems(dtype)
+
+
+def kernel_input(x):
+    """(the x the kernel reads, its path): a non-contiguous x is copied
+    into a contiguous tensor (one copy); the path follows from D and the
+    alignment of that tensor's base, as the launcher in
+    ``csrc/rmsnorm.cu`` decides it."""
+    if not x.is_contiguous():
+        x = x.contiguous()
+    return x, path(x)
+
+
+def path(x) -> str:
+    """The kernel path for a contiguous x: ``"registers"``,
+    ``"two-pass"`` or ``"scalar"`` (see the module note)."""
+    d, vec = x.shape[-1], vector_elems(x.dtype)
+    if d % vec or x.data_ptr() % 16:
+        return "scalar"
+    return "registers" if d <= max_dim(x.dtype) else "two-pass"
 
 
 def rmsnorm_plain(x, scale, *, eps: float = 1e-5):
@@ -92,23 +122,17 @@ def rmsnorm(x, scale, *, eps: float = 1e-5, block_rows: int = 256):
     rows = _check(x, scale, block_rows)
     if _on_cpu(x, scale):
         return rmsnorm_plain(x, scale, eps=eps)
-    d = x.shape[-1]
-    vec = vector_elems(x.dtype)
-    if d % vec or d > max_dim(x.dtype):
-        raise ValueError(f"the RMSNorm kernel takes D a multiple of {vec} "
-                         f"and at most {max_dim(x.dtype)} for {x.dtype}, "
-                         f"not {d}")
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("the RMSNorm kernel takes a contiguous, 16-byte "
-                         "aligned x")
-    if rows >= 2 ** 31:
-        raise ValueError(f"{rows} rows exceed int32")
+    if rows >= 2 ** 31 or x.shape[-1] >= 2 ** 31:
+        raise ValueError(f"{rows} rows of {x.shape[-1]} exceed int32")
     if x.device != scale.device:
         raise ValueError("x and scale on different CUDA devices")
+    shape = x.shape
+    x, _ = kernel_input(x)
     s32 = scale.to(torch.float32).contiguous()
     if s32.data_ptr() % 16:
         s32 = s32.clone()
-    y = torch.empty_like(x, memory_format=torch.contiguous_format)
-    _launch(x, s32, y, rows, float(eps))
-    LAUNCHES["rmsnorm"] += 1
+    y = torch.empty(shape, dtype=x.dtype, device=x.device)
+    if y.numel():
+        _launch(x, s32, y, rows, float(eps))
+        LAUNCHES["rmsnorm"] += 1
     return y

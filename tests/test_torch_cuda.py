@@ -59,19 +59,29 @@ def _bf16_ulp(y):
 
 @pytest.mark.parametrize("dt", ["bf16", "f32", "int8"])
 @pytest.mark.parametrize("tile", [(64, 128, 128), (128, 128, 128),
-                                  (32, 256, 128), (8, 8, 128)])
-def test_kernels_match_plain_versions(dt, tile):
-    m, n, k = 300, 520, 390
+                                  (32, 256, 128), (8, 8, 128),
+                                  (8, 256, 128), (32, 128, 128),
+                                  (128, 64, 128)])
+@pytest.mark.parametrize("m,n,k", [
+    (300, 520, 390),     # ragged in every dimension and in the last pass
+    (64, 196, 390),      # bf16: rows TMA cannot read in place (copied)
+])
+def test_kernels_match_plain_versions(dt, tile, m, n, k):
     ta, tb = _operands(m, n, k, dt, sum(tile))
     ti, to = TileConfig(*tile), TileConfig(*tile, GridOrder.K_OUTER)
     c0 = torch.zeros((m, n), dtype=K.out_dtype(ta.dtype), device="cuda")
     before = dict(K.LAUNCHES)
+    routes = dict(K.ROUTES)
     got_i = K.gemm_k_inner(ta, tb, tile=ti)
     got_o = K.gemm_k_outer(ta, tb, c0, tile=to)
     torch.cuda.synchronize()
     passes = -(-k // tile[2])
     assert K.LAUNCHES["gemm_k_inner"] == before["gemm_k_inner"] + 1
     assert K.LAUNCHES["gemm_k_outer"] == before["gemm_k_outer"] + passes
+    route = "wgmma" if dt == "bf16" else "cuda_cores"
+    other = "cuda_cores" if dt == "bf16" else "wgmma"
+    assert K.ROUTES[route] == routes[route] + 1 + passes
+    assert K.ROUTES[other] == routes[other]
     assert torch.equal(c0, torch.zeros_like(c0))      # caller's C untouched
     want_i = K.gemm_k_inner_plain(ta, tb)
     want_o = K.gemm_k_outer_plain(ta, tb, c0, bk=tile[2])
@@ -258,16 +268,48 @@ def test_flash_attention_kernel_reads_strided_operands():
 
 
 def test_flash_attention_kernel_refuses_what_it_does_not_take():
+    """Head dims up to 256 run (16 and 32 on the 64-wide instantiation,
+    256 on the 256-wide one) and match the plain version; a head dim past
+    256, a non-unit head-dim stride and the JAX kernel's block assert are
+    refused before any launch."""
     from repro_torch.kernels import flash_attention as FA
 
-    q = torch.zeros(1, 64, 2, 32, device="cuda")
+    for d in (16, 32, 256):
+        q, k, v = (torch.randn(1, 128, 2, d, device="cuda")
+                   for _ in range(3))
+        before = FA.LAUNCHES["flash_attention"]
+        got = FA.flash_attention_fwd(q, k, v)
+        torch.cuda.synchronize()
+        assert FA.LAUNCHES["flash_attention"] == before + 1
+        torch.testing.assert_close(got, FA.flash_attention_plain(q, k, v),
+                                   rtol=1e-5, atol=1e-5)
     before = FA.LAUNCHES["flash_attention"]
-    with pytest.raises(ValueError, match="head dims"):
+    q = torch.zeros(1, 64, 2, 264, device="cuda")
+    with pytest.raises(ValueError, match="256"):
         FA.flash_attention_fwd(q, q, q)
     q = torch.zeros(1, 64, 2, 128, device="cuda")[..., ::2]
     with pytest.raises(ValueError, match="unit stride"):
         FA.flash_attention_fwd(q, q, q)
+    q = torch.zeros(1, 192, 2, 64, device="cuda")
+    with pytest.raises(ValueError, match="multiples"):
+        FA.flash_attention_fwd(q, q, q)        # 192 % min(128, 192) != 0
     assert FA.LAUNCHES["flash_attention"] == before
+
+
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+def test_flash_attention_kernel_takes_b_times_h_past_65535(dt):
+    """B * H = 70,000 blocks of 64 queries (B * H on gridDim.x)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    rng = np.random.default_rng(70000)
+    q, k, v = operands_from_numpy(
+        *(rng.normal(size=(1000, 64, 70, 16)).astype(np.float32)
+          for _ in range(3)), device="cuda", dtype=dt)
+    got = FA.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    want = FA.flash_attention_plain(q, k, v)
+    tol = 3e-2 if dt == "bf16" else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("dt", ["bf16", "f32"])
@@ -297,15 +339,29 @@ def test_rmsnorm_kernel_matches_plain_version(shape, dt):
 
 
 def test_rmsnorm_kernel_refuses_ragged_rows_and_widths():
+    """Ragged rows stay refused, as the JAX kernel asserts; ragged and wide
+    widths, a sliced (non-contiguous, misaligned) x and kimi-k2-1t's 7168
+    in f32 now run, each path matching the plain version."""
     from repro_torch.kernels import rmsnorm as R
 
+    x = torch.randn(300, 1536, dtype=torch.bfloat16, device="cuda")
+    s = torch.randn(1536, device="cuda")
     before = R.LAUNCHES["rmsnorm"]
-    x = torch.zeros(300, 1536, dtype=torch.bfloat16, device="cuda")
-    s = torch.ones(1536, device="cuda")
     with pytest.raises(ValueError, match="rows are not a multiple"):
         R.rmsnorm(x, s)                       # 300 % min(256, 300) != 0
-    with pytest.raises(ValueError, match="multiple of 8"):
-        R.rmsnorm(x[:, :100], s[:100], block_rows=300)
-    with pytest.raises(ValueError, match="contiguous"):
-        R.rmsnorm(x[:, 8:], s[8:], block_rows=300)
     assert R.LAUNCHES["rmsnorm"] == before
+    wide = torch.randn(8, 12288, dtype=torch.bfloat16, device="cuda")
+    kimi = torch.randn(16, 7168, device="cuda")
+    for xx, ss in ((x[:, :100], s[:100]), (x[:, 8:], s[8:]),
+                   (x[:, 1:], s[1:]), (wide, torch.randn(12288,
+                                                         device="cuda")),
+                   (kimi, torch.randn(7168, device="cuda"))):
+        got = R.rmsnorm(xx, ss, block_rows=xx.shape[0])
+        torch.cuda.synchronize()
+        want = R.rmsnorm_plain(xx, ss)
+        if xx.dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        else:
+            assert bool(((got.float() - want.float()).abs()
+                         <= _bf16_ulp(want)).all())
+    assert R.LAUNCHES["rmsnorm"] == before + 5

@@ -48,6 +48,11 @@ CASES = [
     (1, 128, 128, 2, 64, 64, 64, "float32", False),
     (1, 128, 256, 2, 64, 64, 64, "float32", True),
     (1, 256, 128, 2, 128, 128, 64, "bfloat16", True),
+    # head dims the kernel runs past its compiled widths (the smoke
+    # configs' 16, stablelm-12b's 160, paligemma-3b's 256)
+    (2, 128, 128, 2, 16, 64, 64, "float32", True),
+    (1, 128, 128, 2, 160, 64, 64, "bfloat16", True),
+    (1, 64, 64, 1, 256, 64, 64, "float32", False),
 ]
 
 
@@ -131,3 +136,28 @@ def test_wrapper_refuses_what_neither_path_takes():
     meta = [t.to("meta") for t in (tq, tk, tv)]
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.flash_attention(*meta)
+
+
+@pytest.mark.parametrize("d,width", [(1, 64), (16, 64), (32, 64), (64, 64),
+                                     (65, 128), (100, 128), (128, 128),
+                                     (129, 256), (160, 256), (192, 256),
+                                     (256, 256)])
+def test_head_dim_runs_on_the_smallest_compiled_width(d, width):
+    assert FA.compiled_width(d) == width
+    assert FA.smem_bytes(d) == FA.smem_bytes(width) <= 232448
+
+
+@pytest.mark.parametrize("d", [0, 257, 320, 512])
+def test_head_dims_past_256_raise_naming_256(d):
+    with pytest.raises(ValueError, match="256"):
+        FA.compiled_width(d)
+
+
+def test_the_grid_takes_any_b_times_h():
+    """B * H goes on gridDim.x (2^31 - 1 blocks), the query tiles on
+    gridDim.y (65,535): B * H = 70,000 is taken, S past 65,535 tiles is
+    not."""
+    FA._check_grid(1000, 64, 70, 64)
+    FA._check_grid(1, 65535 * FA.BLOCK_Q, 1, 64)
+    with pytest.raises(ValueError, match="grid"):
+        FA._check_grid(1, 65535 * FA.BLOCK_Q + 1, 1, 64)

@@ -46,6 +46,10 @@ def _assert_close(got, want, dt):
     ((4, 64, 128), "float32", 64),
     ((512, 256), "bfloat16", 128),
     ((2, 128, 512), "bfloat16", 32),
+    # widths past the register path: a D no multiple of the vector width,
+    # kimi-k2-1t's d_model 7168 in f32
+    ((16, 1001), "bfloat16", 16),
+    ((8, 7168), "float32", 8),
 ])
 def test_rmsnorm_matches_pallas_kernel(shape, dt, br):
     """The three cases of ``test_rmsnorm_kernel_matches_ref``, with the f32
@@ -110,3 +114,35 @@ def test_widest_row_per_dtype():
     assert R.max_dim(torch.float32) == 4096
     assert R.vector_elems(torch.bfloat16) == 8
     assert R.vector_elems(torch.float32) == 4
+
+
+@pytest.mark.parametrize("shape,dt,offset,want", [
+    ((32, 1536), torch.bfloat16, 0, "registers"),
+    ((32, 8192), torch.bfloat16, 0, "registers"),
+    ((32, 8200), torch.bfloat16, 0, "two-pass"),
+    ((4, 7168), torch.float32, 0, "two-pass"),
+    ((4, 4096), torch.float32, 0, "registers"),
+    ((16, 1001), torch.bfloat16, 0, "scalar"),
+    ((16, 1002), torch.float32, 0, "scalar"),
+    ((32, 1536), torch.bfloat16, 1, "scalar"),     # base off 16 bytes
+])
+def test_kernel_path_follows_width_and_alignment(shape, dt, offset, want):
+    n = shape[0] * shape[1]
+    x = torch.zeros(n + offset, dtype=dt)[offset:].view(shape)
+    got, path = R.kernel_input(x)
+    assert got is x and path == want
+
+
+def test_non_contiguous_x_is_copied_once_and_matches_the_jax_kernel():
+    """A transposed x reaches the kernel as one contiguous copy; the
+    result equals the JAX kernel's on the same values."""
+    xn, sn = _np((1536, 64), 7), _np(1536, 8)
+    x = operands_from_numpy(xn, device="cpu").t()
+    assert not x.is_contiguous()
+    got_x, path = R.kernel_input(x)
+    assert got_x.is_contiguous() and torch.equal(got_x, x)
+    assert path == "registers"
+    want = jrmsnorm(jnp.array(xn.T.copy()), jnp.array(sn), block_rows=64,
+                    interpret=True)
+    got = R.rmsnorm(x, operands_from_numpy(sn, device="cpu"), block_rows=64)
+    _assert_close(got, want, "float32")
