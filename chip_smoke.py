@@ -13,13 +13,16 @@ the attention and norm entry points on that model's activations (phase
 
 1. build   — compile every source of ``src/repro_torch/kernels/csrc/`` for
              sm_90a (one nvcc per library, all in parallel); print build
-             seconds, register use, the bf16 GEMM (wgmma) kernels'
-             registers and spills, the grouped kernel's shared memory per
-             tile, the wgmma route's configuration at every planner tile,
-             the flash attention and RMSNorm kernels' registers and shared
-             memory per kernel, and the card's name and power limit.  Where
-             the toolkit has ``cuobjdump``, fail unless the gemm_bf16
-             library's SASS holds HGMMA instructions.
+             seconds, register use, the bf16 GEMM and grouped (wgmma)
+             kernels' registers and spills, the grouped routes'
+             configuration per tile (bf16: slab depth, stages, shared
+             memory, blocks per SM, blocks per launch at the served
+             shapes; f32: shared memory), the GEMM's wgmma configuration at
+             every planner tile, the flash attention and RMSNorm kernels'
+             registers and shared memory per kernel, and the card's name
+             and power limit.  Where the toolkit has ``cuobjdump``, fail
+             unless the gemm_bf16 library's SASS holds HGMMA instructions
+             and the grouped_gemm_bf16 library's HGMMA and UTMALDG.
 2. kernels — both loop orders against their plain PyTorch versions on the
              card: every tile the planner picks for the slice's shapes (the
              Qwen2-1.5B GEMMs, Table-2 in all three dtypes, granite's
@@ -29,7 +32,8 @@ the attention and norm entry points on that model's activations (phase
              1; N = 49, 196) in bf16; every bf16 launch on the wgmma route
              and every f32 and int8 one on the CUDA cores; plus the bf16
              finding that k-outer's per-pass rounding costs more than twice
-             k-inner's error.
+             k-inner's error; one RMSNorm call with a bf16 scale must run
+             exactly one device kernel and allocate only its output.
 3. main    — the Qwen2-1.5B GEMMs at tokens=4096, planned on ``cuda`` for
              ``h100`` and executed (k-inner, then pinned to k-outer with the
              same tile), each checked against its plain version.
@@ -49,10 +53,18 @@ the attention and norm entry points on that model's activations (phase
              bf16 and f32 at granite's serving shapes (decode with
              max_batch 4: C = 32; one request's prefill at bucket 32: C = 8),
              at a prefill at bucket 512 (C = 128, which the served run's
-             max_len 256 never reaches) and at a ragged C = 24, with the
-             weights at the model's init scale; the f32 errors of both
-             against a float64 product are printed.  Then timed beside its
-             plain version, ``torch.bmm`` and its bound.
+             max_len 256 never reaches), at a ragged C = 24 and at a ragged
+             D and F (3, 24, 201, 75), with the weights at the model's init
+             scale; every bf16 launch on the wgmma route, every f32 one on
+             the CUDA cores; the f32 errors of both against a float64
+             product are printed.  Then the ring's stage cap (3, 2, 4 and
+             as many as fit three blocks to an SM) is timed in turns at the
+             served shapes, and the kernel is timed beside its plain
+             version, ``torch.bmm`` and its bound: device time by
+             CUDA-graph replay (20 calls a graph; a CUDA-event loop at these
+             sizes reads the host's enqueue rate) beside the event time;
+             with ``--parent`` also that tree's, in the order parent,
+             change, change, parent.
 7. serve   — ``serve_demo`` serves 8 requests (prompts of 3-11 tokens, 12
              new tokens, max_batch 4, max_len 256, bf16) with
              granite-moe-3b-a800m at full width (32 layers, d_model 1536,
@@ -65,9 +77,15 @@ the attention and norm entry points on that model's activations (phase
              tokens: their logits must agree with the served run's.  Then a
              second engine's drain (4 requests x 6 tokens) runs under
              ``torch.profiler``: device time by kernel (the wgmma GEMM's
-             rows printed whatever their rank) and the device's busy share
+             and the grouped kernel's rows printed whatever their rank),
+             the grouped share of device time and the device's busy share
              of the drain's wall time; then the served logits GEMM at
-             decode (4 rows) is timed alone beside ``torch.matmul``.
+             decode (4 rows) is timed alone beside ``torch.matmul``.  Fails
+             unless every bf16 grouped launch of the served run took the
+             wgmma route.  With ``--parent``, that tree and this one each
+             serve the same requests and drain under the profiler in fresh
+             processes, in the order parent, change, change, parent
+             (decode step time and grouped share side by side).
 8. greedy  — f32 compute and KV cache, full width cut to 4 layers: the
              engine's tokens must equal a per-request ``decode_step`` loop's,
              and so must its logits at every generated step.
@@ -78,7 +96,8 @@ the attention and norm entry points on that model's activations (phase
              (1, 32, 24, 64) and norms (1, 32, 1536) and (4, 1, 1536).
              ``ops.flash_attention`` and ``rmsnorm`` run on those exact
              tensors and are held against the model's own outputs and
-             against their plain versions.
+             against their plain versions; RMSNorm on the model's bf16
+             scale must equal, bit for bit, RMSNorm on its f32 copy.
 10. attention/norm timing — both kernels against their plain versions at
              granite's and Qwen2-1.5B's full widths (attention (1, S, 24,
              64) for S in 32, 256, 4096 causal in bf16 and f32, S = 4096
@@ -89,7 +108,13 @@ the attention and norm entry points on that model's activations (phase
              and 32768 rows of 1536 in bf16 and f32, kimi-k2-1t's 7168, a
              ragged D = 1001 and a non-contiguous x), each timed beside its
              plain version, one PyTorch call (SDPA, ``F.rms_norm``) and its
-             bound.
+             bound.  RMSNorm takes the f32 scale the models keep, and is
+             also timed by CUDA-graph replay (device time) and by a
+             host-clock loop that does not synchronise per call (the
+             wrapper's host µs per call, beside ``F.rms_norm``'s); a bf16
+             scale must give the output of its f32 copy, bit for bit.  With
+             ``--parent``, RMSNorm at 4, 32 and 32768 rows in both trees,
+             each in a fresh process: parent, change, change, parent.
 
 With tied embeddings and random weights, the token's own embedding
 dominates the last hidden state, so greedy decoding echoes the input token
@@ -105,7 +130,9 @@ RMSNorm kernels.  The line before the last is the
 ``{"kernels": [...]}`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Samples, the fitted manifest and the
 per-shape timings and the serving profile are written under ``--out``
-(default ``build/chip_smoke``).
+(default ``build/chip_smoke``).  In the kernels line, ``ms``,
+``plain_ms`` and ``library_ms`` of the grouped GEMM and RMSNorm are device
+times by CUDA-graph replay; the others' are CUDA-event times.
 
 Tolerances (kernel vs plain version, same inputs, on the card):
 int8 exact; f32 rtol 1e-5 / atol 1e-4 (FP32 FMA vs cuBLAS FP32, no TF32);
@@ -265,6 +292,51 @@ def cuda_ms(fn, min_total_ms=200.0, max_reps=50):
     return s.elapsed_time(e) / reps
 
 
+def graph_ms(fn, calls=20, replays=5):
+    """Device ms per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, replayed ``replays`` times between CUDA events, so that no host
+    work stands between the kernels (after two warm-up calls on the
+    capturing stream's side stream)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    for _ in range(replays):
+        graph.replay()
+    e.record()
+    e.synchronize()
+    ms = s.elapsed_time(e) / (replays * calls)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def host_us(fn, calls=200):
+    """Host µs per call of ``fn`` in a loop that does not synchronise per
+    call (the wrapper's enqueue cost, while the device keeps up)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
 def ptxas_entries(log):
     """[(kernel, registers, static shared memory bytes, spill line)] from an
     ``nvcc -Xptxas -v`` log, kernel names demangled and shortened where
@@ -311,23 +383,53 @@ def planner_tiles(gemm, get_config, model_gemm_shapes, table2, GemmShape):
                                            machine="h100")})
 
 
-def sass_check(build, lib):
-    """Fails unless the bf16 GEMM library's SASS holds HGMMA (wgmma)
-    instructions; says so where the toolkit has no cuobjdump."""
+def sass_check(build, lib, name, need):
+    """Fails unless the library ``name``'s SASS holds each instruction in
+    ``need`` (HGMMA: wgmma; UTMALDG: a TMA load); says so where the
+    toolkit has no cuobjdump."""
     import shutil
     cands = [os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
              shutil.which("cuobjdump") or ""]
     tool = next((c for c in cands if c and os.access(c, os.X_OK)), None)
     if tool is None:
-        print("cuobjdump not found: the HGMMA check of the gemm_bf16 SASS "
-              "could not run")
+        print(f"cuobjdump not found: the {'/'.join(need)} check of the "
+              f"{name} SASS could not run")
         return
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, timeout=300).stdout
-    n = sass.count("HGMMA")
-    print(f"gemm_bf16 SASS ({tool}): {n} HGMMA instructions, "
-          f"{sass.count('UTMALDG')} TMA loads (UTMALDG)")
-    check(n > 0, "the gemm_bf16 library's SASS has no HGMMA instruction")
+    n = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    print(f"{name} SASS ({tool}): {n['HGMMA']} HGMMA instructions, "
+          f"{n['UTMALDG']} TMA loads (UTMALDG)")
+    for op in need:
+        check(n[op] > 0, f"the {name} library's SASS has no {op} "
+                         f"instruction")
+
+
+def one_norm_kernel(dev, R):
+    """Fails unless one RMSNorm call with a bf16 scale runs exactly one
+    device kernel (no conversion of the scale) and allocates only y, by
+    the profiler and the caching allocator."""
+    import torch
+    from torch.autograd import DeviceType
+    x = torch.randn((SERVED_NORM_ROWS[0], NORM_D), device=dev,
+                    dtype=torch.bfloat16)
+    w = torch.randn((NORM_D,), device=dev).to(torch.bfloat16)
+    R.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        R.rmsnorm(x, w)
+        torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+    kernels = [ev.key for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA
+               and ev.self_device_time_total > 0]
+    print(f"one RMSNorm call with a bf16 scale: device kernels {kernels}, "
+          f"{allocs} allocation(s)")
+    check(len(kernels) == 1 and "rmsnorm" in kernels[0] and allocs == 1,
+          f"an RMSNorm call with a bf16 scale ran {kernels} and made "
+          f"{allocs} allocations, not the one RMSNorm kernel and y")
 
 
 def snapshot(K):
@@ -447,30 +549,49 @@ def stage_timings(K, shapes, dev):
     return rows
 
 
-def parent_gemm_times(parent, shapes, out):
-    """Phase 5's GEMM times of an older tree (``parent``, an export of an
-    earlier commit), timed by this script's :func:`gemm_timings` in a
-    process that imports that tree's ``repro_torch``."""
-    path = os.path.join(out, "parent_gemm_times.json")
-    subprocess.run([sys.executable, os.path.abspath(__file__),
-                    "--time-gemms-of", os.path.abspath(parent), "--out",
-                    path, "--shapes", json.dumps(shapes)], check=True,
-                   timeout=1800)
+def tree_run(tree, what, out, shapes=None):
+    """One measurement of a tree (an export of an earlier commit, or this
+    checkout), made by this script's own functions in a fresh process that
+    imports that tree's ``repro_torch``: ``"gemm"`` (phase 5's GEMM times
+    at ``shapes``), ``"grouped"`` (phase 6's grouped times) or ``"serve"``
+    (phase 7's served decode step and profiled drain) or ``"norm"``
+    (phase 10's RMSNorm times at the served rows)."""
+    path = os.path.join(out, f"tree_{what}.json")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--time-tree", os.path.abspath(tree),
+                           "--what", what, "--out", path, "--shapes",
+                           json.dumps(shapes)], capture_output=True,
+                          text=True, timeout=1800)
+    check(proc.returncode == 0, f"{tree}'s {what} run failed (exit "
+                                f"{proc.returncode}):\n{proc.stdout[-3000:]}"
+                                f"\n{proc.stderr[-3000:]}")
     with open(path) as f:
         return json.load(f)
 
 
-def time_gemms_of(tree, shapes, path):
-    """The child process of :func:`parent_gemm_times`."""
+def time_tree(tree, what, shapes, path):
+    """The child process of :func:`tree_run`."""
     sys.path.insert(0, os.path.join(tree, "src"))
     import torch
-    from repro_torch.kernels import gemm as K
     torch.backends.cuda.matmul.allow_tf32 = False
-    rows = gemm_timings(K, [(n, m, nn, k, tuple(t)) for n, m, nn, k, t in
-                            shapes], torch.device("cuda", 0), plain=False,
-                        quiet=True)
+    dev = torch.device("cuda", 0)
+    if what == "gemm":
+        from repro_torch.kernels import gemm as K
+        res = gemm_timings(K, [(n, m, nn, k, tuple(t)) for n, m, nn, k, t in
+                               shapes], dev, plain=False, quiet=True)
+    elif what == "grouped":
+        from repro_torch.kernels import grouped_gemm as G
+        res = grouped_timings(G, dev, plain=False)
+    elif what == "norm":
+        from repro_torch.kernels import rmsnorm as R
+        res = norm_timings(R, dev)
+    else:
+        from repro_torch.configs import get_config
+        res = served_steps()
+        res["profile"] = profile_serving(
+            get_config("granite-moe-3b-a800m"), quiet=True)
     with open(path, "w") as f:
-        json.dump(rows, f)
+        json.dump(res, f)
     return 0
 
 
@@ -524,6 +645,7 @@ GROUPED_SHAPES = {
     "bucket-512 gate/up": (40, 128, 1536, 512),  # capacity 128: beyond the
     "bucket-512 down": (40, 128, 512, 1536),     # served run's max_len 256
     "ragged": (40, 24, 1536, 512),
+    "ragged D/F": (3, 24, 201, 75),   # rows TMA cannot read: both copied
 }
 #: the shapes phase 7's served run launches; the kernels line sums these
 SERVED_SHAPES = ("decode gate/up", "decode down", "prefill gate/up",
@@ -536,13 +658,17 @@ BF16_LOGITS_RTOL = 0.1
 
 
 def grouped_phase(args, dev, G):
-    """Phase 6: the grouped kernel against its plain version, then timed.
-    Returns (timing rows, max |err| over the bf16 comparisons)."""
+    """Phase 6: the grouped kernel against its plain version, then timed
+    (with ``--parent``, beside that tree's times).  Returns (timing rows,
+    max |err| over the bf16 comparisons, the parent's rows)."""
     import torch
 
     phase(6, "grouped kernel vs plain version on the card, and timing")
     err = {"bf16": 0.0, "f32": 0.0}
     exact = {"kernel": 0.0, "plain": 0.0}
+    G.reset_launch_counts()
+    expect = {"wgmma": 0, "cuda_cores": 0}
+    copies = 0
     for i, (name, (e, c, d, f)) in enumerate(GROUPED_SHAPES.items()):
         for tag in ("bf16", "f32"):
             g = torch.Generator(dev).manual_seed(300 + i)
@@ -554,6 +680,9 @@ def grouped_phase(args, dev, G):
                  * d ** -0.5).to(dt)
             got = G.grouped_gemm(x, w)
             torch.cuda.synchronize()
+            expect[G.route(dt)] += 1
+            if tag == "bf16":
+                copies += (d % 8 != 0) + (f % 8 != 0)
             want = G.grouped_gemm_plain(x, w)
             err[tag] = max(err[tag], compare("grouped_gemm", tag, got, want))
             if tag == "f32":
@@ -562,11 +691,101 @@ def grouped_phase(args, dev, G):
                     exact[side] = max(exact[side], float(
                         (y.double() - ref).abs().max()))
         print(f"{name:<19}({e}, {c}, {d}) @ ({e}, {d}, {f}) tile "
-              f"{G.grouped_tile(c, torch.bfloat16)}: bf16 and f32 match "
-              f"the plain version")
+              f"{G.grouped_tile(c, torch.bfloat16)} (bf16), "
+              f"{G.grouped_tile(c, torch.float32)} (f32): both match the "
+              f"plain version")
+    routes = dict(G.ROUTES)
+    print(f"phase 6 grouped launches by route: {routes}, expected {expect} "
+          f"(every bf16 launch on wgmma, every f32 one on the CUDA cores); "
+          f"aligned copies {G.COPIES['aligned']}, expected {copies}")
+    check(routes == expect and G.LAUNCHES["grouped_gemm"] == sum(
+        expect.values()), f"phase 6 grouped launches by route {routes} are "
+                          f"not {expect}")
+    check(G.COPIES["aligned"] == copies, f"{G.COPIES['aligned']} aligned "
+                                         f"copies, not {copies}")
     print(f"max |err|: bf16 {err['bf16']:.4g}, f32 {err['f32']:.4g}; f32 "
           f"against a float64 product: kernel {exact['kernel']:.4g}, plain "
           f"version {exact['plain']:.4g}")
+    stage_rows = grouped_stage_timings(G, dev)
+    parent = []
+    if args.parent:
+        parent.append(tree_run(args.parent, "grouped", args.out))
+    rows = grouped_timings(G, dev)
+    if args.parent:
+        again = grouped_timings(G, dev, plain=False)
+        parent.append(tree_run(args.parent, "grouped", args.out))
+        print("grouped, parent vs this change on this card (order: parent, "
+              "change, change, parent; device ms by CUDA-graph replay, "
+              "event ms in brackets):")
+        sums = [[0.0, 0.0] for _ in range(4)]
+        for r0, r1, r2, r3 in zip(parent[0], rows, again, parent[1]):
+            print(f"  {r1['shape_name']:<19}parent {r0['ms']:.4f} / "
+                  f"{r3['ms']:.4f} ({r0['event_ms']:.4f} / "
+                  f"{r3['event_ms']:.4f}), change {r1['ms']:.4f} / "
+                  f"{r2['ms']:.4f} ({r1['event_ms']:.4f} / "
+                  f"{r2['event_ms']:.4f})")
+            if r1["served"]:
+                for j, r in enumerate((r0, r1, r2, r3)):
+                    sums[j][0] += r["ms"]
+                    sums[j][1] += r["event_ms"]
+        print(f"  served-shape sum: parent {sums[0][0]:.4f} / "
+              f"{sums[3][0]:.4f} ms, change {sums[1][0]:.4f} / "
+              f"{sums[2][0]:.4f} ms "
+              f"({min(sums[0][0], sums[3][0]) / min(sums[1][0], sums[2][0]):.1f}x"
+              f"); events: parent {sums[0][1]:.4f} / {sums[3][1]:.4f}, "
+              f"change {sums[1][1]:.4f} / {sums[2][1]:.4f}")
+    return rows, err["bf16"], parent, stage_rows
+
+
+#: phase 6: the grouped ring's stage caps timed in turns (8: as many
+#: stages as fit three blocks to an SM, 5-7 at the served shapes)
+GROUPED_STAGE_CAPS = (3, 2, 4, 8)
+
+
+def grouped_stage_timings(G, dev):
+    """The bf16 grouped kernel at the served shapes with the ring capped at
+    each of ``GROUPED_STAGE_CAPS`` stages, in turns (the caps in order,
+    then reversed), device ms by CUDA-graph replay; prints the sums (the
+    faster turn of each) and returns the rows."""
+    import torch
+
+    ops = []
+    for i, name in enumerate(SERVED_SHAPES):
+        e, c, d, f = GROUPED_SHAPES[name]
+        g = torch.Generator(dev).manual_seed(450 + i)
+        ops.append((name, torch.randn((e, c, d), generator=g, device=dev,
+                                      dtype=torch.bfloat16),
+                    torch.randn((e, d, f), generator=g, device=dev,
+                                dtype=torch.bfloat16)))
+    default = G.WGMMA_MAX_STAGES
+    times = {}
+    try:
+        for cap in GROUPED_STAGE_CAPS + GROUPED_STAGE_CAPS[::-1]:
+            G.WGMMA_MAX_STAGES = cap
+            G._PLANS.clear()
+            for name, x, w in ops:
+                times.setdefault((cap, name), []).append(
+                    graph_ms(lambda: G.grouped_gemm(x, w)))
+    finally:
+        G.WGMMA_MAX_STAGES = default
+        G._PLANS.clear()
+    rows = [{"cap": cap, "shape_name": name, "ms": min(v)}
+            for (cap, name), v in times.items()]
+    print("grouped over the four served shapes by the ring's stage cap "
+          "(device ms, the faster of two turns each): " + ", ".join(
+              f"cap {cap} {sum(r['ms'] for r in rows if r['cap'] == cap):.4f}"
+              for cap in GROUPED_STAGE_CAPS) + f" (in use: {default})")
+    return rows
+
+
+def grouped_timings(G, dev, *, plain=True):
+    """The bf16 grouped kernel at every ``GROUPED_SHAPES`` entry: device ms
+    by CUDA-graph replay and ms by CUDA events, and (``plain``) the plain
+    version, ``torch.bmm`` and the bound beside them, printed.  Takes only
+    ``G.grouped_gemm`` / ``G.grouped_gemm_plain``, so it also times an
+    older tree's module (quietly: ``plain`` False)."""
+    import torch
+
     rows = []
     for i, (name, (e, c, d, f)) in enumerate(GROUPED_SHAPES.items()):
         g = torch.Generator(dev).manual_seed(400 + i)
@@ -574,25 +793,50 @@ def grouped_phase(args, dev, G):
                         dtype=torch.bfloat16)
         w = torch.randn((e, d, f), generator=g, device=dev,
                         dtype=torch.bfloat16)
-        ms = cuda_ms(lambda: G.grouped_gemm(x, w))
-        pms = cuda_ms(lambda: G.grouped_gemm_plain(x, w), min_total_ms=100.0,
-                      max_reps=10)
-        lib = cuda_ms(lambda: torch.bmm(x, w))
+        row = {"kernel": "grouped_gemm", "shape_name": name,
+               "shape": [e, c, d, f], "served": name in SERVED_SHAPES,
+               "ms": graph_ms(lambda: G.grouped_gemm(x, w)),
+               "event_ms": cuda_ms(lambda: G.grouped_gemm(x, w))}
+        rows.append(row)
+        if not plain:
+            continue
+        ms = row["ms"]
         bms, by = grouped_bound(e, c, d, f, "bf16")
-        rows.append({"kernel": "grouped_gemm", "shape_name": name,
-                     "shape": [e, c, d, f], "served": name in SERVED_SHAPES,
-                     "tile": str(G.grouped_tile(c, torch.bfloat16)),
-                     "ms": ms, "plain_ms": pms, "library_ms": lib,
-                     "bound_ms": bms, "bound_by": by,
-                     "tflops": 2.0 * e * c * d * f / ms / 1e9,
-                     "bound_share": bms / ms})
-        print(f"grouped {name:<19}bf16: {ms:.4f} ms "
-              f"({rows[-1]['tflops']:.3f} TFLOP/s, {100 * bms / ms:.1f}% of "
-              f"the bound), plain {pms:.4f} ms, torch.bmm {lib:.4f} ms, "
-              f"bound {bms:.4f} ms ({by})")
+        row.update({
+            "tile": str(G.grouped_tile(c, torch.bfloat16)),
+            "plain_ms": graph_ms(lambda: G.grouped_gemm_plain(x, w),
+                                 calls=4),
+            "plain_event_ms": cuda_ms(lambda: G.grouped_gemm_plain(x, w),
+                                      min_total_ms=100.0, max_reps=10),
+            "library_ms": graph_ms(lambda: torch.bmm(x, w)),
+            "library_event_ms": cuda_ms(lambda: torch.bmm(x, w)),
+            "bound_ms": bms, "bound_by": by,
+            "tflops": 2.0 * e * c * d * f / ms / 1e9,
+            "tb_per_s": (e * c * d + e * d * f + e * c * f) * 2 / ms / 1e9,
+            "bound_share": bms / ms})
+        print(f"grouped {name:<19}bf16: device {ms:.4f} ms (events "
+              f"{row['event_ms']:.4f}; {row['tb_per_s']:.2f} TB/s, "
+              f"{100 * bms / ms:.1f}% of the bound), plain "
+              f"{row['plain_ms']:.4f} ms, torch.bmm {row['library_ms']:.4f} "
+              f"ms (events {row['library_event_ms']:.4f}), bound "
+              f"{bms:.4f} ms ({by})")
         del x, w
     torch.cuda.empty_cache()
-    return rows, err["bf16"]
+    if plain:
+        served = [r for r in rows if r["served"]]
+        tot = {k: sum(r[k] for r in served) for k in
+               ("ms", "event_ms", "library_ms", "library_event_ms",
+                "bound_ms")}
+        print(f"grouped over the four served shapes: device {tot['ms']:.4f} "
+              f"ms (events {tot['event_ms']:.4f}), torch.bmm "
+              f"{tot['library_ms']:.4f} (events "
+              f"{tot['library_event_ms']:.4f}), bound {tot['bound_ms']:.4f}; "
+              f"minimum <= 0.32 ms {'met' if tot['ms'] <= 0.32 else 'NOT met'}"
+              f", target <= {tot['bound_ms'] * 2:.4f} ms (half the bound) "
+              f"{'met' if tot['ms'] <= 2 * tot['bound_ms'] else 'not met'}, "
+              f"no slower than torch.bmm "
+              f"{'met' if tot['ms'] <= tot['library_ms'] else 'not met'}")
+    return rows
 
 
 def record_logits(eng, rids):
@@ -671,9 +915,9 @@ def serve_phase(K, G):
     shapes = set()
     launch = G._launch
 
-    def shape_launch(x, w, y, tile):
+    def shape_launch(x, w, y, plan):
         shapes.add((*x.shape, w.shape[2]))
-        launch(x, w, y, tile)
+        launch(x, w, y, plan)
 
     engine_cls = serve_mod.ServingEngine
     serve_mod.ServingEngine, G._launch = Recording, shape_launch
@@ -681,15 +925,20 @@ def serve_phase(K, G):
     K.reset_launch_counts()
     G.reset_launch_counts()
     try:
-        out = serve_mod.serve_demo(
-            "granite-moe-3b-a800m", smoke=False, n_requests=8, max_new=12,
-            max_batch=4, max_len=256, seed=0, device="cuda")
+        out = serve_mod.serve_demo(**SERVED_RUN)
         launches = {**K.LAUNCHES, **G.LAUNCHES}
         routes = dict(K.ROUTES)
+        grouped_routes = dict(G.ROUTES)
     finally:
         serve_mod.ServingEngine, G._launch = engine_cls, launch
     print(f"serving-path launches: {launches}")
     all_on_wgmma(K, "phase 7's served run")
+    print(f"phase 7's served run: {launches['grouped_gemm']} grouped "
+          f"launches, by route {grouped_routes}")
+    check(grouped_routes == {"wgmma": launches["grouped_gemm"],
+                             "cuda_cores": 0},
+          f"grouped launches by route {grouped_routes}: not every one of "
+          f"the {launches['grouped_gemm']} bf16 launches went through wgmma")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     checked = {GROUPED_SHAPES[n] for n in SERVED_SHAPES}
     print(f"grouped shapes launched: {sorted(shapes)}")
@@ -710,16 +959,9 @@ def serve_phase(K, G):
     check(rest == 0 and per_fwd == 3 * n_moe,
           f"{launches['grouped_gemm']} grouped launches over {forwards} "
           f"forwards is not {3 * n_moe} per forward")
-    decode = [st["dt"] for st in out["steps"] if st["admitted"] == 0]
-    all_steps = [st["dt"] for st in out["steps"]]
-    res = {"tokens": out["tokens"], "seconds": out["seconds"],
-           "tokens_per_s": out["tokens"] / out["seconds"],
-           "steps": len(all_steps), "prefills": out["prefills"],
-           "decode_steps": len(decode),
-           "decode_step_ms": 1e3 * sum(decode) / max(len(decode), 1),
-           "step_ms_all": 1e3 * sum(all_steps) / len(all_steps),
-           "grouped_per_forward": per_fwd, "peak_memory_gb": peak_gb,
-           "grouped_shapes": sorted(shapes), "gemm_routes": routes,
+    res = {**step_times(out), "grouped_per_forward": per_fwd,
+           "peak_memory_gb": peak_gb, "grouped_shapes": sorted(shapes),
+           "gemm_routes": routes, "grouped_routes": grouped_routes,
            **launches}
     print(f"{res['tokens']} tokens in {res['seconds']:.3f} s: "
           f"{res['tokens_per_s']:.2f} tok/s; {res['steps']} steps "
@@ -737,6 +979,35 @@ def serve_phase(K, G):
     res["logits_gemm"] = served_logits_timing(cfg, torch.device("cuda", 0))
     torch.cuda.empty_cache()
     return res
+
+
+#: phase 7's served run (``serve_demo``'s arguments)
+SERVED_RUN = dict(arch="granite-moe-3b-a800m", smoke=False, n_requests=8,
+                  max_new=12, max_batch=4, max_len=256, seed=0,
+                  device="cuda")
+
+
+def step_times(out):
+    """Tokens per second and mean wall ms per step (all steps, and decode
+    steps without admissions) of a ``serve_demo`` result."""
+    decode = [st["dt"] for st in out["steps"] if st["admitted"] == 0]
+    all_steps = [st["dt"] for st in out["steps"]]
+    return {"tokens": out["tokens"], "seconds": out["seconds"],
+            "tokens_per_s": out["tokens"] / out["seconds"],
+            "steps": len(all_steps), "prefills": out["prefills"],
+            "decode_steps": len(decode),
+            "decode_step_ms": 1e3 * sum(decode) / max(len(decode), 1),
+            "step_ms_all": 1e3 * sum(all_steps) / len(all_steps)}
+
+
+def served_steps():
+    """Phase 7's served run, for an older tree: its step times."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve as serve_mod
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = serve_mod.serve_demo(**SERVED_RUN)
+    return step_times(out)
 
 
 def replay_served(eng, kept):
@@ -775,11 +1046,18 @@ def replay_served(eng, kept):
             "min_top1_gap": min(gaps)}
 
 
-def profile_serving(cfg):
+#: the grouped kernel's name in a profile: this tree's wgmma kernel, or
+#: the CUDA-core tile kernel an older tree ran it on (in a bf16 serve the
+#: GEMMs run wgmma_gemm, so there tile_gemm is the grouped kernel alone)
+GROUPED_KERNELS = ("grouped_wgmma", "tile_gemm")
+
+
+def profile_serving(cfg, quiet=False):
     """One engine's drain (4 requests x 6 tokens, max_batch 4) under
     torch.profiler, the model built and the requests queued beforehand:
     device time by kernel (device-side events only, so nothing is counted
-    twice) and the device's busy share of the drain's wall time."""
+    twice), the grouped kernel's share of it and the device's busy share
+    of the drain's wall time."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -809,21 +1087,33 @@ def profile_serving(cfg):
             and ev.self_device_time_total > 0]
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows)
+    gemm_rows = [r for r in rows if "wgmma_gemm" in r["name"]]
+    grouped_rows = [r for r in rows
+                    if any(n in r["name"] for n in GROUPED_KERNELS)]
+    grouped_ms = sum(r["device_ms"] for r in grouped_rows)
+    del eng, lm
+    res = {"wall_ms": wall_ms, "steps": steps, "device_busy_ms": busy,
+           "device_events": sum(r["count"] for r in rows),
+           "top": rows[:25], "gemm_rows": gemm_rows,
+           "grouped_rows": grouped_rows, "grouped_device_ms": grouped_ms,
+           "grouped_share": grouped_ms / busy if busy else 0.0}
+    if quiet:
+        return res
     print(f"profile of one drain (4 requests x 6 tokens, {steps} steps, "
           f"profiler on): wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
-          f"({100 * busy / wall_ms:.1f}%), {sum(r['count'] for r in rows)} "
-          f"device events")
+          f"({100 * busy / wall_ms:.1f}%), {res['device_events']} device "
+          f"events")
     for r in rows[:12]:
         print(f"  {r['device_ms']:9.3f} ms {r['count']:6d}x  {r['name'][:90]}")
-    gemm_rows = [r for r in rows if "wgmma_gemm" in r["name"]]
-    for r in gemm_rows:
-        print(f"  GEMM (wgmma): {r['device_ms']:.4f} ms over {r['count']} "
-              f"calls, {r['device_ms'] / r['count']:.4f} ms per call  "
-              f"{r['name'][:60]}")
-    del eng, lm
-    return {"wall_ms": wall_ms, "steps": steps, "device_busy_ms": busy,
-            "device_events": sum(r["count"] for r in rows),
-            "top": rows[:25], "gemm_rows": gemm_rows}
+    for label, picked in (("GEMM (wgmma)", gemm_rows),
+                          ("grouped", grouped_rows)):
+        for r in picked:
+            print(f"  {label}: {r['device_ms']:.4f} ms over {r['count']} "
+                  f"calls, {r['device_ms'] / r['count']:.4f} ms per call  "
+                  f"{r['name'][:60]}")
+    print(f"  grouped kernel: {grouped_ms:.3f} ms of {busy:.3f} ms device "
+          f"time ({100 * res['grouped_share']:.1f}%)")
+    return res
 
 
 def served_logits_timing(cfg, dev):
@@ -845,6 +1135,33 @@ def served_logits_timing(cfg, dev):
           f"{bms:.4f} ms ({by})")
     return {"shape": [m, n, k], "tile": str(plan.selection), "ms": ms,
             "library_ms": lib, "bound_ms": bms, "bound_by": by}
+
+
+def compare_serving(served, turns):
+    """Prints the served decode step and the profiled drain's grouped
+    share of parent and change, each run in a fresh process on this card
+    in the order parent, change, change, parent (``turns``), beside phase
+    7's own run of this tree."""
+    p0, c1, c2, p1 = turns
+    print("serving, parent vs this change on this card (fresh processes, "
+          "order: parent, change, change, parent; phase 7's run in this "
+          "process last):")
+    for label, key in (("decode step ms", "decode_step_ms"),
+                       ("tok/s", "tokens_per_s")):
+        print(f"  {label}: parent {p0[key]:.3f} / {p1[key]:.3f}, change "
+              f"{c1[key]:.3f} / {c2[key]:.3f}; phase 7 {served[key]:.3f}")
+    for label, key, scale in (("grouped device ms", "grouped_device_ms", 1),
+                              ("grouped share of device time %",
+                               "grouped_share", 100),
+                              ("device busy ms", "device_busy_ms", 1),
+                              ("drain wall ms", "wall_ms", 1),
+                              ("device events", "device_events", 1)):
+        print(f"  {label} (profiled drain): parent "
+              f"{scale * p0['profile'][key]:.3f} / "
+              f"{scale * p1['profile'][key]:.3f}, change "
+              f"{scale * c1['profile'][key]:.3f} / "
+              f"{scale * c2['profile'][key]:.3f}; phase 7 "
+              f"{scale * served['profile'][key]:.3f}")
 
 
 def greedy_phase(dev):
@@ -1063,6 +1380,16 @@ def model_kernels_phase(dev, FA, R, ops):
             "rmsnorm", tag, got, want, norm_tolerance(tag, want)))
         model_err["rmsnorm"] = max(model_err["rmsnorm"], held(
             "rmsnorm vs apply_norm", tag, got, out, norm_tolerance(tag, out)))
+    # the model keeps its norm scales in f32; the same scales in bf16,
+    # read as they are, give the outputs of their f32 copies
+    for x, scale, eps, _, _ in rec["norm"]:
+        sb = scale.to(torch.bfloat16)
+        check(torch.equal(R.rmsnorm(x, sb, eps=eps),
+                          R.rmsnorm(x, sb.float(), eps=eps)),
+              "RMSNorm on a bf16 scale differs from RMSNorm on its f32 copy")
+    print(f"the model's norm scales are {rec['norm'][0][1].dtype}; in bf16 "
+          f"they give the outputs of their f32 copies, bit for bit, at "
+          f"every recorded call")
     print(f"max |err| against the plain versions: {err}; against the "
           f"model's own blockwise_attention / apply_norm: {model_err}")
     rec.clear()
@@ -1131,40 +1458,117 @@ def attention_norm_phase(dev, FA, R, ops):
                                 dtype=dt).t()
             else:
                 x = torch.randn((n, nd), generator=g, device=dev, dtype=dt)
+            # the scale in f32, as the models keep it (cast_for_compute);
+            # F.rms_norm takes its weight in x's dtype
             scale = torch.randn((nd,), generator=g, device=dev)
+            w = scale.to(dt)
             eps = 1e-5
-            got = R.rmsnorm(x, scale, eps=eps)
+
+            def kernel():
+                return R.rmsnorm(x, scale, eps=eps)
+
+            def library():
+                return F.rms_norm(x, (nd,), weight=w, eps=eps)
+
+            got = kernel()
             torch.cuda.synchronize()
             want = R.rmsnorm_plain(x, scale, eps=eps)
             err = held("rmsnorm", tag, got, want, norm_tolerance(tag, want))
-            ms = cuda_ms(lambda: R.rmsnorm(x, scale, eps=eps))
-            pms = cuda_ms(lambda: R.rmsnorm_plain(x, scale, eps=eps))
-            w = scale.to(dt)
-            lib = cuda_ms(lambda: F.rms_norm(x, (nd,), weight=w, eps=eps))
+            # a bf16 scale, read as it is, gives the output of its f32 copy
+            sb = scale.to(torch.bfloat16)
+            check(torch.equal(R.rmsnorm(x, sb, eps=eps),
+                              R.rmsnorm(x, sb.float(), eps=eps)),
+                  f"rmsnorm {nname} {tag}: the output for a bf16 scale "
+                  f"differs from the output for its f32 copy")
+            ms = graph_ms(kernel)
             bms, by = norm_bound(n, nd, tag)
-            path = R.kernel_input(x)[1]
-            rows.append({"kernel": "rmsnorm", "shape_name": nname,
-                         "shape": [n, nd], "dtype": tag, "layout": layout,
-                         "path": path, "max_abs_err": err,
-                         "served": (n in SERVED_NORM_ROWS and nd == NORM_D
-                                    and tag == "bf16"),
-                         "ms": ms, "plain_ms": pms, "library_ms": lib,
-                         "bound_ms": bms, "bound_by": by,
-                         "gb_per_s": (2 * n * nd * ELEM_BYTES[tag]
-                                      + 4 * nd) / ms / 1e6,
-                         "bound_share": bms / ms})
+            row = {"kernel": "rmsnorm", "shape_name": nname,
+                   "shape": [n, nd], "dtype": tag, "layout": layout,
+                   "path": R.kernel_input(x, scale)[1],
+                   "max_abs_err": err,
+                   "served": (n in SERVED_NORM_ROWS and nd == NORM_D
+                              and tag == "bf16"),
+                   "ms": ms, "event_ms": cuda_ms(kernel),
+                   "host_us": host_us(kernel),
+                   "plain_ms": graph_ms(
+                       lambda: R.rmsnorm_plain(x, w, eps=eps)),
+                   "library_ms": graph_ms(library),
+                   "library_event_ms": cuda_ms(library),
+                   "library_host_us": host_us(library),
+                   "bound_ms": bms, "bound_by": by,
+                   "gb_per_s": (2 * n * nd * ELEM_BYTES[tag] + 4 * nd)
+                   / ms / 1e6,
+                   "bound_share": bms / ms}
+            rows.append(row)
             print(f"rmsnorm {nname:<19}{n:>6} x {nd} {tag:<5}{layout:<11}"
-                  f"{path:<10}: {ms:.4f} ms "
-                  f"({rows[-1]['gb_per_s']:.1f} GB/s, {100 * bms / ms:.2f}% "
-                  f"of the bound), plain {pms:.4f} ms, F.rms_norm "
-                  f"{lib:.4f} ms, bound {bms:.5f} ms; max |err| {err:.3g}")
-            del x, scale, w
+                  f"{row['path']:<10}: device {ms:.4f} ms "
+                  f"({row['gb_per_s']:.1f} GB/s, {100 * bms / ms:.2f}% of "
+                  f"the bound), events {row['event_ms']:.4f} ms, host "
+                  f"{row['host_us']:.1f} us/call; plain {row['plain_ms']:.4f}"
+                  f" ms; F.rms_norm device {row['library_ms']:.4f} ms, "
+                  f"events {row['library_event_ms']:.4f} ms, host "
+                  f"{row['library_host_us']:.1f} us/call; bound {bms:.5f} "
+                  f"ms; max |err| {err:.3g}")
+            del x, w, scale, sb, got, want
+    for tag in ("bf16", "f32"):
+        mine = {r["shape"][0]: r for r in rows if r["kernel"] == "rmsnorm"
+                and r["dtype"] == tag and r["layout"] == "contiguous"
+                and r["shape"][1] == NORM_D}
+        print(f"RMSNorm {tag}, rows of {NORM_D}: " + "; ".join(
+            f"{n}: device {r['ms']:.4f} / F.rms_norm {r['library_ms']:.4f} "
+            f"ms, events {r['event_ms']:.4f} / {r['library_event_ms']:.4f} "
+            f"ms, host {r['host_us']:.1f} / {r['library_host_us']:.1f} us"
+            for n, r in sorted(mine.items())))
+        big = mine[max(NORM_ROWS)]
+        print(f"  {max(NORM_ROWS)} rows: {100 * big['bound_share']:.1f}% of "
+              f"the bytes bound (>= 80 % "
+              f"{'met' if big['bound_share'] >= 0.8 else 'NOT met'})")
     launches = {**FA.LAUNCHES, **R.LAUNCHES}
     print(f"phase 10 launches: {launches}")
     for name_, n_ in launches.items():
         check(n_ > 0, f"{name_} was never launched in phase 10")
     torch.cuda.empty_cache()
     return rows
+
+
+#: phase 10 with ``--parent``: RMSNorm rows of NORM_D timed in both trees
+NORM_TURN_ROWS = (4, 32, 32768)
+
+
+def norm_timings(R, dev):
+    """RMSNorm (bf16 x, the models' f32 scale) at ``NORM_TURN_ROWS`` rows:
+    device ms by CUDA-graph replay, CUDA-event ms and host µs per call.
+    Takes only ``R.rmsnorm``, so it also times an older tree's module."""
+    import torch
+
+    rows = []
+    for n in NORM_TURN_ROWS:
+        g = torch.Generator(dev).manual_seed(700 + n)
+        x = torch.randn((n, NORM_D), generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        scale = torch.randn((NORM_D,), generator=g, device=dev)
+
+        def kernel():
+            return R.rmsnorm(x, scale)
+
+        rows.append({"rows": n, "ms": graph_ms(kernel),
+                     "event_ms": cuda_ms(kernel), "host_us": host_us(kernel)})
+    return rows
+
+
+def compare_norms(turns):
+    """Prints RMSNorm's times of parent and change, each in a fresh process
+    on this card, in the order parent, change, change, parent."""
+    p0, c1, c2, p1 = turns
+    print("RMSNorm (bf16, f32 scale), parent vs this change on this card "
+          "(fresh processes, order: parent, change, change, parent):")
+    for r0, r1, r2, r3 in zip(p0, c1, c2, p1):
+        print(f"  {r1['rows']:>6} rows: device ms parent {r0['ms']:.4f} / "
+              f"{r3['ms']:.4f}, change {r1['ms']:.4f} / {r2['ms']:.4f}; "
+              f"events ms parent {r0['event_ms']:.4f} / {r3['event_ms']:.4f}"
+              f", change {r1['event_ms']:.4f} / {r2['event_ms']:.4f}; host "
+              f"us parent {r0['host_us']:.1f} / {r3['host_us']:.1f}, change "
+              f"{r1['host_us']:.1f} / {r2['host_us']:.1f}")
 
 
 def kernel_entry(name, source, replaces, launches, max_err, rows):
@@ -1187,14 +1591,17 @@ def main(argv=None) -> int:
                                                   "chip_smoke"))
     ap.add_argument("--parent", default=None,
                     help="an export of an earlier commit (git archive) "
-                         "whose phase-5 GEMM times to take on the same card, "
-                         "in the order parent, change, change, parent")
-    ap.add_argument("--time-gemms-of", default=None, help=argparse.SUPPRESS)
+                         "whose phase-5 GEMM and phase-6 grouped times to "
+                         "take on the same card, in the order parent, "
+                         "change, change, parent, and whose served run "
+                         "(phase 7) to take before and after this tree's")
+    ap.add_argument("--time-tree", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--what", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--shapes", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    if args.time_gemms_of:
-        return time_gemms_of(args.time_gemms_of, json.loads(args.shapes),
-                             args.out)
+    if args.time_tree:
+        return time_tree(args.time_tree, args.what,
+                           json.loads(args.shapes), args.out)
 
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print(f"error: {SRC}/repro_torch not found; run chip_smoke.py from "
@@ -1251,16 +1658,29 @@ def main(argv=None) -> int:
             print("  " + ", ".join(f"{fn} {r} registers / {smem} B static "
                                    f"shared memory"
                                    for fn, r, smem, _ in entries))
-        if v == "gemm_bf16":
+        if v in ("gemm_bf16", "grouped_gemm_bf16"):
             for fn, r, _, sp in entries:
                 print(f"  {fn}: {r} registers; {sp or 'no spill line'}")
-    sass_check(build, paths["gemm_bf16"])
-    for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-        tiles = {str(G.grouped_tile(c, dt)): K.smem_bytes(G.grouped_tile(c, dt),
-                                                          tag)
-                 for c in (8, 24, 32, 128)}
-        print(f"grouped {tag}: dynamic shared memory per tile {tiles} "
-              f"(a block may claim {K.MAX_SMEM_BYTES})")
+    sass_check(build, paths["gemm_bf16"], "gemm_bf16", ("HGMMA",))
+    sass_check(build, paths["grouped_gemm_bf16"], "grouped_gemm_bf16",
+               ("HGMMA", "UTMALDG"))
+    for c in (8, 24, 32, 128):
+        t = G.grouped_tile(c, torch.bfloat16)
+        cfg = G.grouped_config(t)
+        blocks = {n: G.grid_blocks(e, c, f, t) for n, (e, cc, d, f) in
+                  GROUPED_SHAPES.items() if cc == c and n in SERVED_SHAPES}
+        print(f"grouped bf16 (wgmma) C = {c}: tile {t} (bc x bf x slab "
+              f"depth), {cfg.consumers} consumer warpgroup(s), "
+              f"{cfg.stages} stages of {cfg.stage_bytes} B, "
+              f"{cfg.smem_bytes} B dynamic shared memory, "
+              f"{G.resident_blocks(cfg)} blocks per SM by shared memory, "
+              f"{cfg.threads} threads"
+              + (f"; blocks per launch {blocks} on {G.SMS} SMs" if blocks
+                 else ""))
+    tiles = {str(G.grouped_tile(c, torch.float32)): K.smem_bytes(
+        G.grouped_tile(c, torch.float32), "f32") for c in (8, 24, 32, 128)}
+    print(f"grouped f32 (CUDA cores): dynamic shared memory per tile {tiles} "
+          f"(a block may claim {K.MAX_SMEM_BYTES})")
     print(f"flash attention: dynamic shared memory per block by head dim "
           f"{ {d: FA.smem_bytes(d) for d in FA.HEAD_DIMS} }; RMSNorm: none")
     picks = planner_tiles(gemm, get_config, model_gemm_shapes, TABLE2,
@@ -1357,6 +1777,7 @@ def main(argv=None) -> int:
     print(f"bf16 error vs exact: k_inner {e_in:.4g}, k_outer {e_out:.4g} "
           f"(ratio {e_out / e_in:.2f})")
     check(e_out > 2 * e_in, "bf16 k_outer error is not > 2x k_inner error")
+    one_norm_kernel(dev, R)
 
     # -- phase 3 ---------------------------------------------------------
     phase(3, "main path: Qwen2-1.5B GEMMs planned on cuda@h100, executed")
@@ -1467,20 +1888,34 @@ def main(argv=None) -> int:
     before = snapshot(K)
     parent = []
     if args.parent:
-        parent.append(parent_gemm_times(args.parent, gemm_shapes, args.out))
+        parent.append(tree_run(args.parent, "gemm", args.out, gemm_shapes))
     rows = gemm_timings(K, gemm_shapes, dev)
     if args.parent:
         again = gemm_timings(K, gemm_shapes, dev, quiet=True)
-        parent.append(parent_gemm_times(args.parent, gemm_shapes, args.out))
+        parent.append(tree_run(args.parent, "gemm", args.out, gemm_shapes))
         compare_with_parent(rows, again, parent)
     stage_rows = stage_timings(K, gemm_shapes, dev)
     all_on_wgmma(K, "phase 5", before)
 
-    grouped_rows, grouped_err = grouped_phase(args, dev, G)
+    grouped_rows, grouped_err, grouped_parent, grouped_stage_rows = \
+        grouped_phase(args, dev, G)
+    serve_turns = []
+    if args.parent:
+        serve_turns += [tree_run(args.parent, "serve", args.out),
+                        tree_run(HERE, "serve", args.out)]
     served = serve_phase(K, G)
+    if args.parent:
+        serve_turns += [tree_run(HERE, "serve", args.out),
+                        tree_run(args.parent, "serve", args.out)]
+        compare_serving(served, serve_turns)
     greedy = greedy_phase(dev)
     model_k = model_kernels_phase(dev, FA, R, ops)
     attn_rows = attention_norm_phase(dev, FA, R, ops)
+    norm_turns = []
+    if args.parent:
+        norm_turns = [tree_run(t, "norm", args.out)
+                      for t in (args.parent, HERE, HERE, args.parent)]
+        compare_norms(norm_turns)
 
     csrc = "src/repro_torch/kernels/csrc"
     kernels = [kernel_entry(kname, f"{csrc}/wgmma_gemm.cuh",
@@ -1502,13 +1937,18 @@ def main(argv=None) -> int:
         json.dump({"device": card, "power": smi("name,power.limit"),
                    "rows": rows, "stage_rows": stage_rows,
                    "parent_rows": parent, "grouped_rows": grouped_rows,
-                   "serve": served, "greedy": greedy,
+                   "parent_grouped_rows": grouped_parent,
+                   "grouped_stage_rows": grouped_stage_rows,
+                   "serve": served, "serve_turns": serve_turns,
+                   "greedy": greedy,
                    "model_kernels": model_k,
-                   "attention_norm_rows": attn_rows}, f, indent=1)
+                   "attention_norm_rows": attn_rows,
+                   "norm_turns": norm_turns}, f, indent=1)
     print(f"\n(GEMM times are sums over the five Qwen2-1.5B GEMMs, grouped "
           f"times over the four bf16 shapes of the served run, flash "
           f"attention and RMSNorm times over the bf16 shapes phase 9 "
-          f"recorded from the model; "
+          f"recorded from the model; grouped and RMSNorm times are device "
+          f"times by CUDA-graph replay, the others CUDA-event times; "
           f"{time.perf_counter() - t_start:.1f} s in all)")
     print(smi("name,power.limit"))
     print(json.dumps({"kernels": kernels}))

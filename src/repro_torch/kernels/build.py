@@ -4,8 +4,9 @@ Each source of ``kernels/csrc/`` is compiled at first use for ``sm_90a``
 into one shared library per element type, all in parallel (one ``nvcc``
 process per library): ``gemm.cu`` for bf16, f32 and int8,
 ``grouped_gemm.cu``, ``flash_attention.cu`` and ``rmsnorm.cu`` for bf16 and
-f32.  The bf16 build of ``gemm.cu`` includes ``wgmma_gemm.cuh`` (the
-tensor-core route), every other GEMM build ``tile_gemm.cuh``.
+f32.  The bf16 builds of ``gemm.cu`` and ``grouped_gemm.cu`` include
+``wgmma_gemm.cuh`` (the tensor-core route), every other GEMM build
+``tile_gemm.cuh``.
 Libraries land in ``build/repro_torch/<hash>/`` at the repository root
 (``.gitignore`` lists ``build/``; ``REPRO_TORCH_BUILD_DIR`` moves it), keyed
 by a hash of every file under ``csrc/`` and the flags, so an edit to any
@@ -43,14 +44,23 @@ _WGMMA_ARGS = (_VP, _VP, _VP, _I32, _I32, _I32, _I64, _I32, _I32, _I32,
 #: A, B, C; M, N, K; lda, ldb, ldc; bm, bn, ks; maps (384 bytes, written)
 _WGMMA_ENCODE_ARGS = (_VP, _VP, _VP, _I32, _I32, _I32, _I64, _I64, _I64,
                       _I32, _I32, _I32, _VP)
+#: x, w, y; E, C, D, F; bc, bf, bk; stream (the f32 grouped GEMM)
 _GROUPED_ARGS = (_VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
                  _VP)
+#: maps of x, w, y (y's may be null); y; E, C, D, F; y's row and expert
+#: strides; bm, bn, ks, stages, group; stream
+_GROUPED_WGMMA_ARGS = (_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I64,
+                       _I64, _I32, _I32, _I32, _I32, _I32, _VP)
+#: map (128 bytes, written); base; rows, cols, depth; ld, plane; operand;
+#: bm, bn, ks
+_GROUPED_ENCODE_ARGS = (_VP, _VP, _I32, _I32, _I32, _I64, _I64, _I32, _I32,
+                        _I32, _I32)
 #: q, k, v, o; B, S, Skv, H, D; q, k, v strides (batch, seq, head); causal;
 #: stream
 _FLASH_ARGS = (_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32,
                *(_I64,) * 9, _I32, _VP)
-#: x, scale (f32), y; rows, D; eps; stream
-_RMSNORM_ARGS = (_VP, _VP, _VP, _I32, _I32, _F32, _VP)
+#: x, scale, y; rows, D; eps; scale is bf16 (else f32); stream
+_RMSNORM_ARGS = (_VP, _VP, _VP, _I32, _I32, _F32, _I32, _VP)
 
 
 class Target(NamedTuple):
@@ -74,7 +84,10 @@ TARGETS = {
     "gemm_int8": Target("gemm.cu", "REPRO_GEMM_INT8", "repro_gemm_tile",
                         _GEMM_ARGS),
     "grouped_gemm_bf16": Target("grouped_gemm.cu", "REPRO_GEMM_BF16",
-                                "repro_grouped_gemm", _GROUPED_ARGS),
+                                "repro_grouped_gemm_wgmma",
+                                _GROUPED_WGMMA_ARGS,
+                                (("repro_grouped_encode",
+                                  _GROUPED_ENCODE_ARGS),)),
     "grouped_gemm_f32": Target("grouped_gemm.cu", "REPRO_GEMM_F32",
                                "repro_grouped_gemm", _GROUPED_ARGS),
     "flash_attention_bf16": Target("flash_attention.cu", "REPRO_ELEM_BF16",

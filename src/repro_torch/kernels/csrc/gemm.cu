@@ -71,8 +71,11 @@ int repro_gemm_wgmma_encode(const void* A, const void* B, const void* C,
 int repro_gemm_wgmma(const void* maps, const void* Cin, void* Cout, int M,
                      int N, int K, int64_t ldc, int k0, int k1, int bm,
                      int bn, int ks, int stages, int group, void* stream) {
-  return repro::wgmma_gemm_launch(maps, Cin, Cout, M, N, K, ldc, k0, k1, bm,
-                                  bn, ks, stages, group, stream);
+  alignas(64) CUtensorMap m[3];
+  memcpy(m, maps, sizeof(m));
+  return repro::launch_tiles<false>(m, Cin, Cout, M, N, K, ldc, 0, 1, k0, k1,
+                                    bm, bn, ks, stages, group,
+                                    repro::tma_c_ok(Cout, ldc, bn), stream);
 }
 
 #else

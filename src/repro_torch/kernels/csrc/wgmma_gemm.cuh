@@ -11,7 +11,9 @@
 //     bf16, the per-pass rounding of ref.gemm_ref_streamed.  The passes are
 //     not fused: streaming C once per pass is what the variant is.
 // The plan's (bm, bn, bk) stays the thread-block tile, as in tile_gemm.cuh
-// (which keeps the f32 and int8 builds and the grouped GEMM).
+// (which keeps the f32 and int8 builds and the f32 grouped GEMM).  The
+// bf16 grouped (MoE expert) GEMM runs the same kernel body with the expert
+// as blockIdx.z and rank-3 tensor maps (grouped_gemm.cu gives its design).
 //
 // What bounds it on an H100.  k-inner at Qwen2-1.5B's shapes (M = 4096,
 // K = 1536 or 8960) is bound by operations: 2*M*N*K over the 989 TFLOP/s
@@ -174,13 +176,41 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   } while (!done);
 }
 
+// One box at (c0, c1) of a rank-2 map, or at (c0, c1, e) of a rank-3 map
+// (G: the grouped GEMM, e the expert), completing on `bar`.
+template <bool G>
 __device__ __forceinline__ void tma_load(const CUtensorMap* map, void* dst,
-                                         uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1) : "memory");
+                                         uint64_t* bar, int c0, int c1,
+                                         int e) {
+  if constexpr (G)
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+        "r"(c1), "r"(e) : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+        "r"(c1) : "memory");
+}
+
+// The store counterpart of tma_load, in the calling thread's bulk group.
+template <bool G>
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1,
+                                          int e) {
+  if constexpr (G)
+    asm volatile(
+        "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+        " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+        "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(e) : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+        " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+        "r"(smem_u32(src)), "r"(c0), "r"(c1) : "memory");
 }
 
 // A shared-memory matrix descriptor with the 128-byte swizzle: start address,
@@ -305,20 +335,20 @@ struct Wgmma<256> {
 // null, is added before the one rounding to Cout; it is Cout (k-outer
 // updates C in place).  tma_c: C goes through the block's C tile in shared
 // memory, loaded (k-outer) and stored by TMA on map_c; else each thread
-// reads and writes its own elements of C directly.
-// One warpgroup with N <= 128 keeps its registers to what three blocks
-// per SM allow, so that short-lived blocks (k-outer's passes) overlap;
-// wider or two-warpgroup tiles need every register a block can have.
-template <int NW, int W>
-__global__ void __launch_bounds__(W * 128 + 32, W == 1 && NW <= 128 ? 3 : 1)
-wgmma_gemm(const __grid_constant__ CUtensorMap map_a,
-           const __grid_constant__ CUtensorMap map_b,
-           const __grid_constant__ CUtensorMap map_c,
-           const __nv_bfloat16* Cin, __nv_bfloat16* Cout, int M, int N,
-           int k0, int k1, int64_t ldc, int bm, int bn, int ks, int stages,
-           int gm, int gn, int group, int tma_c, int pairs) {
+// reads and writes its own elements of C directly.  G: the grouped GEMM,
+// one product per expert e = blockIdx.z: the maps are rank 3 with e their
+// outer coordinate, so every box fills and clips at its own expert's
+// edges, and a direct store of C starts c_plane elements per expert in.
+template <int NW, int W, bool G>
+__device__ __forceinline__ void wgmma_tiles(
+    const CUtensorMap& map_a, const CUtensorMap& map_b,
+    const CUtensorMap& map_c, const __nv_bfloat16* Cin,
+    __nv_bfloat16* Cout, int M, int N, int k0, int k1, int64_t ldc,
+    int64_t c_plane, int bm, int bn, int ks, int stages, int gm, int gn,
+    int group, int tma_c, int pairs) {
   extern __shared__ __align__(1024) unsigned char smem[];
   const Geom g(bm, bn, ks, tma_c);
+  const int e = G ? static_cast<int>(blockIdx.z) : 0;
   unsigned char* ctile = smem + stages * g.stage_bytes;
   uint64_t* full =
       reinterpret_cast<uint64_t*>(ctile + g.c_bytes + g.pad);
@@ -359,8 +389,8 @@ wgmma_gemm(const __grid_constant__ CUtensorMap map_a,
       mbar_expect_tx(cbar, bm * bn * 2);
       for (int m = 0; m < bm; m += g.c_rows)
         for (int n = 0; n < bn; n += g.c_cols)
-          tma_load(&map_c, ctile + (m * bn + n * g.c_rows) * 2, cbar, j0 + n,
-                   i0 + m);
+          tma_load<G>(&map_c, ctile + (m * bn + n * g.c_rows) * 2, cbar,
+                      j0 + n, i0 + m, e);
     }
     int stage = 0, phase = 0;
     for (int r = 0; r < rounds; ++r) {
@@ -371,12 +401,12 @@ wgmma_gemm(const __grid_constant__ CUtensorMap map_a,
         const int kk = (k0 + p * ks) & ~7;
         for (int c = 0; c < g.nkc; ++c)
           for (int m = 0; m < g.bmp; m += kMaxBoxRows)
-            tma_load(&map_a, st + (c * g.bmp + m) * 128, &full[stage],
-                     kk + c * kBoxCols, i0 + m);
+            tma_load<G>(&map_a, st + (c * g.bmp + m) * 128, &full[stage],
+                        kk + c * kBoxCols, i0 + m, e);
         for (int c = 0; c < g.ncc; ++c)
           for (int k = 0; k < g.bkp; k += kMaxBoxRows)
-            tma_load(&map_b, st + g.a_bytes + (c * g.bkp + k) * 128,
-                     &full[stage], (j0 & ~7) + c * kBoxCols, kk + k);
+            tma_load<G>(&map_b, st + g.a_bytes + (c * g.bkp + k) * 128,
+                        &full[stage], (j0 & ~7) + c * kBoxCols, kk + k, e);
         if (++stage == stages) {
           stage = 0;
           phase ^= 1;
@@ -495,7 +525,8 @@ wgmma_gemm(const __grid_constant__ CUtensorMap map_a,
       const int row = i0 + rl;
       if (row >= M) continue;
       // Cin, when given, is Cout
-      __nv_bfloat16* crow = Cout + static_cast<int64_t>(row) * ldc + j0;
+      __nv_bfloat16* crow =
+          Cout + e * c_plane + static_cast<int64_t>(row) * ldc + j0;
       const int cend = min(bn, N - j0);  // columns inside the tile and C
 #pragma unroll
       for (int j = 0; j < NW / 8; ++j) {
@@ -532,14 +563,34 @@ wgmma_gemm(const __grid_constant__ CUtensorMap map_a,
   if (threadIdx.x != 0) return;
   for (int m = 0; m < bm; m += g.c_rows)
     for (int n = 0; n < bn; n += g.c_cols)
-      asm volatile(
-          "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
-          " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(&map_c)),
-          "r"(smem_u32(ctile + (m * bn + n * g.c_rows) * 2)), "r"(j0 + n),
-          "r"(i0 + m) : "memory");
+      tma_store<G>(&map_c, ctile + (m * bn + n * g.c_rows) * 2, j0 + n,
+                   i0 + m, e);
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
+
+// The GEMM (k-inner, or one k-outer pass) and the grouped GEMM: the same
+// body, two kernels, so that a profile tells them apart.  One warpgroup
+// with N <= 128 keeps its registers to what three blocks per SM allow, so
+// that short-lived blocks (k-outer's passes, the grouped GEMM's) overlap;
+// wider or two-warpgroup tiles need every register a block can have.
+#define REPRO_WGMMA_KERNEL(NAME, G_)                                         \
+  template <int NW, int W>                                                   \
+  __global__ void __launch_bounds__(W * 128 + 32,                            \
+                                    W == 1 && NW <= 128 ? 3 : 1)             \
+  NAME(const __grid_constant__ CUtensorMap map_a,                            \
+       const __grid_constant__ CUtensorMap map_b,                            \
+       const __grid_constant__ CUtensorMap map_c,                            \
+       const __nv_bfloat16* Cin, __nv_bfloat16* Cout, int M, int N, int k0,  \
+       int k1, int64_t ldc, int64_t c_plane, int bm, int bn, int ks,         \
+       int stages, int gm, int gn, int group, int tma_c, int pairs) {        \
+    wgmma_tiles<NW, W, G_>(map_a, map_b, map_c, Cin, Cout, M, N, k0, k1,     \
+                           ldc, c_plane, bm, bn, ks, stages, gm, gn, group,  \
+                           tma_c, pairs);                                    \
+  }
+REPRO_WGMMA_KERNEL(wgmma_gemm, false)
+REPRO_WGMMA_KERNEL(grouped_wgmma, true)
+#undef REPRO_WGMMA_KERNEL
 
 // ---------------------------------------------------------------------------
 // Host side
@@ -573,22 +624,28 @@ EncodeTiledFn encode_tiled() {
 }
 
 // A row-major (rows, cols) bf16 matrix with row stride ld, in boxes of
-// box_cols x box_rows, zero fill past the extent.
+// box_cols x box_rows, zero fill past the extent.  With depth > 0: a stack
+// of `depth` such matrices `plane` elements apart, as a rank-3 map whose
+// boxes are one matrix deep, so that a box fills and clips at its own
+// matrix's edges (the grouped GEMM's experts).
 int encode_map(CUtensorMap* map, const void* base, int rows, int cols,
                int64_t ld, int box_cols, int box_rows,
-               CUtensorMapSwizzle swizzle) {
+               CUtensorMapSwizzle swizzle, int depth = 0,
+               int64_t plane = 0) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                        const_cast<void*>(base), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(depth)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * 2,
+                                 static_cast<cuuint64_t>(plane) * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        depth > 0 ? 3 : 2, const_cast<void*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kDriverErrorBase + static_cast<int>(r);
 }
@@ -626,38 +683,55 @@ int wgmma_encode(const void* A, const void* B, const void* C, int M, int N,
   return e;
 }
 
-template <int NW, int W>
+template <int NW, int W, bool G>
 int launch_wgmma(const CUtensorMap* m, const __nv_bfloat16* cin,
                  __nv_bfloat16* cout, int M, int N, int k0, int k1,
-                 int64_t ldc, int bm, int bn, int ks, int stages, int gm,
-                 int gn, int group, int tma_c, int pairs, unsigned blocks,
-                 int smem, cudaStream_t stream) {
+                 int64_t ldc, int64_t c_plane, int bm, int bn, int ks,
+                 int stages, int gm, int gn, int group, int tma_c, int pairs,
+                 dim3 grid, int smem, cudaStream_t stream) {
+  // only the kernel this library launches is instantiated
+  auto* kernel = [] {
+    if constexpr (G)
+      return grouped_wgmma<NW, W>;
+    else
+      return wgmma_gemm<NW, W>;
+  }();
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        wgmma_gemm<NW, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kWgmmaMaxSmem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgmmaMaxSmem);
+    // the grouped GEMM's blocks are sized to share an SM (see
+    // grouped_gemm.cu): ask for all of its memory as shared memory
+    if (e == cudaSuccess && G)
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  wgmma_gemm<NW, W><<<blocks, W * 128 + 32, smem, stream>>>(
-      m[0], m[1], m[2], cin, cout, M, N, k0, k1, ldc, bm, bn, ks, stages, gm,
-      gn, group, tma_c, pairs);
+  kernel<<<grid, W * 128 + 32, smem, stream>>>(
+      m[0], m[1], m[2], cin, cout, M, N, k0, k1, ldc, c_plane, bm, bn, ks,
+      stages, gm, gn, group, tma_c, pairs);
   return cudaGetLastError();
 }
 
-// One launch over the (M/bm) x (N/bn) tiles for K in [k0, k1), the maps
-// from wgmma_encode.  Mirrors kernels/gemm.py:wgmma_config, which picks ks
-// and stages and refuses what does not fit first.
-int wgmma_gemm_launch(const void* maps, const void* Cin, void* Cout, int M,
-                      int N, int K, int64_t ldc, int k0, int k1, int bm,
-                      int bn, int ks, int stages, int group, void* stream) {
+// One launch over the (M/bm) x (N/bn) tiles of each of `experts` products
+// (G: the grouped GEMM, rank-3 maps, the expert on blockIdx.z; else one
+// product) for K in [k0, k1), on the maps m[0..2] (m[2] read only when
+// tma_c).  The caller (kernels/gemm.py:wgmma_config, or
+// kernels/grouped_gemm.py:grouped_config) picks ks and stages and refuses
+// what does not fit first.
+template <bool G>
+int launch_tiles(const CUtensorMap* m, const void* Cin, void* Cout, int M,
+                 int N, int K, int64_t ldc, int64_t c_plane, int experts,
+                 int k0, int k1, int bm, int bn, int ks, int stages,
+                 int group, int tma_c, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || k0 < 0 || k1 <= k0 || k1 > K ||
       stages < 1 || group < 1 || bm <= 0 || bn <= 0 || ks <= 0 ||
       (bm & (bm - 1)) || (bn & (bn - 1)) || (ks & (ks - 1)) ||
-      (Cin != nullptr && Cin != Cout))
+      (Cin != nullptr && Cin != Cout) || experts < 1 || experts > 65535 ||
+      (G && Cin != nullptr))
     return cudaErrorInvalidValue;
-  const int tma_c = tma_c_ok(Cout, ldc, bn);
   const Geom g(bm, bn, ks, tma_c);
   const int smem = g.smem(stages);
   if (smem > kWgmmaMaxSmem) return cudaErrorInvalidValue;
@@ -667,23 +741,23 @@ int wgmma_gemm_launch(const void* maps, const void* Cin, void* Cout, int M,
   if (group > gm) group = static_cast<int>(gm);
   if (group * gn > 2147483647LL) group = 1;
   // bf16 pairs (4-byte stores) need even columns at 4-byte addresses
-  const int pairs = bn >= 8 && ldc % 2 == 0 &&
+  const int pairs = bn >= 8 && ldc % 2 == 0 && c_plane % 2 == 0 &&
                     reinterpret_cast<uintptr_t>(Cout) % 4 == 0;
-  alignas(64) CUtensorMap m[3];
-  memcpy(m, maps, sizeof(m));
   const auto* cin = static_cast<const __nv_bfloat16*>(Cin);
   auto* cout = static_cast<__nv_bfloat16*>(Cout);
   const int nw = bn <= 64 ? 64 : (bn >= 256 ? 256 : bn);
   const int units = (g.bmp + 63) / 64 * ((bn < 64 ? 64 : bn) / nw);
   const int w = units < 2 ? 1 : 2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = static_cast<unsigned>(gm * gn);
+  const dim3 grid(static_cast<unsigned>(gm * gn), 1,
+                  static_cast<unsigned>(experts));
 #define REPRO_WGMMA_CASE(NW_, W_)                                            \
   if (nw == NW_ && w == W_)                                                  \
-    return launch_wgmma<NW_, W_>(m, cin, cout, M, N, k0, k1, ldc, bm, bn,   \
-                                 ks, stages, static_cast<int>(gm),           \
-                                 static_cast<int>(gn), group, tma_c, pairs,  \
-                                 blocks, smem, s);
+    return launch_wgmma<NW_, W_, G>(m, cin, cout, M, N, k0, k1, ldc,        \
+                                    c_plane, bm, bn, ks, stages,             \
+                                    static_cast<int>(gm),                    \
+                                    static_cast<int>(gn), group, tma_c,      \
+                                    pairs, grid, smem, s);
   REPRO_WGMMA_CASE(64, 1) REPRO_WGMMA_CASE(64, 2)
   REPRO_WGMMA_CASE(128, 1) REPRO_WGMMA_CASE(128, 2)
   REPRO_WGMMA_CASE(256, 1) REPRO_WGMMA_CASE(256, 2)

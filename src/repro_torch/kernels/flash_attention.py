@@ -36,7 +36,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.gemm import _on_cpu
+from repro_torch.kernels.gemm import _on_cpu, on_device, raw_stream
 
 #: kernel launches since the last reset
 LAUNCHES = {"flash_attention": 0}
@@ -116,8 +116,8 @@ def _launch(q, k, v, o, causal: bool) -> None:
     lib = build.load(f"flash_attention_{_TAGS[q.dtype]}")
     strides = [st for t in (q, k, v) for st in (t.stride(0), t.stride(1),
                                                 t.stride(2))]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with on_device(q):
+        stream = raw_stream(q)
         err = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s,
             k.shape[1], h, d, *strides, int(causal), stream)

@@ -43,6 +43,7 @@ route, so a run can show that every bf16 launch used ``wgmma``.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -264,6 +265,23 @@ def _on_cpu(*ts) -> bool:
     return dev == "cpu"
 
 
+def on_device(t):
+    """A context in which ``t``'s CUDA device is current: no switch at all
+    when it already is, so that a launch on the current device costs no
+    device guard."""
+    if t.get_device() == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
+
+
+def raw_stream(t) -> int:
+    """The handle (``cudaStream_t``) of the current stream on ``t``'s
+    device, which a launch takes, read without building the Python Stream
+    object that ``torch.cuda.current_stream()`` returns (a host cost paid
+    on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
 def _check_operands(a, b) -> tuple[int, int, int]:
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"operands {tuple(a.shape)} @ {tuple(b.shape)} are "
@@ -289,8 +307,8 @@ def _launch(a, b, c_in, c_out, m: int, n: int, k: int, tile) -> None:
     from repro_torch.kernels import build
 
     lib = build.load(f"gemm_{_tag(a.dtype)}")
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
+    with on_device(a):
+        stream = raw_stream(a)
         err = lib.repro_gemm_tile(
             a.data_ptr(), b.data_ptr(),
             None if c_in is None else c_in.data_ptr(), c_out.data_ptr(),
@@ -341,8 +359,8 @@ def raster_group(m: int, k: int, bm: int) -> int:
 
 def _launch_wgmma(lib, maps, c_in, c_out, m: int, n: int, k: int, k0: int,
                   k1: int, tile, cfg, group: int) -> None:
-    with torch.cuda.device(c_out.device):
-        stream = torch.cuda.current_stream(c_out.device).cuda_stream
+    with on_device(c_out):
+        stream = raw_stream(c_out)
         err = lib.repro_gemm_wgmma(
             maps, None if c_in is None else c_in.data_ptr(),
             c_out.data_ptr(), m, n, k, c_out.stride(0), k0, k1, tile.bm,

@@ -3,7 +3,7 @@
 ``rmsnorm(x, scale)`` computes ``x * rsqrt(mean(x**2) + eps) * scale`` over
 the last axis in one launch of ``csrc/rmsnorm.cu``; it replaces
 ``repro.kernels.rmsnorm.rmsnorm`` (src/repro/kernels/rmsnorm.py:29).  The
-statistics are f32, ``scale`` is cast to f32 (exact from bf16) and the
+statistics are f32, ``scale`` is widened to f32 (exact from bf16) and the
 output has x's dtype; bf16 and f32 x are taken, anything else raises.
 
 Bound on an H100: bytes (each row read once and written once for four
@@ -11,16 +11,21 @@ operations per element).  One warp per row.  Any D and any x are taken;
 :func:`path` names the kernel path a call takes:
 
 * ``"registers"``: D a multiple of 8 (bf16) or 4 (f32), at most
-  :func:`max_dim`, x 16-byte aligned: 16-byte loads, the row held in
-  registers between the sum of squares and the scaling (read once);
+  :func:`max_dim`, x and scale 16-byte aligned: 16-byte loads, the row
+  held in registers between the sum of squares and the scaling (read
+  once);
 * ``"two-pass"``: the same, with a wider row: 16-byte loads, the row read
   twice from device memory (once for the sum, once for the scaling);
-* ``"scalar"``: D not a multiple of the vector width, or x not 16-byte
-  aligned: element loads with the last group masked at D, the row read
-  twice.
+* ``"scalar"``: D not a multiple of the vector width, or x or the scale not
+  16-byte aligned: element loads with the last group masked at D, the row
+  read twice.
 
-A non-contiguous x is first copied into a contiguous tensor by the
-wrapper (one copy of x, :func:`kernel_input`).
+The kernel reads a bf16 or f32 scale in its own dtype and widens it in
+registers, as the JAX kernel's body does (:func:`kernel_scale`), so a call
+launches one kernel and allocates only y.  A scale of another dtype is
+converted to f32 once, a non-contiguous x or scale copied once
+(:func:`kernel_input`).  The wrapper switches device only when x is not on
+the current one.
 
 ``block_rows`` only decides which calls are accepted: as the JAX kernel
 asserts, ``rows % min(block_rows, rows)`` must be 0, else ValueError, on
@@ -38,8 +43,8 @@ import math
 
 import torch
 
-from repro_torch.kernels import ref
-from repro_torch.kernels.gemm import _on_cpu
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.gemm import _on_cpu, on_device, raw_stream
 
 #: kernel launches since the last reset
 LAUNCHES = {"rmsnorm": 0}
@@ -54,7 +59,7 @@ def reset_launch_counts() -> None:
 
 def vector_elems(dtype) -> int:
     """Elements of ``dtype`` in one 16-byte load."""
-    return 16 // torch.empty((), dtype=dtype).element_size()
+    return 16 // dtype.itemsize
 
 
 def max_dim(dtype) -> int:
@@ -62,21 +67,33 @@ def max_dim(dtype) -> int:
     return 32 * MAX_VECS_PER_LANE * vector_elems(dtype)
 
 
-def kernel_input(x):
+def kernel_input(x, scale=None):
     """(the x the kernel reads, its path): a non-contiguous x is copied
     into a contiguous tensor (one copy); the path follows from D and the
-    alignment of that tensor's base, as the launcher in
-    ``csrc/rmsnorm.cu`` decides it."""
+    alignment of that tensor's base and of ``scale`` (as
+    :func:`kernel_scale` gives it; None: an aligned one), as the launcher
+    in ``csrc/rmsnorm.cu`` decides it."""
     if not x.is_contiguous():
         x = x.contiguous()
-    return x, path(x)
+    return x, path(x, scale)
 
 
-def path(x) -> str:
-    """The kernel path for a contiguous x: ``"registers"``,
-    ``"two-pass"`` or ``"scalar"`` (see the module note)."""
+def kernel_scale(scale):
+    """The scale as the kernel reads it: a bf16 or f32 scale as it is (one
+    copy only if it is not contiguous), any other dtype converted to f32
+    once."""
+    if scale.dtype not in _TAGS:
+        scale = scale.to(torch.float32)
+    return scale.contiguous()
+
+
+def path(x, scale=None) -> str:
+    """The kernel path for a contiguous x and the kernel's ``scale``
+    (None: an aligned one): ``"registers"``, ``"two-pass"`` or
+    ``"scalar"`` (see the module note)."""
     d, vec = x.shape[-1], vector_elems(x.dtype)
-    if d % vec or x.data_ptr() % 16:
+    if d % vec or x.data_ptr() % 16 or (
+            scale is not None and scale.data_ptr() % 16):
         return "scalar"
     return "registers" if d <= max_dim(x.dtype) else "two-pass"
 
@@ -86,8 +103,26 @@ def rmsnorm_plain(x, scale, *, eps: float = 1e-5):
     return ref.rmsnorm_ref(x, scale, eps=eps)
 
 
+#: row counts of call signatures already checked (x's and the scale's
+#: shapes, x's dtype, block_rows); dropped past 256
+_ROWS: dict[tuple, int] = {}
+
+
 def _check(x, scale, block_rows: int) -> int:
-    """The row count; raises ValueError for what neither path takes."""
+    """The row count; raises ValueError for what neither path takes.  The
+    checks follow from the call's signature alone, so each signature is
+    checked once."""
+    key = (x.shape, scale.shape, x.dtype, block_rows)
+    rows = _ROWS.get(key)
+    if rows is None:
+        rows = _check_signature(x, scale, block_rows)
+        if len(_ROWS) >= 256:
+            _ROWS.clear()
+        _ROWS[key] = rows
+    return rows
+
+
+def _check_signature(x, scale, block_rows: int) -> int:
     if x.ndim < 1 or tuple(scale.shape) != (x.shape[-1],):
         raise ValueError(f"scale {tuple(scale.shape)} does not match the "
                          f"last axis of x {tuple(x.shape)}")
@@ -103,14 +138,12 @@ def _check(x, scale, block_rows: int) -> int:
 
 
 def _launch(x, scale, y, rows: int, eps: float) -> None:
-    from repro_torch.kernels import build
-
     d = x.shape[-1]
     lib = build.load(f"rmsnorm_{_TAGS[x.dtype]}")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    with on_device(x):
         err = lib.repro_rmsnorm(x.data_ptr(), scale.data_ptr(), y.data_ptr(),
-                                rows, d, eps, stream)
+                                rows, d, eps, scale.dtype == torch.bfloat16,
+                                raw_stream(x))
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"rmsnorm kernel launch failed for {rows} x {d}: "
@@ -120,19 +153,16 @@ def _launch(x, scale, y, rows: int, eps: float) -> None:
 def rmsnorm(x, scale, *, eps: float = 1e-5, block_rows: int = 256):
     """x: (..., D); scale: (D,) -> the same shape and dtype as x."""
     rows = _check(x, scale, block_rows)
-    if _on_cpu(x, scale):
+    if not (x.is_cuda and scale.is_cuda) and _on_cpu(x, scale):
         return rmsnorm_plain(x, scale, eps=eps)
     if rows >= 2 ** 31 or x.shape[-1] >= 2 ** 31:
         raise ValueError(f"{rows} rows of {x.shape[-1]} exceed int32")
-    if x.device != scale.device:
+    if x.get_device() != scale.get_device():
         raise ValueError("x and scale on different CUDA devices")
-    shape = x.shape
-    x, _ = kernel_input(x)
-    s32 = scale.to(torch.float32).contiguous()
-    if s32.data_ptr() % 16:
-        s32 = s32.clone()
-    y = torch.empty(shape, dtype=x.dtype, device=x.device)
+    if not x.is_contiguous():
+        x = x.contiguous()
+    y = torch.empty_like(x)
     if y.numel():
-        _launch(x, s32, y, rows, float(eps))
+        _launch(x, kernel_scale(scale), y, rows, float(eps))
         LAUNCHES["rmsnorm"] += 1
     return y

@@ -139,29 +139,42 @@ def test_wrapper_rejects_c_in_another_dtype_on_the_card():
 
 #: granite-moe-3b-a800m's expert products: decode with max_batch 4
 #: (C = 4 x 8) and one request's prefill at bucket 32 (C = 8), the shapes
-#: the served run launches; a prefill at bucket 512 (C = 128); a ragged C
+#: the served run launches; a prefill at bucket 512 (C = 128); a ragged C;
+#: a ragged D and F (rows TMA cannot read in place: both copied)
 GROUPED_SHAPES = [(40, 32, 1536, 512), (40, 32, 512, 1536),
                   (40, 8, 1536, 512), (40, 8, 512, 1536),
                   (40, 128, 1536, 512), (40, 128, 512, 1536),
-                  (40, 24, 1536, 512), (3, 24, 200, 72)]
+                  (40, 24, 1536, 512), (3, 24, 200, 72), (3, 24, 201, 75)]
+
+
+def _grouped_operands(e, c, d, f, dt):
+    rng = np.random.default_rng(e + c + d + f)
+    # weights at the model's init scale (dense_init: std D^-1/2), so the
+    # outputs are O(1) as when served
+    return operands_from_numpy(
+        rng.normal(size=(e, c, d)).astype(np.float32),
+        (rng.normal(size=(e, d, f)) * d ** -0.5).astype(np.float32),
+        device="cuda", dtype=dt)
 
 
 @pytest.mark.parametrize("dt", ["bf16", "f32"])
 @pytest.mark.parametrize("e,c,d,f", GROUPED_SHAPES)
 def test_grouped_kernel_matches_plain_version(e, c, d, f, dt):
+    """Every bf16 launch on the wgmma route (its ragged D and F copied to
+    aligned rows first), every f32 one on the CUDA cores."""
     from repro_torch.kernels import grouped_gemm as G
 
-    rng = np.random.default_rng(e + c + d + f)
-    # weights at the model's init scale (dense_init: std D^-1/2), so the
-    # outputs are O(1) as when served
-    x, w = operands_from_numpy(
-        rng.normal(size=(e, c, d)).astype(np.float32),
-        (rng.normal(size=(e, d, f)) * d ** -0.5).astype(np.float32),
-        device="cuda", dtype=dt)
+    x, w = _grouped_operands(e, c, d, f, dt)
     before = G.LAUNCHES["grouped_gemm"]
+    routes, copies = dict(G.ROUTES), G.COPIES["aligned"]
     got = G.grouped_gemm(x, w)
     torch.cuda.synchronize()
     assert G.LAUNCHES["grouped_gemm"] == before + 1
+    route = "wgmma" if dt == "bf16" else "cuda_cores"
+    assert {r: G.ROUTES[r] - routes[r] for r in routes} == {
+        r: int(r == route) for r in routes}
+    assert G.COPIES["aligned"] - copies == (
+        (d % 8 != 0) + (f % 8 != 0) if dt == "bf16" else 0)
     want = G.grouped_gemm_plain(x, w)
     assert got.dtype == x.dtype and got.shape == want.shape
     tol = (dict(rtol=2e-2, atol=2e-2) if dt == "bf16"
@@ -169,17 +182,43 @@ def test_grouped_kernel_matches_plain_version(e, c, d, f, dt):
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
+@pytest.mark.parametrize("f", [512, 75])
+def test_grouped_kernel_keeps_each_expert_to_its_own_rows(f):
+    """C = 24 on a 32-row tile: each expert's rows equal a launch of that
+    expert alone (same kernel, same sum order), and the odd experts, whose
+    weights are zero, stay exactly zero: no expert's store reaches its
+    neighbour's rows, whether y goes out by TMA (F = 512) or from
+    registers (F = 75)."""
+    from repro_torch.kernels import grouped_gemm as G
+
+    e, c, d = 6, 24, 1536
+    x, w = _grouped_operands(e, c, d, f, "bf16")
+    w[1::2] = 0
+    got = G.grouped_gemm(x, w)
+    alone = [G.grouped_gemm(x[i:i + 1].contiguous(), w[i:i + 1].contiguous())
+             for i in range(e)]
+    torch.cuda.synchronize()
+    assert bool((got[1::2] == 0).all())
+    for i in range(e):
+        assert torch.equal(got[i], alone[i][0]), f"expert {i}"
+    torch.testing.assert_close(got.float(), G.grouped_gemm_plain(x, w).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
 @pytest.mark.parametrize("first", ["gemm", "grouped"])
 def test_gemm_and_grouped_libraries_each_configure_their_kernel(first):
-    """Both libraries compile the same tile kernel from ``tile_gemm.cuh``;
-    each copy must get its own shared-memory attribute, whichever library
-    launches a register tile first (81,920 B here, over the 48 KB default)."""
+    """The f32 GEMM and f32 grouped libraries compile the same tile kernel
+    from ``tile_gemm.cuh`` (bf16 now runs wgmma in both); each copy must
+    get its own shared-memory attribute, whichever library launches a
+    register tile first (163,840 and 196,608 B here, over the 48 KB
+    default)."""
     from repro_torch.kernels import grouped_gemm as G
 
     tile = TileConfig(32, 128, 256) if first == "gemm" else \
         TileConfig(32, 64, 512)
-    x = torch.randn(3, 32, 520, device="cuda", dtype=torch.bfloat16)
-    w = torch.randn(3, 520, 200, device="cuda", dtype=torch.bfloat16)
+    x = torch.randn(3, 32, 520, device="cuda")
+    # weights at the model's init scale, for atol 1e-4 (see above)
+    w = torch.randn(3, 520, 200, device="cuda") * 520 ** -0.5
     calls = [lambda: G.grouped_gemm(x, w, tile=tile),
              lambda: K.gemm_k_inner(x[0], w[0], tile=tile)]
     if first == "gemm":
@@ -187,11 +226,9 @@ def test_gemm_and_grouped_libraries_each_configure_their_kernel(first):
     outs = [call() for call in calls]
     torch.cuda.synchronize()
     got_g, got_k = outs if first == "grouped" else outs[::-1]
-    tol = dict(rtol=2e-2, atol=2e-2)
-    torch.testing.assert_close(got_g.float(),
-                               G.grouped_gemm_plain(x, w).float(), **tol)
-    torch.testing.assert_close(got_k.float(),
-                               K.gemm_k_inner_plain(x[0], w[0]).float(), **tol)
+    tol = dict(rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got_g, G.grouped_gemm_plain(x, w), **tol)
+    torch.testing.assert_close(got_k, K.gemm_k_inner_plain(x[0], w[0]), **tol)
 
 
 def test_grouped_kernel_refuses_a_tile_over_the_shared_memory_limit():
@@ -314,6 +351,37 @@ def test_flash_attention_kernel_takes_b_times_h_past_65535(dt):
 
 @pytest.mark.parametrize("dt", ["bf16", "f32"])
 @pytest.mark.parametrize("shape", [(4, 1, 1536), (1, 32, 1536), (4096, 1536),
+                                   (13, 128), (8, 4096), (16, 1001)])
+def test_rmsnorm_reads_a_bf16_scale_as_its_f32_copy(shape, dt):
+    """The kernel widens a bf16 scale in registers: its output is bit-equal
+    to the output for the scale's f32 copy (what the wrapper used to
+    convert and pass), on every path, and the call launches one kernel
+    and no conversion."""
+    from repro_torch.kernels import rmsnorm as R
+
+    rng = np.random.default_rng(sum(shape) + 1)
+    x = operands_from_numpy(rng.normal(size=shape).astype(np.float32),
+                            device="cuda", dtype=dt)
+    scale = operands_from_numpy(
+        rng.normal(size=shape[-1]).astype(np.float32), device="cuda",
+        dtype="bf16")
+    rows = x.numel() // shape[-1]
+    assert R.kernel_scale(scale) is scale
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CUDA]) as prof:
+        got = R.rmsnorm(x, scale, eps=1e-6, block_rows=rows)
+        torch.cuda.synchronize()
+    kernels = [ev.key for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and ev.self_device_time_total > 0]
+    assert len(kernels) == 1 and "rmsnorm" in kernels[0], kernels
+    want = R.rmsnorm(x, scale.float(), eps=1e-6, block_rows=rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+@pytest.mark.parametrize("shape", [(4, 1, 1536), (1, 32, 1536), (4096, 1536),
                                    (13, 128), (2, 24, 64), (8, 4096)])
 def test_rmsnorm_kernel_matches_plain_version(shape, dt):
     from repro_torch.kernels import rmsnorm as R
@@ -365,3 +433,18 @@ def test_rmsnorm_kernel_refuses_ragged_rows_and_widths():
             assert bool(((got.float() - want.float()).abs()
                          <= _bf16_ulp(want)).all())
     assert R.LAUNCHES["rmsnorm"] == before + 5
+
+
+def test_rmsnorm_takes_a_misaligned_scale_on_the_scalar_path():
+    """A bf16 scale whose base is off 16 bytes is read in place, element
+    by element (the scalar path), not cloned."""
+    from repro_torch.kernels import rmsnorm as R
+
+    x = torch.randn(64, 1536, dtype=torch.bfloat16, device="cuda")
+    s = torch.randn(1537, device="cuda").to(torch.bfloat16)[1:]
+    assert R.kernel_scale(s) is s and R.kernel_input(x, s)[1] == "scalar"
+    got = R.rmsnorm(x, s, block_rows=64)
+    torch.cuda.synchronize()
+    want = R.rmsnorm_plain(x, s)
+    assert bool(((got.float() - want.float()).abs()
+                 <= _bf16_ulp(want)).all())

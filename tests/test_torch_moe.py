@@ -108,16 +108,20 @@ def test_cpu_tensors_do_not_count_as_launches():
 
 
 def test_grouped_tile_fits_hopper_shared_memory():
-    """bc follows the capacity, bk the dtype; the JAX default tile would
-    not fit a Hopper block's shared memory and is refused."""
-    assert str(G.grouped_tile(32, torch.bfloat16)) == "32x128x256:k_inner"
-    assert str(G.grouped_tile(24, torch.bfloat16)) == "32x128x256:k_inner"
+    """bc follows the capacity, bf and bk the route: bf16's wgmma tile is
+    64 F columns by 64 deep, f32's CUDA-core tile 128 by 128; the JAX
+    default tile would not fit a Hopper block's shared memory and is
+    refused."""
+    assert str(G.grouped_tile(32, torch.bfloat16)) == "32x64x64:k_inner"
+    assert str(G.grouped_tile(24, torch.bfloat16)) == "32x64x64:k_inner"
     assert str(G.grouped_tile(8, torch.float32)) == "8x128x128:k_inner"
     assert str(G.grouped_tile(512, torch.float32)) == "128x128x128:k_inner"
     for c in (8, 24, 32, 128, 1024):
         for dt, s in ((torch.bfloat16, 2), (torch.float32, 4)):
             t = G.grouped_tile(c, dt)
             assert (t.bm * t.bk + t.bk * t.bn) * s <= 131072 < MAX_SMEM_BYTES
+        cfg = G.check_tile(G.grouped_tile(c, torch.bfloat16), torch.bfloat16)
+        assert cfg.smem_bytes <= MAX_SMEM_BYTES
     x = torch.zeros(2, 128, 512, dtype=torch.bfloat16)
     w = torch.zeros(2, 512, 128, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="shared memory"):

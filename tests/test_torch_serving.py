@@ -348,4 +348,4 @@ def test_full_width_granite_shapes_have_tiles_the_kernels_take():
         caps = {_capacity(1, cfg) * b for b in (1, 4)}
         caps |= {_capacity(s, cfg) for s in PREFILL_BUCKETS if s <= 256}
         for c in sorted(caps):
-            launch_config(G.grouped_tile(c, dt), tag)
+            G.check_tile(G.grouped_tile(c, dt), dt)
