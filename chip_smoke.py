@@ -18,11 +18,15 @@ the attention and norm entry points on that model's activations (phase
              configuration per tile (bf16: slab depth, stages, shared
              memory, blocks per SM, blocks per launch at the served
              shapes; f32: shared memory), the GEMM's wgmma configuration at
-             every planner tile, the flash attention and RMSNorm kernels'
-             registers and shared memory per kernel, and the card's name
-             and power limit.  Where the toolkit has ``cuobjdump``, fail
-             unless the gemm_bf16 library's SASS holds HGMMA instructions
-             and the grouped_gemm_bf16 library's HGMMA and UTMALDG.
+             every planner tile, the f32 flash attention and RMSNorm
+             kernels' registers and shared memory per kernel, the bf16
+             flash attention (wgmma) kernel's registers, spills,
+             warpgroups, keys per step, stages and shared memory per
+             head-dim width, and the card's name and power limit.  Where
+             the toolkit has ``cuobjdump``, fail unless the gemm_bf16
+             library's SASS holds HGMMA instructions and the
+             grouped_gemm_bf16 and flash_attention_bf16 libraries' HGMMA
+             and UTMALDG.
 2. kernels — both loop orders against their plain PyTorch versions on the
              card: every tile the planner picks for the slice's shapes (the
              Qwen2-1.5B GEMMs, Table-2 in all three dtypes, granite's
@@ -46,9 +50,14 @@ the attention and norm entry points on that model's activations (phase
              floor its variant defines); k-inner with two shared-memory
              stages against as many as fit, in turns; with ``--parent DIR``
              (an export of an earlier commit) also that tree's times, in
-             the order parent, change, change, parent.
+             the order parent, change, change, parent.  Then both kernels'
+             int8 and f32 routes (the CUDA cores, ``tile_gemm.cuh``) at the
+             same shapes and tiles, beside ``torch._int_mm`` (int8 ->
+             int32) and ``torch.matmul`` (f32, TF32 off) and their bounds
+             (int8 at the 1,979 TOP/s tensor-core rate, f32 at 67 TFLOP/s).
              Phases 3, 4, 5 and 7 fail unless every bf16 GEMM launch went
-             through the wgmma route.
+             through the wgmma route, phase 5 unless every int8 and f32
+             launch went through the CUDA cores.
 6. grouped — the grouped (MoE expert) kernel against its plain version in
              bf16 and f32 at granite's serving shapes (decode with
              max_batch 4: C = 32; one request's prefill at bucket 32: C = 8),
@@ -97,7 +106,8 @@ the attention and norm entry points on that model's activations (phase
              ``ops.flash_attention`` and ``rmsnorm`` run on those exact
              tensors and are held against the model's own outputs and
              against their plain versions; RMSNorm on the model's bf16
-             scale must equal, bit for bit, RMSNorm on its f32 copy.
+             scale must equal, bit for bit, RMSNorm on its f32 copy; every
+             bf16 flash launch must take the wgmma route.
 10. attention/norm timing — both kernels against their plain versions at
              granite's and Qwen2-1.5B's full widths (attention (1, S, 24,
              64) for S in 32, 256, 4096 causal in bf16 and f32, S = 4096
@@ -112,9 +122,14 @@ the attention and norm entry points on that model's activations (phase
              also timed by CUDA-graph replay (device time) and by a
              host-clock loop that does not synchronise per call (the
              wrapper's host µs per call, beside ``F.rms_norm``'s); a bf16
-             scale must give the output of its f32 copy, bit for bit.  With
-             ``--parent``, RMSNorm at 4, 32 and 32768 rows in both trees,
-             each in a fresh process: parent, change, change, parent.
+             scale must give the output of its f32 copy, bit for bit; every
+             bf16 flash launch must take the wgmma route and every f32 one
+             the CUDA cores (aligned copies printed).  With ``--parent``,
+             RMSNorm at 4, 32 and 32768 rows and flash attention (causal;
+             bf16 at S = 32, granite and Qwen2-1.5B at S = 4096,
+             paligemma-3b's D = 256; f32 at the two S = 4096 shapes) in
+             both trees, each in a fresh process: parent, change, change,
+             parent.
 
 With tied embeddings and random weights, the token's own embedding
 dominates the last hidden state, so greedy decoding echoes the input token
@@ -449,52 +464,58 @@ def all_on_wgmma(K, label, since=None):
           f"one went through wgmma")
 
 
-def c_stream_ms(m, n, k, bk):
-    """k-outer's C stream: C (bf16) read and written once per pass, over
-    3.35 TB/s."""
-    return m * n * 2 * 2 * -(-k // bk) / HBM_BYTES_PER_S * 1e3
+def c_stream_ms(m, n, k, bk, tag="bf16"):
+    """k-outer's C stream: C (bf16; int32 for int8, f32 for f32) read and
+    written once per pass, over 3.35 TB/s."""
+    out = 4 if tag == "int8" else ELEM_BYTES[tag]
+    return m * n * out * 2 * -(-k // bk) / HBM_BYTES_PER_S * 1e3
 
 
-def gemm_timings(K, shapes, dev, *, plain=True, quiet=False):
+def gemm_timings(K, shapes, dev, *, plain=True, quiet=False, tag="bf16"):
     """Both GEMM kernels at ``shapes`` [(name, m, n, k, (bm, bn, bk))] in
-    bf16, timed with CUDA events beside their plain versions (when
-    ``plain``), ``torch.matmul`` and their bound.  Takes only the kernel
-    module's ``gemm_k_inner`` / ``gemm_k_outer`` / ``*_plain``, so it also
-    times an older tree's module."""
+    ``tag`` (bf16: the wgmma route; int8, f32: the CUDA cores), timed with
+    CUDA events beside their plain versions (when ``plain``), one PyTorch
+    call (``torch.matmul``, TF32 off; ``torch._int_mm`` for int8, int8 ->
+    int32 as the kernel) and their bound.  Takes only the kernel module's
+    ``gemm_k_inner`` / ``gemm_k_outer`` / ``*_plain``, so it also times an
+    older tree's module."""
     import torch
     from repro_torch.core.tpu_model import GridOrder, TileConfig
 
     rows = []
+    mm = torch._int_mm if tag == "int8" else torch.matmul
+    slow = tag != "bf16"   # the CUDA cores: tens of ms a call
     for i, (name, m, n, k, (bm, bn, bk)) in enumerate(shapes):
-        a, b = seeded(m, n, k, "bf16", 2000 + i, dev)
-        c0 = torch.zeros((m, n), dtype=torch.bfloat16, device=dev)
+        a, b = seeded(m, n, k, tag, 2000 + i, dev)
+        c0 = torch.zeros((m, n), dtype=K.out_dtype(a.dtype), device=dev)
         ti = TileConfig(bm, bn, bk, GridOrder.K_INNER)
         to = TileConfig(bm, bn, bk, GridOrder.K_OUTER)
-        lib = cuda_ms(lambda: torch.matmul(a, b))
+        lib = cuda_ms(lambda: mm(a, b))
         for kname, fn, plain_fn, c_in in (
                 ("gemm_k_inner", lambda: K.gemm_k_inner(a, b, tile=ti),
                  lambda: K.gemm_k_inner_plain(a, b), False),
                 ("gemm_k_outer", lambda: K.gemm_k_outer(a, b, c0, tile=to),
                  lambda: K.gemm_k_outer_plain(a, b, c0, bk=bk), True)):
-            ms = cuda_ms(fn)
-            pms = cuda_ms(plain_fn, min_total_ms=100.0, max_reps=10) \
-                if plain else None
-            bms, by = bound(m, n, k, "bf16", c_in)
-            row = {"kernel": kname, "gemm": name, "shape": [m, n, k],
+            ms = cuda_ms(fn, max_reps=5 if slow else 50)
+            pms = cuda_ms(plain_fn, min_total_ms=100.0,
+                          max_reps=2 if slow else 10) if plain else None
+            bms, by = bound(m, n, k, tag, c_in)
+            row = {"kernel": kname, "dtype": tag, "gemm": name,
+                   "shape": [m, n, k],
                    "tile": str(to if c_in else ti), "ms": ms,
                    "plain_ms": pms, "library_ms": lib, "bound_ms": bms,
                    "bound_by": by, "tflops": 2.0 * m * n * k / ms / 1e9,
                    "bound_share": bms / ms}
             if c_in:
-                row["c_stream_ms"] = c_stream_ms(m, n, k, bk)
+                row["c_stream_ms"] = c_stream_ms(m, n, k, bk, tag)
             rows.append(row)
             if not quiet:
                 floor = (f", C-stream floor {row['c_stream_ms']:.4f} ms"
                          if c_in else "")
-                print(f"{kname:<13}{name:<8}{m}x{n}x{k}: {ms:.4f} ms "
-                      f"({row['tflops']:.2f} TFLOP/s, "
+                print(f"{kname:<13}{tag:<5}{name:<8}{m}x{n}x{k}: {ms:.4f} ms "
+                      f"({row['tflops']:.2f} T(FL)OP/s, "
                       f"{100 * row['bound_share']:.1f}% of the bound), "
-                      f"plain {pms:.4f} ms, torch.matmul {lib:.4f} ms, "
+                      f"plain {pms:.4f} ms, {mm.__name__} {lib:.4f} ms, "
                       f"bound {bms:.4f} ms ({by}){floor}")
         del a, b, c0
         torch.cuda.empty_cache()
@@ -504,9 +525,10 @@ def gemm_timings(K, shapes, dev, *, plain=True, quiet=False):
             floor = (f", C-stream floor "
                      f"{sum(r['c_stream_ms'] for r in mine):.4f} ms"
                      if kname == "gemm_k_outer" else "")
-            print(f"{kname} over the five GEMMs: "
-                  f"{sum(r['ms'] for r in mine):.4f} ms, torch.matmul "
-                  f"{sum(r['library_ms'] for r in mine):.4f} ms, bound "
+            print(f"{kname} {tag} over the five GEMMs: "
+                  f"{sum(r['ms'] for r in mine):.4f} ms, {mm.__name__} "
+                  f"{sum(r['library_ms'] for r in mine):.4f} ms, plain "
+                  f"{sum(r['plain_ms'] for r in mine):.4f} ms, bound "
                   f"{sum(r['bound_ms'] for r in mine):.4f} ms{floor}")
     return rows
 
@@ -553,9 +575,10 @@ def tree_run(tree, what, out, shapes=None):
     """One measurement of a tree (an export of an earlier commit, or this
     checkout), made by this script's own functions in a fresh process that
     imports that tree's ``repro_torch``: ``"gemm"`` (phase 5's GEMM times
-    at ``shapes``), ``"grouped"`` (phase 6's grouped times) or ``"serve"``
-    (phase 7's served decode step and profiled drain) or ``"norm"``
-    (phase 10's RMSNorm times at the served rows)."""
+    at ``shapes``), ``"grouped"`` (phase 6's grouped times), ``"serve"``
+    (phase 7's served decode step and profiled drain), ``"norm"`` (phase
+    10's RMSNorm times at the served rows) or ``"flash"`` (phase 10's flash
+    attention times at ``FLASH_TURN_SHAPES``)."""
     path = os.path.join(out, f"tree_{what}.json")
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
                            "--time-tree", os.path.abspath(tree),
@@ -585,6 +608,9 @@ def time_tree(tree, what, shapes, path):
     elif what == "norm":
         from repro_torch.kernels import rmsnorm as R
         res = norm_timings(R, dev)
+    elif what == "flash":
+        from repro_torch.kernels import flash_attention as FA
+        res = flash_timings(FA, dev)
     else:
         from repro_torch.configs import get_config
         res = served_steps()
@@ -1235,6 +1261,8 @@ ATTN_SHAPES = (
     ("xlstm-125m D=192", (1, 2048, 4, 192), True, ("bf16", "f32")),
     ("paligemma-3b D=256", (1, 2048, 8, 256), True, ("bf16", "f32")),
     ("B*H=70000 D=16", (1000, 64, 70, 16), True, ("bf16",)),
+    # a head dim whose rows TMA cannot read in place: q, k, v copied
+    ("ragged D=100", (1, 512, 4, 100), True, ("bf16",)),
 )
 #: phase 10: RMSNorm rows of D = 1536 (both models' d_model)
 NORM_ROWS = (4, 32, 4096, 32768)
@@ -1284,6 +1312,20 @@ def plain_attention(FA, q, k, v, causal):
     return torch.cat([FA.flash_attention_plain(
         q[:, :, i:i + 1], k[:, :, i:i + 1], v[:, :, i:i + 1], causal=causal)
         for i in range(q.shape[2])], dim=2)
+
+
+def flash_routes(FA, label, expect):
+    """Fails unless the flash attention launches since the last reset went
+    by route as ``expect`` says (bf16 on wgmma, f32 on the CUDA cores);
+    prints them and the aligned copies."""
+    want = {"wgmma": 0, "cuda_cores": 0, **expect}
+    print(f"{label} flash attention launches by route: {dict(FA.ROUTES)}, "
+          f"expected {want} (every bf16 launch on wgmma, every f32 one on "
+          f"the CUDA cores); aligned copies {FA.COPIES['aligned']}")
+    check(dict(FA.ROUTES) == want and sum(want.values())
+          == FA.LAUNCHES["flash_attention"] > 0,
+          f"{label}: flash attention launches by route {dict(FA.ROUTES)} "
+          f"are not {want}")
 
 
 def model_kernels_phase(dev, FA, R, ops):
@@ -1360,6 +1402,8 @@ def model_kernels_phase(dev, FA, R, ops):
     print(f"entry-point launches on the model's tensors: {launches}")
     for name_, n_ in launches.items():
         check(n_ > 0, f"{name_} was never launched in phase 9")
+    flash_routes(FA, "phase 9", {
+        FA.route(q.dtype): len(rec["attn"]) for q, *_ in rec["attn"]})
 
     err = {"flash_attention": 0.0, "rmsnorm": 0.0}
     model_err = {"flash_attention": 0.0, "rmsnorm": 0.0}
@@ -1409,8 +1453,10 @@ def attention_norm_phase(dev, FA, R, ops):
     FA.reset_launch_counts()
     R.reset_launch_counts()
     rows = []
+    expect = {"wgmma": 0, "cuda_cores": 0}
     for i, (name, (b, s, h, d), causal, tags) in enumerate(ATTN_SHAPES):
         for tag in tags:
+            n0 = FA.LAUNCHES["flash_attention"]
             g = torch.Generator(dev).manual_seed(500 + i)
             dt = {"bf16": torch.bfloat16, "f32": torch.float32}[tag]
             q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev,
@@ -1444,10 +1490,12 @@ def attention_norm_phase(dev, FA, R, ops):
                   f"{tag:<5}: {ms:.4f} ms ({rows[-1]['tflops']:.3f} TFLOP/s, "
                   f"{100 * bms / ms:.2f}% of the bound), plain {pms:.4f} ms"
                   f"{' (one head at a time)' if long_ else ''}, SDPA "
-                  f"{lib:.4f} ms, bound {bms:.4f} ms ({by}); max |err| "
-                  f"{err:.3g}")
+                  f"{lib:.4f} ms ({ms / lib:.2f}x), bound {bms:.4f} ms "
+                  f"({by}); max |err| {err:.3g}")
+            expect[FA.route(q.dtype)] += FA.LAUNCHES["flash_attention"] - n0
             del q, k, v, qt, kt, vt
             torch.cuda.empty_cache()
+    flash_routes(FA, "phase 10", expect)
     norms = [(f"{n} rows", n, NORM_D, "contiguous") for n in NORM_ROWS]
     for i, (nname, n, nd, layout) in enumerate(norms + list(NORM_EXTRA)):
         for tag in ("bf16", "f32"):
@@ -1571,6 +1619,58 @@ def compare_norms(turns):
               f"{r1['host_us']:.1f} / {r2['host_us']:.1f}")
 
 
+#: phase 10 with ``--parent``: flash attention (causal) timed in both trees
+FLASH_TURN_SHAPES = (
+    ("granite S=32", (1, 32, 24, 64), "bf16"),
+    ("granite S=4096", (1, 4096, 24, 64), "bf16"),
+    ("qwen2-1.5b S=4096", (1, 4096, 12, 128), "bf16"),
+    ("paligemma-3b D=256", (1, 2048, 8, 256), "bf16"),
+    ("granite S=4096", (1, 4096, 24, 64), "f32"),
+    ("qwen2-1.5b S=4096", (1, 4096, 12, 128), "f32"),
+)
+
+
+def flash_timings(FA, dev):
+    """Flash attention (causal) at ``FLASH_TURN_SHAPES``: CUDA-event ms,
+    device ms by CUDA-graph replay and host µs per call.  Takes only
+    ``FA.flash_attention_fwd``, so it also times an older tree's module."""
+    import torch
+
+    rows = []
+    for i, (name, shape, tag) in enumerate(FLASH_TURN_SHAPES):
+        g = torch.Generator(dev).manual_seed(800 + i)
+        dt = {"bf16": torch.bfloat16, "f32": torch.float32}[tag]
+        q, k, v = (torch.randn(shape, generator=g, device=dev, dtype=dt)
+                   for _ in range(3))
+
+        def kernel():
+            return FA.flash_attention_fwd(q, k, v, causal=True)
+
+        rows.append({"shape_name": name, "shape": list(shape), "dtype": tag,
+                     "event_ms": cuda_ms(kernel), "ms": graph_ms(kernel),
+                     "host_us": host_us(kernel)})
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def compare_flash(turns):
+    """Prints flash attention's times of parent and change, each in a fresh
+    process on this card, in the order parent, change, change, parent."""
+    p0, c1, c2, p1 = turns
+    print("flash attention (causal), parent vs this change on this card "
+          "(fresh processes, order: parent, change, change, parent):")
+    for r0, r1, r2, r3 in zip(p0, c1, c2, p1):
+        speedup = min(r0["ms"], r3["ms"]) / min(r1["ms"], r2["ms"])
+        print(f"  {r1['shape_name']:<19}{r1['dtype']:<5}device ms parent "
+              f"{r0['ms']:.4f} / {r3['ms']:.4f}, change {r1['ms']:.4f} / "
+              f"{r2['ms']:.4f} ({speedup:.2f}x); events ms parent "
+              f"{r0['event_ms']:.4f} / {r3['event_ms']:.4f}, change "
+              f"{r1['event_ms']:.4f} / {r2['event_ms']:.4f}; host us parent "
+              f"{r0['host_us']:.1f} / {r3['host_us']:.1f}, change "
+              f"{r1['host_us']:.1f} / {r2['host_us']:.1f}")
+
+
 def kernel_entry(name, source, replaces, launches, max_err, rows):
     """One entry of the kernels line: times summed over ``rows``."""
     t_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
@@ -1591,10 +1691,11 @@ def main(argv=None) -> int:
                                                   "chip_smoke"))
     ap.add_argument("--parent", default=None,
                     help="an export of an earlier commit (git archive) "
-                         "whose phase-5 GEMM and phase-6 grouped times to "
-                         "take on the same card, in the order parent, "
-                         "change, change, parent, and whose served run "
-                         "(phase 7) to take before and after this tree's")
+                         "whose phase-5 GEMM, phase-6 grouped and phase-10 "
+                         "RMSNorm and flash attention times to take on the "
+                         "same card, in the order parent, change, change, "
+                         "parent, and whose served run (phase 7) to take "
+                         "before and after this tree's")
     ap.add_argument("--time-tree", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--what", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--shapes", default=None, help=argparse.SUPPRESS)
@@ -1654,16 +1755,31 @@ def main(argv=None) -> int:
             " 0 bytes spill stores" in sp and " 0 bytes spill loads" in sp)]
         print(f"ptxas {v}: {len(regs)} kernels, registers "
               f"{min(regs)}..{max(regs)}, {len(spills)} with spills")
-        if v.startswith(("flash_attention", "rmsnorm")):
+        if v.startswith(("flash_attention_f32", "rmsnorm")):
             print("  " + ", ".join(f"{fn} {r} registers / {smem} B static "
                                    f"shared memory"
                                    for fn, r, smem, _ in entries))
+        if v == "flash_attention_bf16":
+            flash_entries = entries
         if v in ("gemm_bf16", "grouped_gemm_bf16"):
             for fn, r, _, sp in entries:
                 print(f"  {fn}: {r} registers; {sp or 'no spill line'}")
     sass_check(build, paths["gemm_bf16"], "gemm_bf16", ("HGMMA",))
     sass_check(build, paths["grouped_gemm_bf16"], "grouped_gemm_bf16",
                ("HGMMA", "UTMALDG"))
+    sass_check(build, paths["flash_attention_bf16"], "flash_attention_bf16",
+               ("HGMMA", "UTMALDG"))
+    for w in FA.HEAD_DIMS:
+        c = FA.wgmma_config(w)
+        name = f"flash_wgmma<{w}, {c.block_k}, {c.consumers}>"
+        regs = [f"{r} registers; {sp or 'no spill line'}"
+                for fn, r, _, sp in flash_entries if fn == name]
+        print(f"flash bf16 (wgmma) width {w}: {name}: "
+              f"{regs[0] if regs else 'not named in the ptxas log'}; "
+              f"{c.consumers} consumer "
+              f"warpgroup(s) ({c.block_q} query rows), {c.block_k} keys a "
+              f"step, {c.stages} K/V stages of {c.stage_bytes} B, "
+              f"{c.smem_bytes} B dynamic shared memory, {c.threads} threads")
     for c in (8, 24, 32, 128):
         t = G.grouped_tile(c, torch.bfloat16)
         cfg = G.grouped_config(t)
@@ -1681,8 +1797,9 @@ def main(argv=None) -> int:
         G.grouped_tile(c, torch.float32), "f32") for c in (8, 24, 32, 128)}
     print(f"grouped f32 (CUDA cores): dynamic shared memory per tile {tiles} "
           f"(a block may claim {K.MAX_SMEM_BYTES})")
-    print(f"flash attention: dynamic shared memory per block by head dim "
-          f"{ {d: FA.smem_bytes(d) for d in FA.HEAD_DIMS} }; RMSNorm: none")
+    print(f"flash attention f32 (CUDA cores): dynamic shared memory per "
+          f"block by head dim { {d: FA.smem_bytes(d) for d in FA.HEAD_DIMS} }"
+          f"; RMSNorm: none")
     picks = planner_tiles(gemm, get_config, model_gemm_shapes, TABLE2,
                           GemmShape)
     for t in picks:
@@ -1876,7 +1993,9 @@ def main(argv=None) -> int:
     print(f"MAPE: campaign {report.mape:.4g}% over {len(report.rows)} cells; "
           f"held-out k_outer {heldout.mape:.4g}% over {len(heldout.rows)}")
     launches = dict(K.LAUNCHES)
-    print(f"main-path launches: {launches}")
+    # phases 3-4 run bf16 (wgmma) and the int8 campaigns (CUDA cores)
+    int8_launches = K.ROUTES["cuda_cores"]
+    print(f"main-path launches: {launches}, by route {dict(K.ROUTES)}")
     for name_, n_ in launches.items():
         check(n_ > 0, f"{name_} was never launched on the main path")
 
@@ -1896,6 +2015,14 @@ def main(argv=None) -> int:
         compare_with_parent(rows, again, parent)
     stage_rows = stage_timings(K, gemm_shapes, dev)
     all_on_wgmma(K, "phase 5", before)
+    # the CUDA-core routes (tile_gemm.cuh) at the same shapes and tiles,
+    # beside torch._int_mm (int8) and torch.matmul (f32, TF32 off)
+    before = snapshot(K)
+    core_rows = [r for tag in ("int8", "f32")
+                 for r in gemm_timings(K, gemm_shapes, dev, tag=tag)]
+    n_core = sum(K.LAUNCHES.values()) - before[0]
+    check(K.ROUTES["cuda_cores"] - before[1]["cuda_cores"] == n_core > 0,
+          "an int8 or f32 GEMM launch left the CUDA-core route")
 
     grouped_rows, grouped_err, grouped_parent, grouped_stage_rows = \
         grouped_phase(args, dev, G)
@@ -1911,11 +2038,14 @@ def main(argv=None) -> int:
     greedy = greedy_phase(dev)
     model_k = model_kernels_phase(dev, FA, R, ops)
     attn_rows = attention_norm_phase(dev, FA, R, ops)
-    norm_turns = []
+    norm_turns, flash_turns = [], []
     if args.parent:
         norm_turns = [tree_run(t, "norm", args.out)
                       for t in (args.parent, HERE, HERE, args.parent)]
         compare_norms(norm_turns)
+        flash_turns = [tree_run(t, "flash", args.out)
+                       for t in (args.parent, HERE, HERE, args.parent)]
+        compare_flash(flash_turns)
 
     csrc = "src/repro_torch/kernels/csrc"
     kernels = [kernel_entry(kname, f"{csrc}/wgmma_gemm.cuh",
@@ -1943,7 +2073,9 @@ def main(argv=None) -> int:
                    "greedy": greedy,
                    "model_kernels": model_k,
                    "attention_norm_rows": attn_rows,
-                   "norm_turns": norm_turns}, f, indent=1)
+                   "norm_turns": norm_turns, "flash_turns": flash_turns,
+                   "cuda_core_gemm_rows": core_rows,
+                   "int8_main_path_launches": int8_launches}, f, indent=1)
     print(f"\n(GEMM times are sums over the five Qwen2-1.5B GEMMs, grouped "
           f"times over the four bf16 shapes of the served run, flash "
           f"attention and RMSNorm times over the bf16 shapes phase 9 "

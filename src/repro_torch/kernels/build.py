@@ -4,9 +4,9 @@ Each source of ``kernels/csrc/`` is compiled at first use for ``sm_90a``
 into one shared library per element type, all in parallel (one ``nvcc``
 process per library): ``gemm.cu`` for bf16, f32 and int8,
 ``grouped_gemm.cu``, ``flash_attention.cu`` and ``rmsnorm.cu`` for bf16 and
-f32.  The bf16 builds of ``gemm.cu`` and ``grouped_gemm.cu`` include
-``wgmma_gemm.cuh`` (the tensor-core route), every other GEMM build
-``tile_gemm.cuh``.
+f32.  The bf16 builds of ``gemm.cu``, ``grouped_gemm.cu`` and
+``flash_attention.cu`` include ``wgmma_gemm.cuh`` (the tensor-core route:
+TMA, mbarriers, wgmma), every other GEMM build ``tile_gemm.cuh``.
 Libraries land in ``build/repro_torch/<hash>/`` at the repository root
 (``.gitignore`` lists ``build/``; ``REPRO_TORCH_BUILD_DIR`` moves it), keyed
 by a hash of every file under ``csrc/`` and the flags, so an edit to any
@@ -56,9 +56,17 @@ _GROUPED_WGMMA_ARGS = (_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I64,
 _GROUPED_ENCODE_ARGS = (_VP, _VP, _I32, _I32, _I32, _I64, _I64, _I32, _I32,
                         _I32, _I32)
 #: q, k, v, o; B, S, Skv, H, D; q, k, v strides (batch, seq, head); causal;
-#: stream
+#: stream (the f32 flash attention)
 _FLASH_ARGS = (_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32,
                *(_I64,) * 9, _I32, _VP)
+#: maps of q, k, v; o; B, S, Skv, H, d; width, block_k, consumers,
+#: stages; causal; stream (the bf16 flash attention)
+_FLASH_WGMMA_ARGS = (_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32,
+                     _I32, _I32, _I32, _I32, _I32, _VP)
+#: map (128 bytes, written); base; d, rows, heads, batch; sequence, head and
+#: batch strides; box rows
+_FLASH_ENCODE_ARGS = (_VP, _VP, _I32, _I32, _I32, _I32, _I64, _I64, _I64,
+                      _I32)
 #: x, scale, y; rows, D; eps; scale is bf16 (else f32); stream
 _RMSNORM_ARGS = (_VP, _VP, _VP, _I32, _I32, _F32, _I32, _VP)
 
@@ -91,7 +99,10 @@ TARGETS = {
     "grouped_gemm_f32": Target("grouped_gemm.cu", "REPRO_GEMM_F32",
                                "repro_grouped_gemm", _GROUPED_ARGS),
     "flash_attention_bf16": Target("flash_attention.cu", "REPRO_ELEM_BF16",
-                                   "repro_flash_attention", _FLASH_ARGS),
+                                   "repro_flash_attention_wgmma",
+                                   _FLASH_WGMMA_ARGS,
+                                   (("repro_flash_encode",
+                                     _FLASH_ENCODE_ARGS),)),
     "flash_attention_f32": Target("flash_attention.cu", "REPRO_ELEM_F32",
                                   "repro_flash_attention", _FLASH_ARGS),
     "rmsnorm_bf16": Target("rmsnorm.cu", "REPRO_ELEM_BF16", "repro_rmsnorm",

@@ -3,66 +3,127 @@
 //
 // Replaces the Pallas TPU kernel flash_attention_fwd of
 // src/repro/kernels/flash_attention.py:68 (body _flash_kernel :29).  The
-// function is that kernel's: q is scaled by D**-0.5 in f32 before the q.k
-// product; the causal mask keeps key j for query i when j <= i, on absolute
-// positions from 0 (top-left aligned, also when Skv != S), and fills the
-// rest with -1e30, not -inf; the running max m, sum l and f32 accumulator
-// update once per key block; the output is acc / max(l, 1e-30) cast to q's
-// type.  Only the order of the sums differs.
+// function is that kernel's: scores scaled by D**-0.5; the causal mask keeps
+// key j for query i when j <= i, on absolute positions from 0 (top-left
+// aligned, also when Skv != S), and fills the rest with -1e30, not -inf; the
+// running max m, sum l and f32 accumulator update once per key block; the
+// output is acc / max(l, 1e-30) cast to q's type.
 //
 // Block independence.  The Pallas grid is (B*H, S/bq, Skv/bk) with the key
 // axis sequential ("arbitrary"), carrying m, l and acc across grid steps in
 // VMEM.  Hopper's blocks run in parallel and in no order, so here one
-// thread block owns one (batch*head, 64-query tile) and loops over the keys
-// itself, 64 at a time; m and l live in registers (one copy per query row,
-// held by the 16 threads that share the row) and so does acc.
+// thread block owns one (batch*head, query tile) and loops over the keys
+// itself; m, l and acc live in registers.  With causal on, the key loop
+// stops after the block that holds the tile's last query: every later key
+// is masked for every row of the tile, and such a block would give p = 0
+// and corr = 1, so skipping it is exact.
 //
-// Head dims.  The kernel is compiled for the widths D = 64, 128 and 256 and
-// takes the true head dim d <= D at run time: d <= 64 runs the 64-wide
-// instantiation, 64 < d <= 128 the 128-wide one, 128 < d <= 256 the
-// 256-wide one.  Loads past d read zero, which adds nothing to q.k, stores
+// Head dims.  Both routes are compiled for the widths D = 64, 128 and 256
+// and take the true head dim d <= D at run time (the smallest width that
+// holds it); columns past d read zero, which adds nothing to q.k, stores
 // past d are skipped, and the scale is d**-0.5 of the true d.
-//
-// Layout.  q, k and v are read in their (B, S, H, D) layout through the
-// batch, sequence and head strides the wrapper passes (D has unit stride);
-// nothing is copied into the Pallas wrapper's (B*H, S, D) layout.  The
-// output is written contiguous (B, S, H, D).
-//
-// Tiles.  The JAX 128 x 128 blocks are a VMEM choice: in f32 with D = 128
-// the q, k and v tiles alone would take 192 KB of the 227 KB a block may
-// claim.  This kernel stages a 64 x D query tile (scaled, f32), a 64 x D key
-// tile and a 64 x D value tile in shared memory as f32, plus the 64 x 64
-// probabilities: 70,144 B at D = 64, 119,296 B at D = 128, 217,600 B at
-// D = 256 (of the 232,448 a block may claim).  The q and k
-// rows are padded to D + 1 floats and the p rows to 80, so the reads below
-// are free of bank conflicts.  256 threads form a 16 x 16 grid; thread
-// (ty, tx) owns query rows ty + 16i (i < 4), score columns tx + 16j (j < 4)
-// and output columns tx + 16c (c < D/16).  Rows and keys past S or Skv are
-// masked, so S and Skv need not divide the tile.  Blocks run on a
-// (B*H, ceil(S/64)) grid: B*H on gridDim.x (up to 2^31 - 1), the query
-// tiles on gridDim.y (up to 65,535, so S up to 4,194,240).
-//
-// Masked blocks.  With causal on, the key loop stops after the block that
-// holds the tile's last query: every later key is masked for every row of
-// the tile, and such a block would give p = 0 and corr = 1, so skipping it
-// is exact.
 //
 // What bounds it on an H100: at the served prefill (S = 32) it moves a few
 // hundred KB and is bound by bytes and launch latency; from S of a few
 // hundred on, the 4*B*H*D*(visible pairs) operations dominate (at
 // S = 4096, 24 heads, D = 64: 51.6 GFLOP against 50 MB), so the bound is
-// operations.  The design keeps the S x Skv scores out of device memory
-// (bytes O(S*D), not O(S^2)) and halves the causal work by the early stop.
-// This first version computes in f32 on the CUDA cores (expf, not __expf,
-// so f32 holds the JAX tests' 1e-5), against the 67 TFLOP/s f32 rate, not
-// the 989 TFLOP/s bf16 tensor cores; wgmma is later work.  A bf16 wgmma of
-// q.k must then apply the scale to the scores, since the JAX kernel scales
-// q in f32 before the product.
+// operations: 989 TFLOP/s in bf16, which only the tensor cores reach, and
+// 67 TFLOP/s in f32.  Both designs keep the S x Skv scores out of device
+// memory (bytes O(S*D), not O(S^2)) and halve the causal work by the early
+// stop.  Each element type has its own kernel (one library each):
+//
+// f32: the CUDA cores (flash_fwd below).  TF32 would not compute the f32
+// function at the JAX tests' 1e-5, so f32 multiplies in FP32 FMA.  q is
+// scaled by D**-0.5 in f32 before the q.k product, as in the JAX kernel.
+//   Tiles.  The JAX 128 x 128 blocks are a VMEM choice: in f32 with D = 128
+//   the q, k and v tiles alone would take 192 KB of the 227 KB a block may
+//   claim.  This kernel stages a 64 x D query tile (scaled, f32), a 64 x D
+//   key tile and a 64 x D value tile in shared memory as f32, plus the 64 x
+//   64 probabilities: 70,144 B at D = 64, 119,296 B at D = 128, 217,600 B
+//   at D = 256 (of the 232,448 a block may claim).  The q and k rows are
+//   padded to D + 1 floats and the p rows to 80, so the reads below are
+//   free of bank conflicts.  256 threads form a 16 x 16 grid; thread
+//   (ty, tx) owns query rows ty + 16i (i < 4), score columns tx + 16j
+//   (j < 4) and output columns tx + 16c (c < D/16).  Rows and keys past S
+//   or Skv are masked, so S and Skv need not divide the tile.  Blocks run
+//   on a (B*H, ceil(S/64)) grid: B*H on gridDim.x (up to 2^31 - 1), the
+//   query tiles on gridDim.y (up to 65,535, so S up to 4,194,240).  Loads
+//   read q, k and v through the batch, sequence and head strides the
+//   wrapper passes (D has unit stride); expf, not __expf, so f32 holds
+//   1e-5.
+//
+// bf16: the tensor cores, wgmma fed by TMA (flash_wgmma below; the TMA,
+// mbarrier, descriptor and Wgmma helpers are wgmma_gemm.cuh's).
+//   Tile.  One producer warpgroup, of which one thread issues every TMA
+//   load, and NC consumer warpgroups of 64 query rows each (a block's
+//   BQ = 64 * NC rows), one block per SM.  A consumer holds its 64 x BK
+//   scores, their bf16 copy and its 64 x D accumulator in registers.
+//   With NC = 2 ptxas gives each of the 384 threads 168 registers
+//   (setmaxnreg did not raise that budget in the measured toolkit, 12.9):
+//   D = 64 fits at BK = 128, D = 128 at BK = 64 (at BK = 128 it spilled
+//   and ptxas serialized its wgmmas, C7512); the 256-wide accumulator (128
+//   registers alone) spilled, so D = 256 runs NC = 1 (256 threads, up to
+//   255 registers) at BK = 64.  The producer
+//   loads the block's q tile once, then K and V through a ring of three
+//   shared-memory slots on full and empty mbarriers, as the GEMM does.
+//   Shared memory is q + 3 * (K + V), in 128-byte-swizzled boxes 64
+//   columns wide: 112 KB at D = 64, 128 KB at D = 128, 224 KB at D = 256
+//   (kernels/flash_attention.py:wgmma_config owns the numbers).
+//   Pipeline.  Each consumer overlaps step j's softmax (CUDA cores, MUFU)
+//   with step j-1's p.v (tensor cores): q.k^T of step j is issued and
+//   waited for, p.v of step j-1 is issued and left in flight while the
+//   softmax of step j runs, then the accumulator is rescaled and step
+//   j-1's slot released.  A slot is thus held one step past its q.k^T,
+//   hence three.  The two consumers of a block overlap each other too.
+//   Scores.  S = q.k^T by wgmma m64nBKk16, bf16 x bf16 -> f32, A (q) and B
+//   (k) both K-major in shared memory (k's rows are contiguous in D, so k^T
+//   needs no transpose); all D/16 steps are issued, also past d (zero
+//   columns add nothing; see issue_scores).  The scale d**-0.5 multiplies
+//   the f32 scores, not q: a bf16 operand cannot carry the JAX kernel's
+//   f32 q * scale, and the two differ only in rounding (at D = 64 and 256
+//   the scale is a power of two).
+//   Softmax.  In registers, on the accumulator fragment: each thread holds
+//   two rows' worth of columns, and the four threads that share a row
+//   combine their max by two xor shuffles; l is kept per thread and summed
+//   across the four once, at the end (corr is the same for the whole row).
+//   exp(scale * (s - m)) is exp2f(s * c - m * c), c = scale * log2(e), one
+//   FMA and one MUFU op a score.  The mask is applied only on the blocks
+//   that straddle the diagonal or the Skv edge, and a warpgroup skips a
+//   block that lies wholly past its own rows' diagonal, and every block
+//   when all its rows lie past S (exact, as above).
+//   Values.  O += P.V by wgmma m64nDk16 with P from registers (the RS
+//   form: the f32 score fragment, rounded to bf16 pairs, is already the A
+//   fragment) and V MN-major from shared memory (the transpose bit).  The
+//   JAX kernel keeps p in f32; rounding p to bf16 (unit roundoff 2^-8)
+//   moves each weight by at most 2^-8 of itself, so each output by at most
+//   2^-8 * sum(p |v|) / l <= 2^-8 max |v| (0.018 for N(0, 1) values up to
+//   4.6), and much less in practice, as the errors' signs vary: inside the
+//   bf16 tolerance of 3e-2, beside the output's own bf16 rounding (2^-8
+//   relative).  l sums the f32 p.
+//   Order.  The query tiles run longest first (blockIdx.x counts down the
+//   tiles, heads fastest), so that the causal tail's short tiles fill the
+//   132 SMs at the end instead of leaving long tiles to run alone.
+//   Epilogue.  acc / max(l, 1e-30), rounded to bf16 and stored from the
+//   registers to o (B, S, H, d), contiguous; rows past S and columns past
+//   d are not stored.
+//   Layout.  q, k and v are read in place through rank-4 tensor maps over
+//   (D, S, H, B) with the tensors' own strides (a (B, H, S, D) tensor's
+//   transposed view is no copy).  Columns past d and keys past Skv load as
+//   TMA's zero fill.  TMA needs 16-byte row strides and bases: the wrapper
+//   copies an operand without them (d not a multiple of 8, say) to aligned
+//   rows first, and counts the copy.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -DREPRO_ELEM_<BF16|F32> flash_attention.cu
 // One shared library per element type, loaded with ctypes by
-// kernels/build.py.
+// kernels/build.py: the f32 one exports repro_flash_attention, the bf16 one
+// repro_flash_encode (one tensor map) and repro_flash_attention_wgmma.
+
+#if defined(REPRO_ELEM_BF16)
+#include "wgmma_gemm.cuh"
+#elif !defined(REPRO_ELEM_F32)
+#error "define one of REPRO_ELEM_BF16, REPRO_ELEM_F32"
+#endif
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -74,28 +135,22 @@
 namespace repro {
 namespace {
 
+constexpr float kNegInf = -1e30f;  // the JAX kernel's mask fill
+
+#if defined(REPRO_ELEM_F32)
+
 constexpr int kBQ = 64;           // query rows per block
 constexpr int kBK = 64;           // keys per step
 constexpr int kThreads = 256;     // a 16 x 16 thread grid
 constexpr int kRows = kBQ / 16;   // query rows per thread
 constexpr int kCols = kBK / 16;   // score columns per thread
 constexpr int kLP = kBK + 16;     // padded row stride of the p tile
-constexpr float kNegInf = -1e30f;
 
 // Loads widen to f32; stores round to the element type.
 template <typename T> struct Elem;
 template <> struct Elem<float> {
   __device__ __forceinline__ static float up(float x) { return x; }
   __device__ __forceinline__ static void put(float* p, float v) { *p = v; }
-};
-template <> struct Elem<__nv_bfloat16> {
-  __device__ __forceinline__ static float up(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-  }
-  // round to nearest even, as jnp .astype and torch .to do
-  __device__ __forceinline__ static void put(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16(v);
-  }
 };
 
 // Max and sum over the 16 threads of one half-warp (the threads of one
@@ -270,18 +325,369 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+#else  // REPRO_ELEM_BF16
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The shared-memory layout of one block at head-dim width W with BK keys
+// per step: the q tile (W/64 bands of 128 rows x 128 bytes), then `stages`
+// slots of K and V (each W/64 bands of BK rows x 128 bytes), then the
+// mbarriers (q's, a full and an empty one per slot).  Every band starts on
+// 1024 bytes, as the 128-byte swizzle atoms need.  Mirrored by
+// kernels/flash_attention.py:wgmma_config.
+struct FlashGeom {
+  int q_bytes, kv_bytes, stage_bytes;
+  __host__ __device__ FlashGeom(int width, int bk, int nc)
+      : q_bytes(width * 64 * nc * 2),
+        kv_bytes(width * bk * 2),
+        stage_bytes(2 * width * bk * 2) {}
+  __host__ __device__ int smem(int stages) const {
+    return q_bytes + stages * stage_bytes + 8 * (1 + 2 * stages);
+  }
+};
+
+// Max and sum over the four threads that hold one accumulator row.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// Issue S = q.k^T for one step as one wgmma group: W/16 k16 steps, both
+// operands K-major in 64-column bands (q's 64 * NC rows apart, k's BK),
+// 32 bytes (16 columns) per k16 step; the first step overwrites s.  Every
+// step is issued, also past the head dim (zero columns add nothing): a
+// branch around a wgmma made ptxas serialize the kernel's wgmmas (C7515),
+// which cost more than the skipped steps saved (PERF.md).
+template <int W, int BK, int NC>
+__device__ __forceinline__ void issue_scores(float* s, uint32_t qa,
+                                             uint32_t ka) {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kt = 0; kt < W / 16; ++kt) {
+    const uint64_t da =
+        sw128_desc(qa + (kt / 4) * 64 * NC * 128 + (kt % 4) * 32, 16, 1024);
+    const uint64_t db =
+        sw128_desc(ka + (kt / 4) * BK * 128 + (kt % 4) * 32, 16, 1024);
+    Wgmma<BK, 0>::mma(s, da, db, kt > 0);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Issue O += P.V for one step as one wgmma group: P from registers, V
+// MN-major at va, 16 key rows of 128 bytes per k16 step, its W/64 column
+// bands BK * 128 bytes apart.
+template <int W, int BK>
+__device__ __forceinline__ void issue_values(float* acc, uint32_t (*pa)[4],
+                                             uint32_t va) {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kt = 0; kt < BK / 16; ++kt)
+    WgmmaRS<W>::mma(acc, pa[kt], sw128_desc(va + kt * 16 * 128, BK * 128,
+                                            1024));
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// The online softmax of one step's raw scores s (keys k0 .., rows row and
+// row + 8 for this thread), in place: masked scores (past Skv, or past the
+// row when causal; only checked on an edge step) become -1e30, the running
+// max m moves to m_new, corr = exp(scale * (m - m_new)), s becomes
+// p = exp(scale * (s - m_new)) in f32 and rs this thread's part of each
+// row's sum of p.  The max is taken on the raw scores, which orders them
+// as the scaled ones (scale > 0); every row sees key 0 in the first step,
+// so m is finite from then on.
+template <int BK>
+__device__ __forceinline__ void softmax_step(float* s, float* m, float* corr,
+                                             float* rs, float c, bool edge,
+                                             int k0, int Skv, int causal,
+                                             int row, int cl) {
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int jj = 0; jj < BK / 8; ++jj)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * jj + 2 * hh + e];
+        if (edge) {
+          const int key = k0 + 8 * jj + cl + e;
+          if (key >= Skv || (causal && key > row + 8 * hh)) x = kNegInf;
+        }
+        mx[hh] = fmaxf(mx[hh], x);
+      }
+  float mc[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float m_new = fmaxf(m[hh], quad_max(mx[hh]));
+    corr[hh] = exp2f((m[hh] - m_new) * c);
+    m[hh] = m_new;
+    mc[hh] = m_new * c;
+    rs[hh] = 0.0f;
+  }
+#pragma unroll
+  for (int jj = 0; jj < BK / 8; ++jj)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * jj + 2 * hh + e];
+        x = exp2f(fmaf(x, c, -mc[hh]));
+        rs[hh] += x;
+      }
+}
+
+// p in bf16 as wgmma's A fragments: k16 step kt is the accumulator's
+// score pairs 8kt .. 8kt + 7, in order (rows r and r + 8, columns
+// 2*(t%4) (+ 1) and + 8), which is the A layout of a 64 x 16 slice.
+template <int BK>
+__device__ __forceinline__ void pack_p(uint32_t (*pa)[4], const float* s) {
+#pragma unroll
+  for (int kt = 0; kt < BK / 16; ++kt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      pa[kt][i] = bf16_pair(s[8 * kt + 2 * i], s[8 * kt + 2 * i + 1]);
+}
+
+// One block: query tile `tile` of (batch, head) bh.  Warpgroups 0 .. NC-1
+// consume (rows 64 wg .. 64 wg + 63 of the tile), warpgroup NC produces:
+// one of its threads issues every load.  Thread t of a consumer holds
+// accumulator rows 16*(t/32) + (t%32)/4 (+ 8) and columns 8j + 2*(t%4)
+// (+ 1).
+template <int W, int BK, int NC>
+__global__ void __launch_bounds__((NC + 1) * 128, 1)
+flash_wgmma(const __grid_constant__ CUtensorMap map_q,
+            const __grid_constant__ CUtensorMap map_k,
+            const __grid_constant__ CUtensorMap map_v,
+            __nv_bfloat16* __restrict__ o, int S, int Skv, int H, int BH,
+            int d, int causal, int stages, float scale, int pairs) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  constexpr int BQ = 64 * NC;  // query rows per block
+  const FlashGeom g(W, BK, NC);
+  unsigned char* qs = smem;
+  unsigned char* kv = smem + g.q_bytes;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(kv + stages * g.stage_bytes);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + stages;
+
+  // longest tiles first: blockIdx.x counts the tiles down, heads fastest
+  const int tiles = (S + BQ - 1) / BQ;
+  const int tile = tiles - 1 - static_cast<int>(blockIdx.x / BH);
+  const int bh = static_cast<int>(blockIdx.x % BH);
+  const int b = bh / H, h = bh % H;
+  const int q0 = tile * BQ;
+  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
+  const int steps = (kv_end + BK - 1) / BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128;  // consumers 0 .. NC-1, producer NC
+
+  if (threadIdx.x == 0) {
+    // the swizzle atoms assume a 1024-byte aligned base
+    if (smem_u32(smem) % 1024 != 0) __trap();
+    mbar_init(qbar, 1);
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == NC) {
+    // producer warpgroup: one thread issues the q tile, then K and V step
+    // by step
+    if (warp == 4 * NC && lane == 0) {
+      mbar_expect_tx(qbar, g.q_bytes);
+      for (int c = 0; c < W / 64; ++c)
+        tma_load4(&map_q, qs + c * BQ * 128, qbar, c * 64, q0, h, b);
+      int stage = 0, phase = 0;
+      for (int j = 0; j < steps; ++j) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = kv + stage * g.stage_bytes;
+        mbar_expect_tx(&full[stage], g.stage_bytes);
+        for (int c = 0; c < W / 64; ++c)
+          tma_load4(&map_k, st + c * BK * 128, &full[stage], c * 64, j * BK, h,
+                    b);
+        for (int c = 0; c < W / 64; ++c)
+          tma_load4(&map_v, st + g.kv_bytes + c * BK * 128, &full[stage],
+                    c * 64, j * BK, h, b);
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns rows row0 .. row0 + 63 of the tile
+    const int t = threadIdx.x % 128;
+    const int row0 = q0 + wg * 64;
+    // keys any of this warpgroup's rows sees (none when all its rows lie
+    // past S)
+    const int wg_end =
+        row0 >= S ? 0 : (causal ? min(kv_end, row0 + 64) : kv_end);
+    const int rl = 16 * (t / 32) + (t % 32) / 4;
+    const int cl = 2 * (t % 4);
+    const float c = scale * kLog2e;         // exp(scale * x) = exp2(c * x)
+    // the steps this warpgroup computes: those holding a key it sees
+    const int mine = (wg_end + BK - 1) / BK;
+    float acc[W / 2];
+#pragma unroll
+    for (int i = 0; i < W / 2; ++i) acc[i] = 0.0f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+    float s[BK / 2];         // the step's scores, then its f32 p
+    uint32_t pa[BK / 16][4];  // the previous step's p in bf16
+    const uint32_t qa = smem_u32(qs) + wg * 64 * 128;
+    auto slot = [&](int j) {  // K of step j; its V follows at kv_bytes
+      return smem_u32(kv + (j % stages) * g.stage_bytes);
+    };
+    auto edge = [&](int j) {  // the step straddles the diagonal or Skv
+      return j * BK + BK > Skv || (causal && j * BK + BK - 1 > row0);
+    };
+
+    // Step j's softmax runs on the CUDA cores while step j-1's p.v runs on
+    // the tensor cores: q.k^T of step j, then p.v of step j-1 issued and
+    // left in flight over the softmax; step j-1's slot is released once
+    // its p.v has retired.  (The softmax writes only registers that no
+    // wgmma in flight names, so ptxas need not serialize the wgmmas.)
+    mbar_wait(qbar, 0);
+    if (mine > 0) {
+      mbar_wait(&full[0], 0);
+      issue_scores<W, BK, NC>(s, qa, slot(0));
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      float corr[2], rs[2];
+      softmax_step<BK>(s, m, corr, rs, c, edge(0), 0, Skv, causal,
+                       row0 + rl, cl);
+      l[0] = rs[0];
+      l[1] = rs[1];
+      pack_p<BK>(pa, s);
+    }
+    for (int j = 1; j < mine; ++j) {
+      mbar_wait(&full[j % stages], (j / stages) & 1);
+      issue_scores<W, BK, NC>(s, qa, slot(j));
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      issue_values<W, BK>(acc, pa, slot(j - 1) + g.kv_bytes);
+      float corr[2], rs[2];
+      softmax_step<BK>(s, m, corr, rs, c, edge(j), j * BK, Skv, causal,
+                       row0 + rl, cl);
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      if (lane == 0) mbar_arrive(&empty[(j - 1) % stages]);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * corr[hh] + rs[hh];
+#pragma unroll
+      for (int jj = 0; jj < W / 8; ++jj)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          acc[4 * jj + 2 * hh] *= corr[hh];
+          acc[4 * jj + 2 * hh + 1] *= corr[hh];
+        }
+      pack_p<BK>(pa, s);
+    }
+    if (mine > 0) {
+      issue_values<W, BK>(acc, pa, slot(mine - 1) + g.kv_bytes);
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      if (lane == 0) mbar_arrive(&empty[(mine - 1) % stages]);
+    }
+    // the steps past this warpgroup's rows: wait for each (so that no slot
+    // sees two of its arrivals in one phase) and release it untouched
+    for (int j = mine; j < steps; ++j) {
+      mbar_wait(&full[j % stages], (j / stages) & 1);
+      if (lane == 0) mbar_arrive(&empty[j % stages]);
+    }
+
+    // epilogue: acc / max(l, 1e-30), rounded to bf16, rows < S, columns < d
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float den = fmaxf(quad_sum(l[hh]), 1e-30f);
+      const int row = row0 + rl + 8 * hh;
+      if (row >= S) continue;
+      __nv_bfloat16* orow =
+          o + ((static_cast<int64_t>(b) * S + row) * H + h) * d;
+#pragma unroll
+      for (int jj = 0; jj < W / 8; ++jj) {
+        const int c = 8 * jj + cl;
+        const float v0 = acc[4 * jj + 2 * hh] / den;
+        const float v1 = acc[4 * jj + 2 * hh + 1] / den;
+        if (pairs && c + 1 < d) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+              __floats2bfloat162_rn(v0, v1);
+        } else {
+          if (c < d) orow[c] = __float2bfloat16(v0);
+          if (c + 1 < d) orow[c + 1] = __float2bfloat16(v1);
+        }
+      }
+    }
+  }
+}
+
+// A rank-4 tensor map over a bf16 (B, S, H, D) operand read as (D, S, H, B):
+// d columns, `rows` positions, `heads`, `batch`, with the given strides in
+// elements (each a multiple of 8, the base 16-byte aligned), in boxes of 64
+// columns (128 bytes, the 128-byte swizzle) by box_rows positions of one
+// head; zero fill past the extents.
+int encode_flash_map(CUtensorMap* map, const void* base, int d, int rows,
+                     int heads, int batch, int64_t s_row, int64_t s_head,
+                     int64_t s_batch, int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {
+      static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows),
+      static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_row) * 2,
+                                 static_cast<cuuint64_t>(s_head) * 2,
+                                 static_cast<cuuint64_t>(s_batch) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kDriverErrorBase + static_cast<int>(r);
+}
+
+template <int W, int BK, int NC>
+int launch_flash(const CUtensorMap* mq, const CUtensorMap* mk,
+                 const CUtensorMap* mv, void* o, int B, int S, int Skv,
+                 int H, int d, int causal, int stages, cudaStream_t stream) {
+  const int smem = FlashGeom(W, BK, NC).smem(stages);
+  if (stages < 1 || smem > kWgmmaMaxSmem) return cudaErrorInvalidValue;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_wgmma<W, BK, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kWgmmaMaxSmem);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  // d**-0.5 of the true head dim, rounded once to f32, as the JAX kernel's
+  // Python float scale
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
+  const int64_t tiles = (static_cast<int64_t>(S) + 64 * NC - 1) / (64 * NC);
+  // bf16 pairs (4-byte stores) need even row lengths and a 4-byte base
+  const int pairs = d % 2 == 0 && reinterpret_cast<uintptr_t>(o) % 4 == 0;
+  flash_wgmma<W, BK, NC><<<static_cast<unsigned>(tiles * B * H),
+                           (NC + 1) * 128, smem, stream>>>(
+      *mq, *mk, *mv, static_cast<__nv_bfloat16*>(o), S, Skv, H, B * H, d,
+      causal != 0, stages, scale, pairs);
+  return cudaGetLastError();
+}
+
+#endif
+
 }  // namespace
 }  // namespace repro
 
-#if defined(REPRO_ELEM_BF16)
-typedef __nv_bfloat16 ReproElem;
-#elif defined(REPRO_ELEM_F32)
-typedef float ReproElem;
-#else
-#error "define one of REPRO_ELEM_BF16, REPRO_ELEM_F32"
-#endif
-
 extern "C" {
+
+#if defined(REPRO_ELEM_F32)
 
 // o (B, S, H, D), contiguous = attention of q (B, S, H, D) over k, v
 // (B, Skv, H, D), each given by its (batch, sequence, head) strides in
@@ -301,14 +707,74 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
   const int64_t st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D <= 64)
-    return repro::launch<ReproElem, 64>(q, k, v, o, B, S, Skv, H, D, st,
+    return repro::launch<float, 64>(q, k, v, o, B, S, Skv, H, D, st,
                                         causal, s);
   if (D <= 128)
-    return repro::launch<ReproElem, 128>(q, k, v, o, B, S, Skv, H, D, st,
+    return repro::launch<float, 128>(q, k, v, o, B, S, Skv, H, D, st,
                                          causal, s);
-  return repro::launch<ReproElem, 256>(q, k, v, o, B, S, Skv, H, D, st,
+  return repro::launch<float, 256>(q, k, v, o, B, S, Skv, H, D, st,
                                        causal, s);
 }
+
+#else  // REPRO_ELEM_BF16
+
+// Encode the rank-4 tensor map of one bf16 (B, S, H, D) operand with
+// (batch, sequence, head) strides in elements, in boxes of 64 columns by
+// box_rows positions (128 for q, the step's keys for k and v).  Writes one
+// CUtensorMap (128 bytes) to `map`.  Returns 0, a CUDA error code, or
+// 100000 + the driver's CUresult.
+int repro_flash_encode(void* map, const void* base, int d, int rows,
+                       int heads, int batch, int64_t s_row, int64_t s_head,
+                       int64_t s_batch, int box_rows) {
+  if (d <= 0 || d > 256 || rows <= 0 || heads <= 0 || batch <= 0 ||
+      box_rows <= 0 || box_rows > 256)
+    return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(base) % 16 != 0 || s_row % 8 != 0 ||
+      s_head % 8 != 0 || s_batch % 8 != 0)
+    return cudaErrorMisalignedAddress;
+  alignas(64) CUtensorMap m;
+  memset(&m, 0, sizeof(m));
+  const int e = repro::encode_flash_map(&m, base, d, rows, heads, batch, s_row,
+                                        s_head, s_batch, box_rows);
+  if (e == 0) memcpy(map, &m, sizeof(m));
+  return e;
+}
+
+// o (B, S, H, d), contiguous = attention of q (B, S, H, d) over k, v
+// (B, Skv, H, d), read through the tensor maps mq (boxes of 64 * consumers
+// rows), mk and mv (boxes of block_k rows), on the tensor cores.  width is
+// the compiled head-dim width (64, 128 or 256) that holds d, block_k its
+// keys per step (128, 64, 64), consumers its consumer warpgroups (2, 2,
+// 1) and stages the K/V ring's depth; anything else is refused.  Launches
+// on `stream` and returns cudaGetLastError() (0 on success).
+int repro_flash_attention_wgmma(const void* mq, const void* mk,
+                                const void* mv, void* o, int B, int S,
+                                int Skv, int H, int d, int width,
+                                int block_k, int consumers, int stages,
+                                int causal, void* stream) {
+  if (B <= 0 || S <= 0 || Skv <= 0 || H <= 0 || d <= 0 || d > width ||
+      consumers < 1 || consumers > 2)
+    return cudaErrorInvalidValue;
+  const int bq = 64 * consumers;
+  if ((static_cast<int64_t>(S) + bq - 1) / bq * B * H > 2147483647LL)
+    return cudaErrorInvalidValue;
+  const auto* q = static_cast<const CUtensorMap*>(mq);
+  const auto* k = static_cast<const CUtensorMap*>(mk);
+  const auto* v = static_cast<const CUtensorMap*>(mv);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (width == 64 && block_k == 128 && consumers == 2)
+    return repro::launch_flash<64, 128, 2>(q, k, v, o, B, S, Skv, H, d,
+                                           causal, stages, s);
+  if (width == 128 && block_k == 64 && consumers == 2)
+    return repro::launch_flash<128, 64, 2>(q, k, v, o, B, S, Skv, H, d,
+                                           causal, stages, s);
+  if (width == 256 && block_k == 64 && consumers == 1)
+    return repro::launch_flash<256, 64, 1>(q, k, v, o, B, S, Skv, H, d,
+                                           causal, stages, s);
+  return cudaErrorInvalidValue;
+}
+
+#endif
 
 const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -32,10 +32,10 @@ from repro_torch.models.common import (HOST_MESH, MeshInfo, ParamTree,
                                        cast_for_compute)
 
 _LATER = {
-    "mamba2": "the ssm family (ROADMAP queue 1 item 1)",
-    "mlstm": "the xlstm family (ROADMAP queue 1 item 1)",
-    "slstm": "the xlstm family (ROADMAP queue 1 item 1)",
-    "shared_attn": "the hybrid (zamba2) family (ROADMAP queue 1 item 1)",
+    "mamba2": "the ssm family (ROADMAP queue 1 item 2)",
+    "mlstm": "the xlstm family (ROADMAP queue 1 item 2)",
+    "slstm": "the xlstm family (ROADMAP queue 1 item 2)",
+    "shared_attn": "the hybrid (zamba2) family (ROADMAP queue 1 item 2)",
 }
 
 
@@ -145,7 +145,7 @@ class LM(nn.Module):
         super().__init__()
         if cfg.frontend != "none":
             raise _not_ported(f"the {cfg.frontend} frontend",
-                              "the frontends (ROADMAP queue 1 item 1)")
+                              "the frontends (ROADMAP queue 1 item 2)")
         if cfg.shared_block:
             raise _not_ported("the shared attention block",
                               _LATER["shared_attn"])

@@ -282,9 +282,13 @@ def test_flash_attention_kernel_matches_plain_version(b, s, skv, h, d,
           for shape in ((b, s, h, d), (b, skv, h, d), (b, skv, h, d))),
         device="cuda", dtype=dt)
     before = FA.LAUNCHES["flash_attention"]
+    routes = dict(FA.ROUTES)
     got = ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert FA.LAUNCHES["flash_attention"] == before + 1
+    # bf16 on the tensor cores, f32 on the CUDA cores, one launch each
+    rt = "wgmma" if dt == "bf16" else "cuda_cores"
+    assert FA.ROUTES == {**routes, rt: routes[rt] + 1}
     want = FA.flash_attention_plain(q, k, v, causal=causal)
     assert got.dtype == q.dtype and got.shape == want.shape
     tol = 3e-2 if dt == "bf16" else 1e-5
@@ -349,6 +353,72 @@ def test_flash_attention_kernel_takes_b_times_h_past_65535(dt):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+def _flash_operands(shapes, seed, dt="bf16"):
+    rng = np.random.default_rng(seed)
+    return operands_from_numpy(
+        *(rng.normal(size=shape).astype(np.float32) for shape in shapes),
+        device="cuda", dtype=dt)
+
+
+@pytest.mark.parametrize("b,s,skv,h,d,copied", [
+    (1, 256, 256, 4, 160, 0),     # stablelm-12b's head dim (width 256)
+    (1, 256, 256, 4, 192, 0),     # xlstm-125m's
+    (1, 128, 128, 2, 256, 0),     # paligemma-3b's
+    (1, 200, 200, 3, 100, 3),     # d = 100: rows TMA cannot read, copied
+    (2, 192, 320, 3, 64, 0),      # Skv != S, neither a multiple of a tile
+])
+def test_flash_attention_bf16_head_dims_on_wgmma(b, s, skv, h, d, copied):
+    """bf16 at every served head-dim class on the tensor cores, causal and
+    not, against the plain version at 3e-2; an operand TMA cannot read is
+    copied once to aligned rows (and only then)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _flash_operands(((b, s, h, d), (b, skv, h, d),
+                               (b, skv, h, d)), s + skv + d)
+    for causal in (True, False):
+        FA.reset_launch_counts()
+        got = FA.flash_attention_fwd(q, k, v, causal=causal, block_q=s,
+                                     block_k=skv)
+        torch.cuda.synchronize()
+        assert FA.ROUTES == {"wgmma": 1, "cuda_cores": 0}
+        assert FA.COPIES["aligned"] == copied
+        want = FA.flash_attention_plain(q, k, v, causal=causal)
+        torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                                   atol=3e-2)
+
+
+def test_flash_attention_bf16_qwen2_long_sequence():
+    """Qwen2-1.5B's (1, 4096, 12, 128), causal: 32 query tiles, the longest
+    first, against the plain version at 3e-2."""
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _flash_operands([(1, 4096, 12, 128)] * 3, 4096)
+    FA.reset_launch_counts()
+    got = FA.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert FA.ROUTES == {"wgmma": 1, "cuda_cores": 0}
+    want = FA.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                               atol=3e-2)
+
+
+def test_flash_attention_bf16_reads_strided_operands_in_place():
+    """bf16 (B, S, H, D) views of (B, H, S, D) tensors go through the
+    tensor maps with their own strides: no copy, the plain version's
+    result."""
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = (torch.randn(2, 3, 256, 64, device="cuda",
+                           dtype=torch.bfloat16).transpose(1, 2)
+               for _ in range(3))
+    FA.reset_launch_counts()
+    got = FA.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert FA.COPIES["aligned"] == 0 and FA.ROUTES["wgmma"] == 1
+    torch.testing.assert_close(got.float(), FA.flash_attention_plain(
+        q, k, v).float(), rtol=3e-2, atol=3e-2)
+
+
 @pytest.mark.parametrize("dt", ["bf16", "f32"])
 @pytest.mark.parametrize("shape", [(4, 1, 1536), (1, 32, 1536), (4096, 1536),
                                    (13, 128), (8, 4096), (16, 1001)])
@@ -378,6 +448,72 @@ def test_rmsnorm_reads_a_bf16_scale_as_its_f32_copy(shape, dt):
     want = R.rmsnorm(x, scale.float(), eps=1e-6, block_rows=rows)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _flash_operands(shapes, seed, dt="bf16"):
+    rng = np.random.default_rng(seed)
+    return operands_from_numpy(
+        *(rng.normal(size=shape).astype(np.float32) for shape in shapes),
+        device="cuda", dtype=dt)
+
+
+@pytest.mark.parametrize("b,s,skv,h,d,copied", [
+    (1, 256, 256, 4, 160, 0),     # stablelm-12b's head dim (width 256)
+    (1, 256, 256, 4, 192, 0),     # xlstm-125m's
+    (1, 128, 128, 2, 256, 0),     # paligemma-3b's
+    (1, 200, 200, 3, 100, 3),     # d = 100: rows TMA cannot read, copied
+    (2, 192, 320, 3, 64, 0),      # Skv != S, neither a multiple of a tile
+])
+def test_flash_attention_bf16_head_dims_on_wgmma(b, s, skv, h, d, copied):
+    """bf16 at every served head-dim class on the tensor cores, causal and
+    not, against the plain version at 3e-2; an operand TMA cannot read is
+    copied once to aligned rows (and only then)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _flash_operands(((b, s, h, d), (b, skv, h, d),
+                               (b, skv, h, d)), s + skv + d)
+    for causal in (True, False):
+        FA.reset_launch_counts()
+        got = FA.flash_attention_fwd(q, k, v, causal=causal, block_q=s,
+                                     block_k=skv)
+        torch.cuda.synchronize()
+        assert FA.ROUTES == {"wgmma": 1, "cuda_cores": 0}
+        assert FA.COPIES["aligned"] == copied
+        want = FA.flash_attention_plain(q, k, v, causal=causal)
+        torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                                   atol=3e-2)
+
+
+def test_flash_attention_bf16_qwen2_long_sequence():
+    """Qwen2-1.5B's (1, 4096, 12, 128), causal: 32 query tiles, the longest
+    first, against the plain version at 3e-2."""
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _flash_operands([(1, 4096, 12, 128)] * 3, 4096)
+    FA.reset_launch_counts()
+    got = FA.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert FA.ROUTES == {"wgmma": 1, "cuda_cores": 0}
+    want = FA.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                               atol=3e-2)
+
+
+def test_flash_attention_bf16_reads_strided_operands_in_place():
+    """bf16 (B, S, H, D) views of (B, H, S, D) tensors go through the
+    tensor maps with their own strides: no copy, the plain version's
+    result."""
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = (torch.randn(2, 3, 256, 64, device="cuda",
+                           dtype=torch.bfloat16).transpose(1, 2)
+               for _ in range(3))
+    FA.reset_launch_counts()
+    got = FA.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert FA.COPIES["aligned"] == 0 and FA.ROUTES["wgmma"] == 1
+    torch.testing.assert_close(got.float(), FA.flash_attention_plain(
+        q, k, v).float(), rtol=3e-2, atol=3e-2)
 
 
 @pytest.mark.parametrize("dt", ["bf16", "f32"])

@@ -40,6 +40,7 @@ from repro_torch.kernels import grouped_gemm as G
 from repro_torch.kernels.gemm import launch_config
 from repro_torch.launch import serve
 from repro_torch.models import attention as attn
+from repro_torch.models import model as model_mod
 from repro_torch.models.common import HOST_MESH
 from repro_torch.models.model import LM
 from repro_torch.models.moe import _capacity
@@ -349,3 +350,46 @@ def test_full_width_granite_shapes_have_tiles_the_kernels_take():
         caps |= {_capacity(s, cfg) for s in PREFILL_BUCKETS if s <= 256}
         for c in sorted(caps):
             G.check_tile(G.grouped_tile(c, dt), dt)
+
+
+def _queue_one_items():
+    """ROADMAP.md's queue 1 as {item number: its text}."""
+    with open(os.path.join(ROOT, "ROADMAP.md")) as f:
+        text = f.read()
+    queue = text.split("### Queue 1", 1)[1].split("\n### ", 1)[0]
+    items = {}
+    for line in queue.splitlines():
+        head = line.split(".", 1)
+        if head[0].isdigit() and len(head) > 1:
+            items[int(head[0])] = line
+        elif items and line.startswith("   "):
+            items[max(items)] += line
+    return items
+
+
+def _cited(message):
+    return int(message.split("queue 1 item ")[1].split(")")[0])
+
+
+def _refusals():
+    """The port's not-ported refusals and the ROADMAP topic each names."""
+    out = [(kind, "model families") for kind in sorted(model_mod._LATER)]
+    return out + [("frontend", "model families"), ("mesh", "Multi-device")]
+
+
+@pytest.mark.parametrize("what,topic", _refusals())
+def test_not_ported_refusals_cite_the_roadmap_item_that_holds_them(what,
+                                                                   topic):
+    """A refusal names the ROADMAP queue-1 item that will port the module
+    (the items were renumbered once, and the messages followed)."""
+    from repro_torch.models.common import MeshInfo
+
+    cfg = get_config("granite-moe-3b-a800m", smoke=True)
+    with pytest.raises(NotImplementedError) as err:
+        if what == "mesh":
+            MeshInfo(data=2)
+        elif what == "frontend":
+            LM(dataclasses.replace(cfg, frontend="vision"), device="cpu")
+        else:
+            model_mod._check_kind(what)
+    assert topic in _queue_one_items()[_cited(str(err.value))]
