@@ -22,25 +22,30 @@ the attention and norm entry points on that model's activations (phase
              kernels' registers and shared memory per kernel, the bf16
              flash attention (wgmma) kernel's registers, spills,
              warpgroups, keys per step, stages and shared memory per
-             head-dim width, and the card's name and power limit.  Where
-             the toolkit has ``cuobjdump``, fail unless the gemm_bf16
-             library's SASS holds HGMMA instructions and the
-             grouped_gemm_bf16 and flash_attention_bf16 libraries' HGMMA
-             and UTMALDG.
+             head-dim width, the int8 GEMM (wgmma s8) instantiations'
+             registers and spills and its configuration at every planner
+             tile, and the card's name and power limit.  Where the
+             toolkit has ``cuobjdump``, fail unless the gemm_bf16
+             library's SASS holds HGMMA instructions, the gemm_int8
+             library's IGMMA and UTMALDG, and the grouped_gemm_bf16 and
+             flash_attention_bf16 libraries' HGMMA and UTMALDG.
 2. kernels — both loop orders against their plain PyTorch versions on the
              card: every tile the planner picks for the slice's shapes (the
              Qwen2-1.5B GEMMs, Table-2 in all three dtypes, granite's
              logits GEMM at M = 4, 8, 32, 128), in bf16, f32 and int8, on a
              divisible shape and one whose last k-outer pass is ragged;
              the Table-2 shapes whose rows TMA cannot read in place (K = 27,
-             1; N = 49, 196) in bf16; every bf16 launch on the wgmma route
-             and every f32 and int8 one on the CUDA cores; plus the bf16
+             1; N = 49, 196) in bf16 and int8 (int8 exact); every bf16 and
+             int8 launch on the wgmma route and every f32 one on the CUDA
+             cores (int8 after one transposed copy of B a call); plus the
+             bf16
              finding that k-outer's per-pass rounding costs more than twice
              k-inner's error; one RMSNorm call with a bf16 scale must run
              exactly one device kernel and allocate only its output.
 3. main    — the Qwen2-1.5B GEMMs at tokens=4096, planned on ``cuda`` for
              ``h100`` and executed (k-inner, then pinned to k-outer with the
-             same tile), each checked against its plain version.
+             same tile), each checked against its plain version, in bf16
+             and in int8 (exact; the int8 planner's tile).
 4. loop    — ``measure.run_campaign`` (Table-2 and the Qwen2-1.5B shapes, in
              int8 and bf16) -> ``fit_from_store`` -> ``validate_spec``, plus
              k-outer Qwen samples held out of the fit.
@@ -50,14 +55,22 @@ the attention and norm entry points on that model's activations (phase
              floor its variant defines); k-inner with two shared-memory
              stages against as many as fit, in turns; with ``--parent DIR``
              (an export of an earlier commit) also that tree's times, in
-             the order parent, change, change, parent.  Then both kernels'
-             int8 and f32 routes (the CUDA cores, ``tile_gemm.cuh``) at the
-             same shapes and tiles, beside ``torch._int_mm`` (int8 ->
-             int32) and ``torch.matmul`` (f32, TF32 off) and their bounds
-             (int8 at the 1,979 TOP/s tensor-core rate, f32 at 67 TFLOP/s).
-             Phases 3, 4, 5 and 7 fail unless every bf16 GEMM launch went
-             through the wgmma route, phase 5 unless every int8 and f32
-             launch went through the CUDA cores.
+             the order parent, change, change, parent.  Then the int8
+             route (wgmma s8, ``wgmma_s8.cuh``) at the same shapes on
+             bf16's tile and on the int8 planner's (128x128x128), beside
+             its plain version, ``torch._int_mm`` (int8 -> int32), its
+             bound (the 1,979 TOP/s int8 tensor-core rate) and k-outer's
+             int32 C-stream floor; the 19 Table-2 int8 cells (k-inner on
+             the planner's tiles, with the wrapper's host µs a call); two
+             stages against as many as fit; the transposed copy of B
+             alone.  With ``--parent``, the int8 GEMMs, the Table-2 cells
+             and the f32 route in both trees, each in a fresh process:
+             parent, change, change, parent.  Then the f32 route (the CUDA
+             cores, ``tile_gemm.cuh``) beside ``torch.matmul`` (TF32 off)
+             and its bound (67 TFLOP/s).  Phases 3, 4, 5 and 7 fail unless
+             every bf16 and int8 GEMM launch went through the wgmma route,
+             phase 5 unless every f32 launch went through the CUDA
+             cores.
 6. grouped — the grouped (MoE expert) kernel against its plain version in
              bf16 and f32 at granite's serving shapes (decode with
              max_batch 4: C = 32; one request's prefill at bucket 32: C = 8),
@@ -139,10 +152,14 @@ and print a request's logits against another request's as the error a
 slot mix-up would give.
 
 Launch counters are zeroed just before each path and read just after it:
-phases 3-4 must launch both GEMM kernels, phase 7 the grouped kernel and
+phases 3-4 must launch both GEMM kernels in bf16 and in int8 (the int8
+launches are counted apart, by the counters' growth over the int8 runs),
+phase 7 the grouped kernel and
 at least one GEMM kernel, phases 9 and 10 (each) the flash attention and
 RMSNorm kernels.  The line before the last is the
-``{"kernels": [...]}`` record; the last line is
+``{"kernels": [...]}`` record (the GEMM kernels twice: bf16 from
+``wgmma_gemm.cuh`` and int8, ``*_int8``, from ``wgmma_s8.cuh``, the
+latter timed on the int8 planner's tile); the last line is
 ``{"ok": true, "device": {...}}``.  Samples, the fitted manifest and the
 per-shape timings and the serving profile are written under ``--out``
 (default ``build/chip_smoke``).  In the kernels line, ``ms``,
@@ -400,8 +417,8 @@ def planner_tiles(gemm, get_config, model_gemm_shapes, table2, GemmShape):
 
 def sass_check(build, lib, name, need):
     """Fails unless the library ``name``'s SASS holds each instruction in
-    ``need`` (HGMMA: wgmma; UTMALDG: a TMA load); says so where the
-    toolkit has no cuobjdump."""
+    ``need`` (HGMMA: a bf16 wgmma; IGMMA: an int8 one; UTMALDG: a TMA
+    load); says so where the toolkit has no cuobjdump."""
     import shutil
     cands = [os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
              shutil.which("cuobjdump") or ""]
@@ -412,9 +429,9 @@ def sass_check(build, lib, name, need):
         return
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, timeout=300).stdout
-    n = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
-    print(f"{name} SASS ({tool}): {n['HGMMA']} HGMMA instructions, "
-          f"{n['UTMALDG']} TMA loads (UTMALDG)")
+    n = {op: sass.count(op) for op in ("HGMMA", "IGMMA", "UTMALDG")}
+    print(f"{name} SASS ({tool}): {n['HGMMA']} HGMMA and {n['IGMMA']} IGMMA "
+          f"instructions, {n['UTMALDG']} TMA loads (UTMALDG)")
     for op in need:
         check(n[op] > 0, f"the {name} library's SASS has no {op} "
                          f"instruction")
@@ -473,18 +490,19 @@ def c_stream_ms(m, n, k, bk, tag="bf16"):
 
 def gemm_timings(K, shapes, dev, *, plain=True, quiet=False, tag="bf16"):
     """Both GEMM kernels at ``shapes`` [(name, m, n, k, (bm, bn, bk))] in
-    ``tag`` (bf16: the wgmma route; int8, f32: the CUDA cores), timed with
-    CUDA events beside their plain versions (when ``plain``), one PyTorch
-    call (``torch.matmul``, TF32 off; ``torch._int_mm`` for int8, int8 ->
-    int32 as the kernel) and their bound.  Takes only the kernel module's
-    ``gemm_k_inner`` / ``gemm_k_outer`` / ``*_plain``, so it also times an
-    older tree's module."""
+    ``tag`` (bf16 and int8: the wgmma route; f32: the CUDA cores), timed
+    with CUDA events beside their plain versions (when ``plain``), one
+    PyTorch call (``torch.matmul``, TF32 off; ``torch._int_mm`` for int8,
+    int8 -> int32 as the kernel) and their bound.  Takes only the kernel
+    module's ``route`` / ``gemm_k_inner`` / ``gemm_k_outer`` / ``*_plain``,
+    so it also times an older tree's module (whose int8 route was the CUDA
+    cores)."""
     import torch
     from repro_torch.core.tpu_model import GridOrder, TileConfig
 
     rows = []
     mm = torch._int_mm if tag == "int8" else torch.matmul
-    slow = tag != "bf16"   # the CUDA cores: tens of ms a call
+    slow = K.route(tag) == "cuda_cores"   # tens of ms a call
     for i, (name, m, n, k, (bm, bn, bk)) in enumerate(shapes):
         a, b = seeded(m, n, k, tag, 2000 + i, dev)
         c0 = torch.zeros((m, n), dtype=K.out_dtype(a.dtype), device=dev)
@@ -525,7 +543,8 @@ def gemm_timings(K, shapes, dev, *, plain=True, quiet=False, tag="bf16"):
             floor = (f", C-stream floor "
                      f"{sum(r['c_stream_ms'] for r in mine):.4f} ms"
                      if kname == "gemm_k_outer" else "")
-            print(f"{kname} {tag} over the five GEMMs: "
+            print(f"{kname} {tag} over the five GEMMs at "
+                  f"{'x'.join(map(str, shapes[0][4]))}: "
                   f"{sum(r['ms'] for r in mine):.4f} ms, {mm.__name__} "
                   f"{sum(r['library_ms'] for r in mine):.4f} ms, plain "
                   f"{sum(r['plain_ms'] for r in mine):.4f} ms, bound "
@@ -533,28 +552,31 @@ def gemm_timings(K, shapes, dev, *, plain=True, quiet=False, tag="bf16"):
     return rows
 
 
-def stage_timings(K, shapes, dev):
-    """k-inner at each shape with the stage cap ``K.WGMMA_STAGES`` at its
-    value (two: two blocks share an SM at the planner's tile) and at four
-    (as many as fit: one block per SM), in turns; returns the rows (ms by
-    the stages a block kept) and prints the sums."""
+def stage_timings(K, shapes, dev, tag="bf16"):
+    """k-inner at each shape in ``tag`` with its stage cap at its value and
+    at another, in turns: bf16's ``K.WGMMA_STAGES`` (two: two blocks share
+    an SM at the planner's tile) against four (as many as fit: one block
+    per SM); int8's ``K.S8_STAGES`` (as many as fit without costing a
+    resident block) against two.  Returns the rows (ms by the stages a
+    block kept) and prints the sums."""
     import torch
     from repro_torch.core.tpu_model import TileConfig
 
     rows = []
-    default = K.WGMMA_STAGES
+    knob, other = ("WGMMA_STAGES", 4) if tag == "bf16" else ("S8_STAGES", 2)
+    default = getattr(K, knob)
     for i, (name, m, n, k, (bm, bn, bk)) in enumerate(shapes):
         tile = TileConfig(bm, bn, bk)
-        a, b = seeded(m, n, k, "bf16", 2000 + i, dev)
+        a, b = seeded(m, n, k, tag, 2000 + i, dev)
         times = {}
         try:
-            for cap in (default, 4, 4, default):
-                K.WGMMA_STAGES = cap
-                st = K.wgmma_config(tile).stages
+            for cap in (default, other, other, default):
+                setattr(K, knob, cap)
+                st = K.check_tile(tile, tag).stages
                 times.setdefault(st, []).append(cuda_ms(
                     lambda: K.gemm_k_inner(a, b, tile=tile)))
         finally:
-            K.WGMMA_STAGES = default
+            setattr(K, knob, default)
         rows.append({"gemm": name, "shape": [m, n, k],
                      "ms_by_stages": {st: min(v) for st, v in
                                       times.items()}})
@@ -564,17 +586,121 @@ def stage_timings(K, shapes, dev):
     for r in rows:
         for st, v in r["ms_by_stages"].items():
             sums[st] = sums.get(st, 0.0) + v
-    print(f"gemm_k_inner over the five GEMMs by shared-memory stages (the "
+    print(f"gemm_k_inner {tag} over the five GEMMs at "
+          f"{'x'.join(map(str, shapes[0][4]))} by shared-memory stages (the "
           f"faster of two turns each): "
           + ", ".join(f"{st} stage(s) {v:.4f} ms" for st, v in
                       sorted(sums.items())))
     return rows
 
 
+def table2_timings(K, cells, dev):
+    """int8 k-inner at each Table-2 cell [(m, n, k, (bm, bn, bk))] on the
+    planner's tile, by CUDA events, as phase 4's int8 campaign runs it:
+    launch-bound cells, so the events read the host's enqueue rate where it
+    is slower than the device; and the wrapper's host µs per call
+    (:func:`host_us`).  Takes only the module's ``gemm_k_inner``, so it
+    also times an older tree's module."""
+    import torch
+    from repro_torch.core.tpu_model import TileConfig
+
+    rows = []
+    for i, (m, n, k, t) in enumerate(cells):
+        a, b = seeded(m, n, k, "int8", 3000 + i, dev)
+        tile = TileConfig(*t)
+        fn = lambda: K.gemm_k_inner(a, b, tile=tile)  # noqa: E731
+        rows.append({"shape": [m, n, k], "tile": list(t),
+                     "ms": cuda_ms(fn, min_total_ms=50.0),
+                     "host_us": host_us(fn, calls=50)})
+        del a, b
+    torch.cuda.empty_cache()
+    return rows
+
+
+def int8_turn(K, dev, shapes):
+    """One turn of the int8 comparison with ``--parent``: the Qwen2-1.5B
+    GEMMs at each tile of ``shapes["qwen"]`` (both orders) and the Table-2
+    cells of ``shapes["table2"]`` (k-inner), in this process's tree; and
+    the f32 route (the CUDA cores, unchanged) at ``shapes["f32"]``."""
+    return {"qwen": {name: gemm_timings(K, rows, dev, plain=False,
+                                        quiet=True, tag="int8")
+                     for name, rows in shapes["qwen"].items()},
+            "table2": table2_timings(K, shapes["table2"], dev),
+            "f32": gemm_timings(K, shapes["f32"], dev, plain=False,
+                                quiet=True, tag="f32")}
+
+
+def transpose_timings(K, shapes, dev):
+    """The int8 route's transposed copy of B alone (``K.transposed_copy``)
+    at each shape's B, by CUDA events, beside its bytes bound (K x N read,
+    N x K rounded up to 16 written); returns the rows and prints them."""
+    import torch
+
+    rows = []
+    for i, (name, m, n, k, _) in enumerate(shapes):
+        _, b = seeded(1, n, k, "int8", 2000 + i, dev)
+        ms = cuda_ms(lambda: K.transposed_copy(b))
+        nbytes = k * n + n * -(-k // 16) * 16
+        rows.append({"gemm": name, "shape": [k, n], "ms": ms,
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+        print(f"transposed copy of B {k}x{n} ({name}): {ms:.4f} ms, "
+              f"{nbytes / ms / 1e6:.1f} GB/s, bytes bound "
+              f"{rows[-1]['bound_ms']:.4f} ms")
+        del b
+    torch.cuda.empty_cache()
+    print(f"transposed copies over the five GEMMs: "
+          f"{sum(r['ms'] for r in rows):.4f} ms, bound "
+          f"{sum(r['bound_ms'] for r in rows):.4f} ms")
+    return rows
+
+
+def compare_int8(turns):
+    """Prints the int8 turns (parent, change, change, parent) of
+    :func:`int8_turn`: each Qwen2-1.5B GEMM and its sum per tile and order,
+    and each Table-2 cell and their sum."""
+    print("int8 GEMMs, parent vs this change on this card (order: parent, "
+          "change, change, parent; ms by CUDA events):")
+    for tile in turns[0]["qwen"]:
+        for kname in ("gemm_k_inner", "gemm_k_outer"):
+            per = [[r for r in t["qwen"][tile] if r["kernel"] == kname]
+                   for t in turns]
+            for r0, r1, r2, r3 in zip(*per):
+                print(f"  {tile} {kname:<13}{r1['gemm']:<8}parent "
+                      f"{r0['ms']:.4f} / {r3['ms']:.4f}, change "
+                      f"{r1['ms']:.4f} / {r2['ms']:.4f}")
+            sums = [sum(r["ms"] for r in rs) for rs in per]
+            lib = sum(r["library_ms"] for r in per[1])
+            extra = (f", C-stream floor "
+                     f"{sum(r['c_stream_ms'] for r in per[1]):.4f}"
+                     if kname == "gemm_k_outer" else "")
+            print(f"  {tile} {kname} sum: parent {sums[0]:.4f} / "
+                  f"{sums[3]:.4f}, change {sums[1]:.4f} / {sums[2]:.4f} "
+                  f"({min(sums[0], sums[3]) / min(sums[1], sums[2]):.1f}x); "
+                  f"torch._int_mm {lib:.4f}{extra}")
+    cells = [t["table2"] for t in turns]
+    for r0, r1, r2, r3 in zip(*cells):
+        m, n, k = r1["shape"]
+        print(f"  Table-2 {m}x{n}x{k} ({'x'.join(map(str, r1['tile']))}): "
+              f"parent {r0['ms']:.4f} / {r3['ms']:.4f}, change "
+              f"{r1['ms']:.4f} / {r2['ms']:.4f}; host us a call parent "
+              f"{r0['host_us']:.1f} / {r3['host_us']:.1f}, change "
+              f"{r1['host_us']:.1f} / {r2['host_us']:.1f}")
+    sums = [sum(r["ms"] for r in c) for c in cells]
+    print(f"  Table-2 int8 sum over {len(cells[0])} cells: parent "
+          f"{sums[0]:.4f} / {sums[3]:.4f}, change {sums[1]:.4f} / "
+          f"{sums[2]:.4f}")
+    for kname in ("gemm_k_inner", "gemm_k_outer"):
+        sums = [sum(r["ms"] for r in t["f32"] if r["kernel"] == kname)
+                for t in turns]
+        print(f"  f32 {kname} sum (CUDA cores): parent {sums[0]:.4f} / "
+              f"{sums[3]:.4f}, change {sums[1]:.4f} / {sums[2]:.4f}")
+
+
 def tree_run(tree, what, out, shapes=None):
     """One measurement of a tree (an export of an earlier commit, or this
     checkout), made by this script's own functions in a fresh process that
     imports that tree's ``repro_torch``: ``"gemm"`` (phase 5's GEMM times
+    at ``shapes``), ``"gemm_int8"`` (phase 5's int8 turn, :func:`int8_turn`
     at ``shapes``), ``"grouped"`` (phase 6's grouped times), ``"serve"``
     (phase 7's served decode step and profiled drain), ``"norm"`` (phase
     10's RMSNorm times at the served rows) or ``"flash"`` (phase 10's flash
@@ -602,6 +728,15 @@ def time_tree(tree, what, shapes, path):
         from repro_torch.kernels import gemm as K
         res = gemm_timings(K, [(n, m, nn, k, tuple(t)) for n, m, nn, k, t in
                                shapes], dev, plain=False, quiet=True)
+    elif what == "gemm_int8":
+        from repro_torch.kernels import gemm as K
+        res = int8_turn(K, dev, {
+            "qwen": {t: [(n, m, nn, k, tuple(tl)) for n, m, nn, k, tl in
+                         rows] for t, rows in shapes["qwen"].items()},
+            "table2": [(m, n, k, tuple(t)) for m, n, k, t in
+                       shapes["table2"]],
+            "f32": [(n, m, nn, k, tuple(t)) for n, m, nn, k, t in
+                    shapes["f32"]]})
     elif what == "grouped":
         from repro_torch.kernels import grouped_gemm as G
         res = grouped_timings(G, dev, plain=False)
@@ -1761,10 +1896,11 @@ def main(argv=None) -> int:
                                    for fn, r, smem, _ in entries))
         if v == "flash_attention_bf16":
             flash_entries = entries
-        if v in ("gemm_bf16", "grouped_gemm_bf16"):
+        if v in ("gemm_bf16", "gemm_int8", "grouped_gemm_bf16"):
             for fn, r, _, sp in entries:
                 print(f"  {fn}: {r} registers; {sp or 'no spill line'}")
     sass_check(build, paths["gemm_bf16"], "gemm_bf16", ("HGMMA",))
+    sass_check(build, paths["gemm_int8"], "gemm_int8", ("IGMMA", "UTMALDG"))
     sass_check(build, paths["grouped_gemm_bf16"], "grouped_gemm_bf16",
                ("HGMMA", "UTMALDG"))
     sass_check(build, paths["flash_attention_bf16"], "flash_attention_bf16",
@@ -1803,13 +1939,15 @@ def main(argv=None) -> int:
     picks = planner_tiles(gemm, get_config, model_gemm_shapes, TABLE2,
                           GemmShape)
     for t in picks:
-        for order in ("k_inner", "k_outer"):
-            c = K.wgmma_config(TileConfig(*t), k_outer=order == "k_outer")
-            print(f"wgmma {t[0]}x{t[1]}x{t[2]} {order}: N = {c.nw}, "
-                  f"{c.consumers} consumer warpgroup(s), {c.rounds} "
-                  f"round(s), slab {c.ks} deep, {c.stages} stage(s) of "
-                  f"{c.stage_bytes} B, {c.smem_bytes} B dynamic shared "
-                  f"memory, {c.threads} threads")
+        for tag in ("bf16", "int8"):
+            for order in ("k_inner", "k_outer"):
+                c = K.check_tile(TileConfig(*t), tag,
+                                 k_outer=order == "k_outer")
+                print(f"wgmma {tag} {t[0]}x{t[1]}x{t[2]} {order}: N = "
+                      f"{c.nw}, {c.consumers} consumer warpgroup(s), "
+                      f"{c.rounds} round(s), slab {c.ks} deep, {c.stages} "
+                      f"stage(s) of {c.stage_bytes} B, {c.smem_bytes} B "
+                      f"dynamic shared memory, {c.threads} threads")
     print(f"device: {card}, {torch.cuda.device_count()} visible, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     print(smi("name,power.limit"))
@@ -1846,41 +1984,47 @@ def main(argv=None) -> int:
           f"orders, the last k-outer pass of {shapes[1]} ragged)")
     unaligned = [(r.m, r.n, r.k) for r in TABLE2
                  if r.k % 8 or r.n % 8]
-    for j, ((m, n, k), d) in enumerate(zip(unaligned, gemm.plan_many(
-            [GemmShape(m, n, k, dtype="bf16") for m, n, k in unaligned],
-            backend="cuda", machine="h100"))):
-        a, b = seeded(m, n, k, "bf16", 200 + j, dev)
-        c0 = torch.zeros((m, n), dtype=torch.bfloat16, device=dev)
-        t = d.selection
-        copies = K.COPIES["aligned"]
-        compare("gemm_k_inner", "bf16",
-                K.gemm_k_inner(a, b, tile=TileConfig(t.bm, t.bn, t.bk)),
-                K.gemm_k_inner_plain(a, b))
-        compare("gemm_k_outer", "bf16",
-                K.gemm_k_outer(a, b, c0, tile=TileConfig(
-                    t.bm, t.bn, t.bk, GridOrder.K_OUTER)),
-                K.gemm_k_outer_plain(a, b, c0, bk=t.bk),
-                passes=-(-k // t.bk), peak=k_outer_peak(a, b, c0, t.bk))
-        expect["wgmma"] += 1 + -(-k // t.bk)
-        print(f"Table-2 {m}x{n}x{k} (bf16, tile {t.bm}x{t.bn}x{t.bk}): both "
-              f"orders match; {K.COPIES['aligned'] - copies} operand(s) "
-              f"copied to TMA-aligned rows")
-        if k <= t.bk:
-            # one k-outer pass: how far kernel and plain version each lie
-            # from the float64 product rounded to bf16
-            exact = (a.double() @ b.double()).to(torch.bfloat16)
-            got = K.gemm_k_outer(a, b, c0, tile=TileConfig(
-                t.bm, t.bn, t.bk, GridOrder.K_OUTER))
-            want = K.gemm_k_outer_plain(a, b, c0, bk=t.bk)
-            expect["wgmma"] += 1
-            print(f"  one pass: {int((got != exact).sum())} kernel and "
-                  f"{int((want != exact).sum())} plain-version elements of "
-                  f"{m * n} differ from the float64 product rounded to bf16")
+    for tag in ("bf16", "int8"):
+        odt = torch.bfloat16 if tag == "bf16" else torch.int32
+        for j, ((m, n, k), d) in enumerate(zip(unaligned, gemm.plan_many(
+                [GemmShape(m, n, k, dtype=tag) for m, n, k in unaligned],
+                backend="cuda", machine="h100"))):
+            a, b = seeded(m, n, k, tag, 200 + j, dev)
+            c0 = torch.zeros((m, n), dtype=odt, device=dev)
+            t = d.selection
+            copies = dict(K.COPIES)
+            compare("gemm_k_inner", tag,
+                    K.gemm_k_inner(a, b, tile=TileConfig(t.bm, t.bn, t.bk)),
+                    K.gemm_k_inner_plain(a, b))
+            compare("gemm_k_outer", tag,
+                    K.gemm_k_outer(a, b, c0, tile=TileConfig(
+                        t.bm, t.bn, t.bk, GridOrder.K_OUTER)),
+                    K.gemm_k_outer_plain(a, b, c0, bk=t.bk),
+                    passes=-(-k // t.bk),
+                    peak=k_outer_peak(a, b, c0, t.bk) if tag == "bf16"
+                    else None)
+            expect["wgmma"] += 1 + -(-k // t.bk)
+            made = {c: K.COPIES[c] - copies[c] for c in copies}
+            print(f"Table-2 {m}x{n}x{k} ({tag}, tile {t.bm}x{t.bn}x{t.bk}): "
+                  f"both orders match; copies {made} (to TMA-aligned rows; "
+                  f"int8: B transposed, once per call)")
+            if tag == "bf16" and k <= t.bk:
+                # one k-outer pass: how far kernel and plain version each
+                # lie from the float64 product rounded to bf16
+                exact = (a.double() @ b.double()).to(torch.bfloat16)
+                got = K.gemm_k_outer(a, b, c0, tile=TileConfig(
+                    t.bm, t.bn, t.bk, GridOrder.K_OUTER))
+                want = K.gemm_k_outer_plain(a, b, c0, bk=t.bk)
+                expect["wgmma"] += 1
+                print(f"  one pass: {int((got != exact).sum())} kernel and "
+                      f"{int((want != exact).sum())} plain-version elements "
+                      f"of {m * n} differ from the float64 product rounded "
+                      f"to bf16")
     torch.cuda.synchronize()
     routes = dict(K.ROUTES)
     print(f"phase 2 launches by route: {routes}, expected {expect} (every "
-          f"bf16 launch on wgmma, every f32 and int8 one on the CUDA "
-          f"cores); aligned copies {K.COPIES['aligned']}")
+          f"bf16 and int8 launch on wgmma, every f32 one on the CUDA "
+          f"cores); copies {dict(K.COPIES)}")
     check(routes == expect, f"phase 2 launches by route {routes} are not "
                             f"{expect}")
     a, b = seeded(128, 256, 512, "bf16", 7, dev)
@@ -1925,6 +2069,36 @@ def main(argv=None) -> int:
               f"match their plain versions")
         del out, want, a, b, c0
         torch.cuda.empty_cache()
+    # the same GEMMs in int8, on the int8 planner's tiles (wgmma_s8.cuh):
+    # exact against the plain versions; their launches are counted apart
+    # for the int8 entries of the kernels line
+    int8_launches = {kname: 0 for kname in K.LAUNCHES}
+    int8_err = {kname: 0.0 for kname in K.LAUNCHES}
+    int8_shapes = []
+    before = dict(K.LAUNCHES)
+    for i, (name, plan) in enumerate(zip(names, plans)):
+        p = GemmProblem(plan.problem.m, plan.problem.n, plan.problem.k,
+                        dtype="int8")
+        planned = gemm.plan(p, backend="cuda", machine="h100")
+        t = planned.selection
+        a, b = seeded(p.m, p.n, p.k, "int8", 1100 + i, dev)
+        c0 = torch.zeros((p.m, p.n), dtype=torch.int32, device=dev)
+        int8_err["gemm_k_inner"] = max(int8_err["gemm_k_inner"], compare(
+            "gemm_k_inner", "int8", planned.execute(a, b),
+            K.gemm_k_inner_plain(a, b)))
+        pinned = gemm.plan(p, backend="cuda", machine="h100",
+                           tile=TileConfig(t.bm, t.bn, t.bk,
+                                           GridOrder.K_OUTER))
+        int8_err["gemm_k_outer"] = max(int8_err["gemm_k_outer"], compare(
+            "gemm_k_outer", "int8", pinned.execute(a, b),
+            K.gemm_k_outer_plain(a, b, c0, bk=t.bk)))
+        int8_shapes.append((name, p.m, p.n, p.k, (t.bm, t.bn, t.bk)))
+        print(f"{name:<8} {p.m}x{p.n}x{p.k} int8 tile {t}: k_inner and "
+              f"k_outer equal their plain versions")
+        del a, b, c0
+        torch.cuda.empty_cache()
+    for kname in K.LAUNCHES:
+        int8_launches[kname] += K.LAUNCHES[kname] - before[kname]
     all_on_wgmma(K, "phase 3")
 
     # -- phase 4 ---------------------------------------------------------
@@ -1937,6 +2111,7 @@ def main(argv=None) -> int:
     qshapes = [(pl.problem.m, pl.problem.n, pl.problem.k) for pl in plans]
     for tag in ("int8", "bf16"):
         before = snapshot(K)
+        counts = dict(K.LAUNCHES)
         res = measure.run_campaign("table2", harness="cuda", machine="h100",
                                    dtype=tag, store=store)
         print(f"table2/{tag}: {len(res.samples)} samples, "
@@ -1946,8 +2121,10 @@ def main(argv=None) -> int:
             problems=[GemmProblem(m, n, k, dtype=tag) for m, n, k in qshapes])
         print(f"qwen2-1.5b/{tag}: {len(res.samples)} samples, "
               f"{res.measured_seconds:.4g} s measured")
-        if tag == "bf16":
-            all_on_wgmma(K, "phase 4's bf16 campaigns", before)
+        all_on_wgmma(K, f"phase 4's {tag} campaigns", before)
+        if tag == "int8":
+            for kname in K.LAUNCHES:
+                int8_launches[kname] += K.LAUNCHES[kname] - counts[kname]
     harness = measure.get_harness("cuda")
     held_samples = []
     before = snapshot(K)
@@ -1963,15 +2140,19 @@ def main(argv=None) -> int:
         measure.SampleStore(held).append(s)
         held_samples.append(s)
     all_on_wgmma(K, "phase 4's held-out k-outer samples", before)
+    # columns the k-inner grid cannot constrain charge nothing ("free"):
+    # with int8 on the tensor cores the data-sheet charges that "drop"
+    # keeps for them exceed the measured times, and every column then
+    # solves non-positive
     spec, rep = measure.fit_from_store(
         store, "h100", name="h100-fit", date=time.strftime("%Y-%m-%d"),
-        on_nonpositive="drop", manifest_dir=args.out)
+        on_nonpositive="free", manifest_dir=args.out)
     print(f"fit: {rep.samples} samples, residual RMS {rep.residual_rms_s:.4g}"
           f" s, in-sample MAPE {rep.insample_mape_pct:.4g}%, dropped "
-          f"{rep.dropped} (on_nonpositive='drop': columns the k-inner grid "
-          f"cannot constrain keep the data-sheet rate)")
+          f"{rep.dropped} (on_nonpositive='free': columns the k-inner grid "
+          f"cannot constrain charge nothing)")
     for col, x in zip(rep.columns, rep.inverse_rates):
-        print(f"  {col:<16} " + ("dropped (data-sheet rate kept)"
+        print(f"  {col:<16} " + ("dropped (charged nothing)"
                                  if math.isnan(x) else f"{1.0 / x:.6g}"))
     print(f"fitted manifest: {os.path.join(args.out, 'h100-fit.json')}")
     report = measure.validate_spec(spec, store)
@@ -1993,11 +2174,13 @@ def main(argv=None) -> int:
     print(f"MAPE: campaign {report.mape:.4g}% over {len(report.rows)} cells; "
           f"held-out k_outer {heldout.mape:.4g}% over {len(heldout.rows)}")
     launches = dict(K.LAUNCHES)
-    # phases 3-4 run bf16 (wgmma) and the int8 campaigns (CUDA cores)
-    int8_launches = K.ROUTES["cuda_cores"]
-    print(f"main-path launches: {launches}, by route {dict(K.ROUTES)}")
+    # phases 3-4 run bf16 and int8, every launch on wgmma
+    print(f"main-path launches: {launches} (int8: {int8_launches}), by "
+          f"route {dict(K.ROUTES)}")
     for name_, n_ in launches.items():
-        check(n_ > 0, f"{name_} was never launched on the main path")
+        check(n_ > int8_launches[name_] > 0,
+              f"{name_} was never launched in bf16 or in int8 on the main "
+              f"path")
 
     # -- phase 5 ---------------------------------------------------------
     phase(5, "timing at the Qwen2-1.5B shapes (CUDA events)")
@@ -2014,15 +2197,43 @@ def main(argv=None) -> int:
         parent.append(tree_run(args.parent, "gemm", args.out, gemm_shapes))
         compare_with_parent(rows, again, parent)
     stage_rows = stage_timings(K, gemm_shapes, dev)
+    # int8 (wgmma_s8.cuh) at bf16's tile and at the int8 planner's, beside
+    # torch._int_mm; the 19 Table-2 int8 cells phase 4 runs; with
+    # --parent both in turns with the parent's tree (and the f32 route)
+    int8_sets = {"x".join(map(str, sh[0][4])): sh
+                 for sh in (gemm_shapes, int8_shapes)}
+    table2_cells = [(r.m, r.n, r.k, (d.selection.bm, d.selection.bn,
+                                     d.selection.bk))
+                    for r, d in zip(TABLE2, gemm.plan_many(
+                        [GemmShape(r.m, r.n, r.k, dtype="int8")
+                         for r in TABLE2], backend="cuda", machine="h100"))]
+    turn_shapes = {"qwen": int8_sets, "table2": table2_cells,
+                   "f32": gemm_shapes}
+    int8_rows = {t: gemm_timings(K, sh, dev, tag="int8")
+                 for t, sh in int8_sets.items()}
+    table2_rows = table2_timings(K, table2_cells, dev)
+    for r in table2_rows:
+        print(f"Table-2 int8 {'x'.join(map(str, r['shape']))} (tile "
+              f"{'x'.join(map(str, r['tile']))}): {r['ms']:.4f} ms, host "
+              f"{r['host_us']:.1f} us a call")
+    print(f"Table-2 int8 over {len(table2_rows)} cells: "
+          f"{sum(r['ms'] for r in table2_rows):.4f} ms")
+    int8_stage_rows = {t: stage_timings(K, sh, dev, tag="int8")
+                       for t, sh in int8_sets.items()}
+    transpose_rows = transpose_timings(K, gemm_shapes, dev)
     all_on_wgmma(K, "phase 5", before)
-    # the CUDA-core routes (tile_gemm.cuh) at the same shapes and tiles,
-    # beside torch._int_mm (int8) and torch.matmul (f32, TF32 off)
+    # the f32 route (tile_gemm.cuh) at the same shapes and tiles, beside
+    # torch.matmul (TF32 off)
     before = snapshot(K)
-    core_rows = [r for tag in ("int8", "f32")
-                 for r in gemm_timings(K, gemm_shapes, dev, tag=tag)]
+    core_rows = gemm_timings(K, gemm_shapes, dev, tag="f32")
     n_core = sum(K.LAUNCHES.values()) - before[0]
     check(K.ROUTES["cuda_cores"] - before[1]["cuda_cores"] == n_core > 0,
-          "an int8 or f32 GEMM launch left the CUDA-core route")
+          "an f32 GEMM launch left the CUDA-core route")
+    int8_turns = []
+    if args.parent:
+        int8_turns = [tree_run(t, "gemm_int8", args.out, turn_shapes)
+                      for t in (args.parent, HERE, HERE, args.parent)]
+        compare_int8(int8_turns)
 
     grouped_rows, grouped_err, grouped_parent, grouped_stage_rows = \
         grouped_phase(args, dev, G)
@@ -2048,11 +2259,20 @@ def main(argv=None) -> int:
         compare_flash(flash_turns)
 
     csrc = "src/repro_torch/kernels/csrc"
+    int8_tile = "x".join(map(str, int8_shapes[0][4]))
     kernels = [kernel_entry(kname, f"{csrc}/wgmma_gemm.cuh",
                             f"src/repro/kernels/gemm.py:{line}",
-                            launches[kname], max_err[kname],
+                            launches[kname] - int8_launches[kname],
+                            max_err[kname],
                             [r for r in rows if r["kernel"] == kname])
                for kname, line in (("gemm_k_inner", 56), ("gemm_k_outer", 89))]
+    kernels += [kernel_entry(f"{kname}_int8", f"{csrc}/wgmma_s8.cuh",
+                             f"src/repro/kernels/gemm.py:{line}",
+                             int8_launches[kname], int8_err[kname],
+                             [r for r in int8_rows[int8_tile]
+                              if r["kernel"] == kname])
+                for kname, line in (("gemm_k_inner", 56),
+                                    ("gemm_k_outer", 89))]
     kernels.append(kernel_entry(
         "grouped_gemm", f"{csrc}/grouped_gemm.cu",
         "src/repro/kernels/grouped_gemm.py:37", served["grouped_gemm"],
@@ -2074,9 +2294,14 @@ def main(argv=None) -> int:
                    "model_kernels": model_k,
                    "attention_norm_rows": attn_rows,
                    "norm_turns": norm_turns, "flash_turns": flash_turns,
-                   "cuda_core_gemm_rows": core_rows,
+                   "f32_gemm_rows": core_rows, "int8_rows": int8_rows,
+                   "table2_int8_rows": table2_rows,
+                   "int8_turns": int8_turns,
+                   "int8_stage_rows": int8_stage_rows,
+                   "transpose_rows": transpose_rows,
                    "int8_main_path_launches": int8_launches}, f, indent=1)
-    print(f"\n(GEMM times are sums over the five Qwen2-1.5B GEMMs, grouped "
+    print(f"\n(GEMM times are sums over the five Qwen2-1.5B GEMMs, bf16 "
+          f"at its planner tile, int8 at {int8_tile}; grouped "
           f"times over the four bf16 shapes of the served run, flash "
           f"attention and RMSNorm times over the bf16 shapes phase 9 "
           f"recorded from the model; grouped and RMSNorm times are device "

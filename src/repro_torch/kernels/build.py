@@ -6,7 +6,8 @@ process per library): ``gemm.cu`` for bf16, f32 and int8,
 ``grouped_gemm.cu``, ``flash_attention.cu`` and ``rmsnorm.cu`` for bf16 and
 f32.  The bf16 builds of ``gemm.cu``, ``grouped_gemm.cu`` and
 ``flash_attention.cu`` include ``wgmma_gemm.cuh`` (the tensor-core route:
-TMA, mbarriers, wgmma), every other GEMM build ``tile_gemm.cuh``.
+TMA, mbarriers, wgmma), the int8 build of ``gemm.cu`` ``wgmma_s8.cuh``
+(which includes it), the f32 GEMM builds ``tile_gemm.cuh``.
 Libraries land in ``build/repro_torch/<hash>/`` at the repository root
 (``.gitignore`` lists ``build/``; ``REPRO_TORCH_BUILD_DIR`` moves it), keyed
 by a hash of every file under ``csrc/`` and the flags, so an edit to any
@@ -42,8 +43,11 @@ _GEMM_ARGS = (_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I64, _I64, _I64, _I32,
 _WGMMA_ARGS = (_VP, _VP, _VP, _I32, _I32, _I32, _I64, _I32, _I32, _I32,
                _I32, _I32, _I32, _I32, _VP)
 #: A, B, C; M, N, K; lda, ldb, ldc; bm, bn, ks; maps (384 bytes, written)
+#: (int8: B is Bt, its transpose, and ldb Bt's row stride)
 _WGMMA_ENCODE_ARGS = (_VP, _VP, _VP, _I32, _I32, _I32, _I64, _I64, _I64,
                       _I32, _I32, _I32, _VP)
+#: B, Bt; K, N; ldb, ldbt; stream (the int8 GEMM's transposed copy of B)
+_TRANSPOSE_ARGS = (_VP, _VP, _I32, _I32, _I64, _I64, _VP)
 #: x, w, y; E, C, D, F; bc, bf, bk; stream (the f32 grouped GEMM)
 _GROUPED_ARGS = (_VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
                  _VP)
@@ -89,8 +93,11 @@ TARGETS = {
                                        _WGMMA_ENCODE_ARGS),)),
     "gemm_f32": Target("gemm.cu", "REPRO_GEMM_F32", "repro_gemm_tile",
                        _GEMM_ARGS),
-    "gemm_int8": Target("gemm.cu", "REPRO_GEMM_INT8", "repro_gemm_tile",
-                        _GEMM_ARGS),
+    "gemm_int8": Target("gemm.cu", "REPRO_GEMM_INT8", "repro_gemm_s8",
+                        _WGMMA_ARGS, (("repro_gemm_s8_encode",
+                                       _WGMMA_ENCODE_ARGS),
+                                      ("repro_transpose_s8",
+                                       _TRANSPOSE_ARGS))),
     "grouped_gemm_bf16": Target("grouped_gemm.cu", "REPRO_GEMM_BF16",
                                 "repro_grouped_gemm_wgmma",
                                 _GROUPED_WGMMA_ARGS,

@@ -1,12 +1,14 @@
-// The thread-block tile GEMM shared by gemm.cu and grouped_gemm.cu.
+// The thread-block tile GEMM shared by gemm.cu and grouped_gemm.cu: their
+// f32 builds (bf16 and int8 run on the tensor cores, wgmma_gemm.cuh and
+// wgmma_s8.cuh).
 //
 // tile_gemm<T, RM, RN> computes, for group z = blockIdx.z,
 //   C_z[i0:i0+bm, j0:j0+bn] (+)= A_z[i0:i0+bm, :K] . B_z[:K, j0:j0+bn]
 // where A_z = A + z * group_stride_a (likewise B and C).  A plain GEMM is
 // one group (stride 0, gridDim.z = 1); the grouped GEMM of the MoE experts
 // is one group per expert.  Every block loops over K in bk slabs staged
-// through shared memory and keeps its f32 (int32 for int8) accumulator in
-// registers; Cin, when not null, is added before the one rounding to Out.
+// through shared memory and keeps its f32 accumulator in registers; Cin,
+// when not null, is added before the one rounding to Out.
 //
 // Ragged edges are masked: loads outside A or B read zero (zero K padding
 // is exact) and stores outside C are skipped, so any (M, N, K) runs on any
@@ -15,8 +17,7 @@
 // Each thread owns an RM x RN register tile of C, so one k step costs
 // RM + RN shared-memory reads for RM * RN multiply-adds; a warp reads one A
 // value (broadcast) and 32 consecutive B values (no bank conflicts).  The
-// products run on the CUDA cores (FP32 FMA, exact int32 multiply-add; no
-// tensor cores, no TF32).
+// products run on the CUDA cores (FP32 FMA; no tensor cores, no TF32).
 
 #pragma once
 
@@ -63,15 +64,6 @@ template <> struct Elem<float> {
   __device__ __forceinline__ static float up(float x) { return x; }
   __device__ __forceinline__ static float from_out(float c) { return c; }
   __device__ __forceinline__ static float to_out(float v) { return v; }
-};
-
-template <> struct Elem<int8_t> {
-  using Acc = int32_t;
-  using Out = int32_t;
-  __device__ __forceinline__ static int8_t zero() { return 0; }
-  __device__ __forceinline__ static int32_t up(int8_t x) { return x; }
-  __device__ __forceinline__ static int32_t from_out(int32_t c) { return c; }
-  __device__ __forceinline__ static int32_t to_out(int32_t v) { return v; }
 };
 
 // Threads form a TY x TX grid (TX = 2^tx_log2 columns); thread (ty, tx)
@@ -250,8 +242,6 @@ int gemm_tile_groups(const void* A, const void* B, const void* Cin,
 typedef __nv_bfloat16 ReproElem;
 #elif defined(REPRO_GEMM_F32)
 typedef float ReproElem;
-#elif defined(REPRO_GEMM_INT8)
-typedef int8_t ReproElem;
 #else
-#error "define one of REPRO_GEMM_BF16, REPRO_GEMM_F32, REPRO_GEMM_INT8"
+#error "define one of REPRO_GEMM_BF16, REPRO_GEMM_F32"
 #endif

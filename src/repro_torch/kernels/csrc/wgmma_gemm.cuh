@@ -11,12 +11,14 @@
 //     bf16, the per-pass rounding of ref.gemm_ref_streamed.  The passes are
 //     not fused: streaming C once per pass is what the variant is.
 // The plan's (bm, bn, bk) stays the thread-block tile, as in tile_gemm.cuh
-// (which keeps the f32 and int8 builds and the f32 grouped GEMM).  The
+// (which keeps the f32 builds: the GEMM and the grouped GEMM).  The
 // bf16 grouped (MoE expert) GEMM runs the same kernel body with the expert
 // as blockIdx.z and rank-3 tensor maps (grouped_gemm.cu gives its design).
 // The bf16 flash attention kernel (flash_attention.cu) uses the helpers
 // below (mbarriers, TMA loads, descriptors, Wgmma and the register-A form
-// WgmmaRS), not the GEMM body.
+// WgmmaRS), not the GEMM body; so does the int8 GEMM (wgmma_s8.cuh, with
+// WgmmaS8 and encode_map's element types), whose operands are both
+// K-major.
 //
 // What bounds it on an H100.  k-inner at Qwen2-1.5B's shapes (M = 4096,
 // K = 1536 or 8960) is bound by operations: 2*M*N*K over the 989 TFLOP/s
@@ -455,6 +457,116 @@ struct WgmmaRS<256> {
   }
 };
 
+// The 8-bit product, m64nNk32 s8 x s8 -> s32, D += A.B (D = A.B when
+// scale_d is 0), int accumulators d[0 .. N/2) in the layout of Wgmma's.
+// Both operands K-major from shared memory: the instruction has no transpose
+// for 8-bit types, so the int8 GEMM (wgmma_s8.cuh) stages B transposed.  No
+// .satfinite: the sum wraps in int32, as the JAX kernel's int32 accumulator
+// does.  One k32 step is 32 bytes, as bf16's k16 step.
+template <int N> struct WgmmaS8;
+
+template <>
+struct WgmmaS8<64> {
+  __device__ __forceinline__ static void mma(int* d, uint64_t da, uint64_t db,
+                                             int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31 "
+        "}, %32, %33, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaS8<128> {
+  __device__ __forceinline__ static void mma(int* d, uint64_t da, uint64_t db,
+                                             int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63 "
+        "}, %64, %65, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+          "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+          "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+          "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+          "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaS8<256> {
+  __device__ __forceinline__ static void mma(int* d, uint64_t da, uint64_t db,
+                                             int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+        "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127 "
+        "}, %128, %129, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+          "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+          "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+          "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+          "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]),
+          "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]),
+          "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]),
+          "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+          "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]),
+          "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+          "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]),
+          "+r"(d[95]), "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+          "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), "+r"(d[104]),
+          "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]),
+          "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]),
+          "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+          "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]),
+          "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
 // C[i0:i0+bm, j0:j0+bn] (+)= A[i0:, k0:k1] . B[k0:k1, j0:] for the tile of
 // this block, in slabs ks deep.  NW: the instruction's N; W: consumer
 // warpgroups (warps 0 .. 4W-1); warp 4W is the producer.  Cin, when not
@@ -749,26 +861,30 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A row-major (rows, cols) bf16 matrix with row stride ld, in boxes of
-// box_cols x box_rows, zero fill past the extent.  With depth > 0: a stack
-// of `depth` such matrices `plane` elements apart, as a rank-3 map whose
-// boxes are one matrix deep, so that a box fills and clips at its own
-// matrix's edges (the grouped GEMM's experts).
+// A row-major (rows, cols) matrix with row stride ld, in boxes of
+// box_cols x box_rows, zero fill past the extent; elements of `type`,
+// `size` bytes each (bf16 unless said otherwise; the int8 GEMM's operands
+// are UINT8, raw bytes, whose zero fill is exact, and its C is INT32).
+// With depth > 0: a stack of `depth` such matrices `plane` elements apart,
+// as a rank-3 map whose boxes are one matrix deep, so that a box fills and
+// clips at its own matrix's edges (the grouped GEMM's experts).
 int encode_map(CUtensorMap* map, const void* base, int rows, int cols,
                int64_t ld, int box_cols, int box_rows,
                CUtensorMapSwizzle swizzle, int depth = 0,
-               int64_t plane = 0) {
+               int64_t plane = 0,
+               CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+               int size = 2) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(depth)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * 2,
-                                 static_cast<cuuint64_t>(plane) * 2};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * size,
+                                 static_cast<cuuint64_t>(plane) * size};
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
                              static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+  const CUresult r = fn(map, type,
                         depth > 0 ? 3 : 2, const_cast<void*>(base), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -776,10 +892,11 @@ int encode_map(CUtensorMap* map, const void* base, int rows, int cols,
   return r == CUDA_SUCCESS ? 0 : kDriverErrorBase + static_cast<int>(r);
 }
 
-// Whether C goes through shared memory and TMA: 16-byte rows and base, and
-// a tile at least 8 columns (16 bytes) wide.
-bool tma_c_ok(const void* C, int64_t ldc, int bn) {
-  return C != nullptr && bn >= 8 && ldc % 8 == 0 &&
+// Whether C, of `size`-byte elements (bf16 unless said otherwise), goes
+// through shared memory and TMA: 16-byte rows and base, and a tile at
+// least 16 bytes wide.
+bool tma_c_ok(const void* C, int64_t ldc, int bn, int size = 2) {
+  return C != nullptr && bn * size >= 16 && ldc * size % 16 == 0 &&
          reinterpret_cast<uintptr_t>(C) % 16 == 0;
 }
 

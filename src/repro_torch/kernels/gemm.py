@@ -17,17 +17,20 @@ thread-block tile:
 
 Two routes, by operand dtype (:func:`route`):
 
-* ``"wgmma"``: bf16 runs on the tensor cores, ``wgmma.mma_async`` fed by
-  TMA through a ring of shared-memory stages (``csrc/wgmma_gemm.cuh``),
-  configured by :func:`wgmma_config`.  The tensor maps are encoded once per
-  wrapper call; a k-outer pass differs only in its k0.  TMA needs 16-byte
-  aligned bases and row strides: an operand without them is first copied
-  once into an aligned buffer (:func:`aligned_copy`, counted in
-  ``COPIES``).
-* ``"cuda_cores"``: f32 and int8 run the register-tiled kernel of
-  ``csrc/tile_gemm.cuh`` (FP32 FMA, exact int32 multiply-add; no TF32,
-  which would not compute the f32 function), configured by
-  :func:`launch_config`.
+* ``"wgmma"``: bf16 and int8 run on the tensor cores, ``wgmma.mma_async``
+  fed by TMA through a ring of shared-memory stages: bf16 in
+  ``csrc/wgmma_gemm.cuh`` (configured by :func:`wgmma_config`), int8 (s8 x
+  s8 -> s32, exact) in ``csrc/wgmma_s8.cuh`` (:func:`int8_config`).  8-bit
+  wgmma reads both operands K-major, so an int8 call first writes B
+  transposed, once (:func:`transposed_copy`, a kernel, counted in
+  ``COPIES["transposed"]``; all k-outer passes share it).  The tensor maps
+  are encoded once per wrapper call; a k-outer pass differs only in its
+  k0.  TMA needs 16-byte aligned bases and row strides: an operand without
+  them is first copied once into an aligned buffer (:func:`aligned_copy`,
+  counted in ``COPIES["aligned"]``).
+* ``"cuda_cores"``: f32 runs the register-tiled kernel of
+  ``csrc/tile_gemm.cuh`` (FP32 FMA; no TF32, which would not compute the
+  f32 function), configured by :func:`launch_config`.
 
 Bound on an H100: at the planner's tiles and Qwen2-1.5B's shapes k-inner is
 bound by operations; at decode (M of a few rows) by the bytes of B; k-outer
@@ -39,7 +42,9 @@ only when its operands lie on the CPU; CUDA operands launch the kernel or
 raise.  ``LAUNCHES`` counts kernel launches, one per launch, and nothing
 else.  Unlike the Pallas kernels, these mask ragged edges themselves, so
 shapes need not divide the tile.  ``ROUTES`` counts the same launches by
-route, so a run can show that every bf16 launch used ``wgmma``.
+route, so a run can show that every bf16 and int8 launch used ``wgmma``.
+The transpose that precedes an int8 launch is not a GEMM launch: it is
+counted in ``COPIES`` only.
 """
 from __future__ import annotations
 
@@ -59,10 +64,11 @@ MAX_REGISTER_TILE = 64
 
 #: kernel launches since the last reset, by kernel name
 LAUNCHES = {"gemm_k_inner": 0, "gemm_k_outer": 0}
-#: the same launches by route: tensor cores (bf16) or CUDA cores
+#: the same launches by route: tensor cores (bf16, int8) or CUDA cores
 ROUTES = {"wgmma": 0, "cuda_cores": 0}
-#: operands copied into a TMA-aligned buffer before a wgmma launch
-COPIES = {"aligned": 0}
+#: operands copied before a wgmma launch: into a TMA-aligned buffer, or
+#: (int8's B) transposed
+COPIES = {"aligned": 0, "transposed": 0}
 
 _TAGS = {torch.bfloat16: "bf16", torch.float32: "f32", torch.int8: "int8"}
 
@@ -74,8 +80,8 @@ def reset_launch_counts() -> None:
 
 
 def route(dtype) -> str:
-    """``"wgmma"`` for bf16 operands, ``"cuda_cores"`` for f32 and int8."""
-    return "wgmma" if _tag(dtype) == "bf16" else "cuda_cores"
+    """``"wgmma"`` for bf16 and int8 operands, ``"cuda_cores"`` for f32."""
+    return "cuda_cores" if _tag(dtype) == "f32" else "wgmma"
 
 
 def _tag(dtype) -> str:
@@ -97,9 +103,10 @@ def out_dtype(dtype: torch.dtype) -> torch.dtype:
 
 def smem_bytes(tile: TileConfig, dtype) -> int:
     """Dynamic shared memory one block of the CUDA-core kernel
-    (``tile_gemm.cuh``: f32, int8 and the grouped GEMM) claims: the A and B
+    (``tile_gemm.cuh``: f32 and the f32 grouped GEMM) claims: the A and B
     slabs (bm x bk and bk x bn) in the operand dtype; the accumulator lives
-    in registers.  The wgmma route's is :func:`wgmma_config`'s."""
+    in registers.  The wgmma route's is :func:`wgmma_config`'s (bf16) or
+    :func:`int8_config`'s."""
     s = DTYPE_BYTES[_tag(dtype)]
     return (tile.bm * tile.bk + tile.bk * tile.bn) * s
 
@@ -209,39 +216,153 @@ def wgmma_config(tile: TileConfig, *, k_outer: bool = False) -> WgmmaConfig:
                        consumers * 128 + 32)
 
 
+#: int8 columns (bytes) of one 128-byte-swizzled TMA box (csrc/wgmma_s8.cuh)
+S8_BOX_K = 128
+#: shared-memory stages an int8 block keeps in flight, at most; below this
+#: cap, as many as fit without costing an SM a resident block (see
+#: :func:`int8_config`)
+S8_STAGES = 8
+#: an H100 SM's shared memory, and what the system keeps of it per block
+SM_SMEM_BYTES = 233472
+BLOCK_RESERVED_SMEM = 1024
+
+
+def _s8_stage(bm: int, bn: int, ks: int, c_tile: bool) -> tuple[int, int]:
+    """(bytes of one stage, bytes after the stages) for an int8 bm x bn
+    tile staged ks deep, as ``GeomS8`` in csrc/wgmma_s8.cuh lays them out:
+    a stage holds ceil(ks/128) bands of A (max(bm, 8) rows) and of B
+    transposed (max(bn, 64) rows), 128 bytes a row; after the stages come
+    the int32 C tile (``c_tile``) and one C-tile mbarrier."""
+    bands = -(-ks // S8_BOX_K)
+    stage = bands * (max(bm, 8) + max(bn, WGMMA_BOX_COLS)) * 128
+    c = -(-bm * bn * 4 // 128) * 128 if c_tile else 0
+    return stage, c + 8
+
+
+def int8_config(tile: TileConfig, *, k_outer: bool = False) -> WgmmaConfig:
+    """How the tensor-core route runs the int8 ``tile`` (csrc/wgmma_s8.cuh);
+    raises ValueError for a tile it does not take.  The slab is the plan's
+    bk deep unless two such slabs do not fit in a block's shared memory,
+    then the deepest power of two (at least 128: a band is 128 k wide
+    whatever the depth) that fits twice.  The ring holds as many slabs as
+    fit, at most :data:`S8_STAGES`, without leaving room for fewer blocks
+    on an SM than two slabs do (at 64x128x128 three, two blocks an SM; at
+    128x128x128, whose 64 KB C tile leaves one block an SM anyway, five),
+    and for a k-outer pass at most its slabs.  Warpgroups and rounds follow
+    :func:`wgmma_config`'s rules."""
+    bm, bn, bk = tile.bm, tile.bn, tile.bk
+    if not (_pow2(bm) and _pow2(bn) and _pow2(bk)):
+        raise ValueError(f"tile {tile}: the kernels take power-of-two "
+                         f"bm, bn, bk")
+    ks = bk
+    # C goes through a tile in shared memory where TMA can move its rows
+    # (bn >= 4 int32; the launcher also checks C's alignment)
+    c_tile = bn >= 4
+    while ks > S8_BOX_K and _wgmma_smem(*_s8_stage(bm, bn, ks, c_tile), 2) \
+            > MAX_SMEM_BYTES:
+        ks //= 2
+    stage, rest = _s8_stage(bm, bn, ks, c_tile)
+    fit = (MAX_SMEM_BYTES - rest) // (stage + 16)
+    if fit < 1:
+        raise ValueError(
+            f"tile {tile}: one {stage}-byte stage and the {rest - 8}-byte "
+            f"C tile exceed the {MAX_SMEM_BYTES} bytes of shared memory a "
+            f"Hopper block may claim")
+
+    def resident(n):
+        return SM_SMEM_BYTES // (_wgmma_smem(stage, rest, n)
+                                 + BLOCK_RESERVED_SMEM)
+
+    stages = min(fit, 2)
+    while stages < min(fit, S8_STAGES) and \
+            resident(stages + 1) >= resident(min(fit, 2)):
+        stages += 1
+    stages = min(stages, S8_STAGES, bk // ks if k_outer else stages)
+    bnp = max(bn, WGMMA_BOX_COLS)
+    nw = min(bnp, 256)
+    units = -(-max(bm, 8) // 64) * (bnp // nw)
+    consumers = 1 if units < 2 else 2
+    return WgmmaConfig(nw, consumers, -(-units // consumers), ks, stages,
+                       stage, _wgmma_smem(stage, rest, stages),
+                       consumers * 128 + 32)
+
+
 def check_tile(tile: TileConfig, dtype, *, k_outer: bool = False):
     """The route's config for ``tile`` (:func:`wgmma_config` for bf16,
-    :func:`launch_config` otherwise); raises ValueError for a tile the
-    route does not take, on any device."""
-    if route(dtype) == "wgmma":
+    :func:`int8_config` for int8, :func:`launch_config` for f32); raises
+    ValueError for a tile the route does not take, on any device."""
+    tag = _tag(dtype)
+    if tag == "int8":
+        return int8_config(tile, k_outer=k_outer)
+    if tag == "bf16":
         return wgmma_config(tile, k_outer=k_outer)
     return launch_config(tile, dtype)
 
 
+def _row_unit(t) -> int:
+    """Elements of ``t`` in the 16 bytes TMA aligns rows to."""
+    return 16 // t.element_size()
+
+
 def _tma_row_stride(t) -> int:
     """The row stride a tensor map is given for row-major ``t``: its own,
-    or, for a single row (never stepped), its width rounded up to 8."""
-    return t.stride(0) if t.shape[0] > 1 else -(-t.shape[1] // 8) * 8
+    or, for a single row (never stepped), its width rounded up to 16
+    bytes."""
+    unit = _row_unit(t)
+    return t.stride(0) if t.shape[0] > 1 else -(-t.shape[1] // unit) * unit
 
 
 def needs_aligned_copy(t) -> bool:
-    """Whether TMA cannot read the row-major bf16 matrix ``t`` in place: a
-    base that is not 16-byte aligned, or a row stride that is not a
-    multiple of 16 bytes (8 elements)."""
-    return t.data_ptr() % 16 != 0 or _tma_row_stride(t) % 8 != 0
+    """Whether TMA cannot read the row-major matrix ``t`` in place: a base
+    that is not 16-byte aligned, or a row stride that is not a multiple of
+    16 bytes (8 bf16, 16 int8)."""
+    return t.data_ptr() % 16 != 0 or _tma_row_stride(t) % _row_unit(t) != 0
 
 
 def aligned_copy(t):
     """``t`` copied once into a buffer whose row stride is its width rounded
-    up to 8 elements (16 bytes), returned as the view of ``t``'s logical
-    extent (the tensor map is given that extent, so the padding is never
-    read)."""
+    up to 16 bytes, returned as the view of ``t``'s logical extent (the
+    tensor map is given that extent, so the padding is never read)."""
     rows, cols = t.shape
-    buf = torch.empty((rows, -(-cols // 8) * 8), dtype=t.dtype,
+    unit = _row_unit(t)
+    buf = torch.empty((rows, -(-cols // unit) * unit), dtype=t.dtype,
                       device=t.device)
     view = buf[:, :cols]
     view.copy_(t)
     return view
+
+
+def transposed_copy_plain(b):
+    """Plain PyTorch version of :func:`transposed_copy`."""
+    k, n = b.shape
+    buf = torch.zeros((n, -(-k // 16) * 16), dtype=b.dtype, device=b.device)
+    view = buf[:, :k]
+    view.copy_(b.t())
+    return view
+
+
+def transposed_copy(b):
+    """The int8 (K, N) matrix ``b`` as Bt, its (N, K) transpose, in rows
+    padded with zeros to a multiple of 16 bytes (so that TMA can read any
+    K), returned as the view of the logical (N, K) extent: the K-major B
+    that 8-bit wgmma reads.  On CUDA a kernel (``repro_transpose_s8``)
+    writes it; CPU tensors take :func:`transposed_copy_plain`."""
+    if _on_cpu(b):
+        return transposed_copy_plain(b)
+    from repro_torch.kernels import build
+
+    k, n = b.shape
+    kp = -(-k // 16) * 16
+    lib = build.load("gemm_int8")
+    buf = torch.empty((n, kp), dtype=b.dtype, device=b.device)
+    with on_device(b):
+        err = lib.repro_transpose_s8(b.data_ptr(), buf.data_ptr(), k, n,
+                                     b.stride(0), kp, raw_stream(b))
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"int8 transpose of a {k}x{n} B failed: {msg} "
+                           f"(cuda error {err})")
+    return buf[:, :k]
 
 
 def gemm_k_inner_plain(a, b):
@@ -320,24 +441,43 @@ def _launch(a, b, c_in, c_out, m: int, n: int, k: int, tile) -> None:
                            f"tile {tile}: {msg} (cuda error {err})")
 
 
-def _wgmma_maps(lib, a, b, c, m: int, n: int, k: int, tile, cfg):
+#: per tensor-core dtype: its library, map encoder and launcher
+_WGMMA_LIBS = {"bf16": ("gemm_bf16", "repro_gemm_wgmma_encode",
+                        "repro_gemm_wgmma"),
+               "int8": ("gemm_int8", "repro_gemm_s8_encode",
+                        "repro_gemm_s8")}
+
+
+def _wgmma_lib(dtype):
+    """(library, map encoder, launcher) of the tensor-core route for
+    ``dtype``."""
+    from repro_torch.kernels import build
+
+    name, encode, launch = _WGMMA_LIBS[_tag(dtype)]
+    lib = build.load(name)
+    return lib, getattr(lib, encode), getattr(lib, launch)
+
+
+def _wgmma_maps(lib, encode, a, b, c, m: int, n: int, k: int, tile, cfg):
     """The tensor maps of A, B and C (384 bytes) of one wrapper call, after
-    copying an operand TMA cannot read in place; returns (maps, the
-    operands used), which the caller keeps alive until its launches are
-    enqueued."""
+    copying an operand TMA cannot read in place (int8: B always, into its
+    transpose); returns (maps, the operands used), which the caller keeps
+    alive until its launches are enqueued."""
     import ctypes
 
     if needs_aligned_copy(a):
         a = aligned_copy(a)
         COPIES["aligned"] += 1
-    if needs_aligned_copy(b):
+    if a.dtype == torch.int8:
+        b = transposed_copy(b)
+        COPIES["transposed"] += 1
+    elif needs_aligned_copy(b):
         b = aligned_copy(b)
         COPIES["aligned"] += 1
     maps = ctypes.create_string_buffer(384)
-    err = lib.repro_gemm_wgmma_encode(
-        a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-        _tma_row_stride(a), _tma_row_stride(b), c.stride(0), tile.bm,
-        tile.bn, cfg.ks, maps)
+    err = encode(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
+                 _tma_row_stride(a), _tma_row_stride(b), c.stride(0),
+                 tile.bm, tile.bn, cfg.ks, maps)
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"tensor maps for {m}x{n}x{k} on tile {tile}: "
@@ -349,22 +489,23 @@ def _wgmma_maps(lib, a, b, c, m: int, n: int, k: int, tile, cfg):
 RASTER_L2_BYTES = 16 << 20
 
 
-def raster_group(m: int, k: int, bm: int) -> int:
+def raster_group(m: int, k: int, bm: int, elem_bytes: int = 2) -> int:
     """How many m tiles the blocks of one launch walk before the next n
-    tile: as many as keep the A rows they share (``bm`` x ``k`` bf16 each,
-    ``k`` the depth one launch reads) within :data:`RASTER_L2_BYTES` of L2,
-    at least 1, at most all of them."""
-    return max(1, min(-(-m // bm), RASTER_L2_BYTES // (bm * k * 2)))
+    tile: as many as keep the A rows they share (``bm`` x ``k`` elements of
+    ``elem_bytes`` each, bf16 unless said otherwise, ``k`` the depth one
+    launch reads) within :data:`RASTER_L2_BYTES` of L2, at least 1, at most
+    all of them."""
+    return max(1, min(-(-m // bm),
+                      RASTER_L2_BYTES // (bm * k * elem_bytes)))
 
 
-def _launch_wgmma(lib, maps, c_in, c_out, m: int, n: int, k: int, k0: int,
-                  k1: int, tile, cfg, group: int) -> None:
+def _launch_wgmma(lib, launch, maps, c_in, c_out, m: int, n: int, k: int,
+                  k0: int, k1: int, tile, cfg, group: int) -> None:
     with on_device(c_out):
         stream = raw_stream(c_out)
-        err = lib.repro_gemm_wgmma(
-            maps, None if c_in is None else c_in.data_ptr(),
-            c_out.data_ptr(), m, n, k, c_out.stride(0), k0, k1, tile.bm,
-            tile.bn, cfg.ks, cfg.stages, group, stream)
+        err = launch(maps, None if c_in is None else c_in.data_ptr(),
+                     c_out.data_ptr(), m, n, k, c_out.stride(0), k0, k1,
+                     tile.bm, tile.bn, cfg.ks, cfg.stages, group, stream)
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"wgmma gemm launch failed for {m}x{n}x{k} "
@@ -388,12 +529,10 @@ def gemm_k_inner(a, b, *, tile: TileConfig):
         out.zero_()
         return out
     elif out.numel():
-        from repro_torch.kernels import build
-
-        lib = build.load("gemm_bf16")
-        maps, _keep = _wgmma_maps(lib, a, b, out, m, n, k, tile, cfg)
-        _launch_wgmma(lib, maps, None, out, m, n, k, 0, k, tile, cfg,
-                      raster_group(m, k, tile.bm))
+        lib, encode, launch = _wgmma_lib(a.dtype)
+        maps, _keep = _wgmma_maps(lib, encode, a, b, out, m, n, k, tile, cfg)
+        _launch_wgmma(lib, launch, maps, None, out, m, n, k, 0, k, tile, cfg,
+                      raster_group(m, k, tile.bm, a.element_size()))
     else:
         return out
     LAUNCHES["gemm_k_inner"] += 1
@@ -427,14 +566,12 @@ def gemm_k_outer(a, b, c, *, tile: TileConfig):
         return out
     if not (out.numel() and k):
         return out
-    from repro_torch.kernels import build
-
-    lib = build.load("gemm_bf16")
-    maps, _keep = _wgmma_maps(lib, a, b, out, m, n, k, tile, cfg)
-    group = raster_group(m, min(bk, k), tile.bm)
+    lib, encode, launch = _wgmma_lib(a.dtype)
+    maps, _keep = _wgmma_maps(lib, encode, a, b, out, m, n, k, tile, cfg)
+    group = raster_group(m, min(bk, k), tile.bm, a.element_size())
     for k0 in range(0, k, bk):
-        _launch_wgmma(lib, maps, out, out, m, n, k, k0, min(k0 + bk, k), tile,
-                      cfg, group)
+        _launch_wgmma(lib, launch, maps, out, out, m, n, k, k0,
+                      min(k0 + bk, k), tile, cfg, group)
         LAUNCHES["gemm_k_outer"] += 1
     return out
 

@@ -75,8 +75,8 @@ WGMMA_BLOCK_K = 64
 WGMMA_BLOCKS_PER_SM = 3
 WGMMA_MAX_STAGES = 3
 #: an H100 SM's shared memory, and what the system keeps of it per block
-SM_SMEM_BYTES = 233472
-BLOCK_RESERVED_SMEM = 1024
+SM_SMEM_BYTES = K.SM_SMEM_BYTES
+BLOCK_RESERVED_SMEM = K.BLOCK_RESERVED_SMEM
 SMS = 132
 
 

@@ -78,8 +78,8 @@ def test_kernels_match_plain_versions(dt, tile, m, n, k):
     passes = -(-k // tile[2])
     assert K.LAUNCHES["gemm_k_inner"] == before["gemm_k_inner"] + 1
     assert K.LAUNCHES["gemm_k_outer"] == before["gemm_k_outer"] + passes
-    route = "wgmma" if dt == "bf16" else "cuda_cores"
-    other = "cuda_cores" if dt == "bf16" else "wgmma"
+    route = "cuda_cores" if dt == "f32" else "wgmma"
+    other = "wgmma" if dt == "f32" else "cuda_cores"
     assert K.ROUTES[route] == routes[route] + 1 + passes
     assert K.ROUTES[other] == routes[other]
     assert torch.equal(c0, torch.zeros_like(c0))      # caller's C untouched
@@ -131,6 +131,114 @@ def test_wrapper_rejects_c_in_another_dtype_on_the_card():
     with pytest.raises(ValueError, match="streams C"):
         K.gemm_k_outer(ta, tb, torch.zeros(64, 64, device="cuda"),
                        tile=TileConfig(64, 64, 128, GridOrder.K_OUTER))
+
+
+# ---------------------------------------------------------------------------
+# int8 GEMM on wgmma (csrc/wgmma_s8.cuh): exact against the plain version
+# ---------------------------------------------------------------------------
+
+def _int8_planner_tiles():
+    """Every tile the planner picks on cuda for h100 for the int8 shapes
+    of the slice: Table-2 and the Qwen2-1.5B GEMMs at tokens=4096."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.autotune import model_gemm_shapes
+    from repro_torch.core.mobilenet import TABLE2
+    from repro_torch.core.tpu_model import GemmShape
+    shapes = [GemmShape(r.m, r.n, r.k, dtype="int8") for r in TABLE2]
+    shapes += [GemmShape(s.m, s.n, s.k, dtype="int8") for s in
+               model_gemm_shapes(get_config("qwen2-1.5b"), tokens=4096)]
+    return sorted({(d.selection.bm, d.selection.bn, d.selection.bk)
+                   for d in gemm.plan_many(shapes, backend="cuda",
+                                           machine="h100")})
+
+
+def _int8_exact(ta, tb, tile):
+    """Both orders on ``tile`` equal their plain versions, bit for bit; one
+    transposed copy of B per wrapper call, every launch on wgmma."""
+    m, n, k = ta.shape[0], tb.shape[1], ta.shape[1]
+    c0 = torch.zeros((m, n), dtype=torch.int32, device="cuda")
+    copies, routes = K.COPIES["transposed"], dict(K.ROUTES)
+    got_i = K.gemm_k_inner(ta, tb, tile=TileConfig(*tile))
+    got_o = K.gemm_k_outer(ta, tb, c0,
+                           tile=TileConfig(*tile, GridOrder.K_OUTER))
+    torch.cuda.synchronize()
+    passes = -(-k // tile[2])
+    assert K.COPIES["transposed"] == copies + 2
+    assert K.ROUTES == {"wgmma": routes["wgmma"] + 1 + passes,
+                        "cuda_cores": routes["cuda_cores"]}
+    assert torch.equal(got_i, K.gemm_k_inner_plain(ta, tb))
+    assert torch.equal(got_o, K.gemm_k_outer_plain(ta, tb, c0, bk=tile[2]))
+
+
+def test_int8_is_exact_at_every_planner_tile():
+    tiles = _int8_planner_tiles()
+    assert (128, 128, 128) in tiles and len(tiles) >= 4
+    for i, tile in enumerate(tiles):
+        for m, n, k in ((512, 512, 512), (300, 520, 390)):
+            _int8_exact(*_operands(m, n, k, "int8", 40 + i), tile)
+
+
+@pytest.mark.parametrize("m,n,k,tile", [
+    (300, 520, 390, (64, 128, 128)),    # ragged last k-outer pass
+    (32, 12544, 27, (32, 256, 128)),    # Table-2: K = 27, A copied
+    (1024, 1000, 1, (64, 128, 128)),    # Table-2: K = 1, A copied
+    (512, 49, 4608, (128, 64, 128)),    # Table-2: N = 49, C direct
+    (1024, 49, 512, (128, 64, 128)),
+    (130, 72, 8960, (64, 128, 128)),    # Qwen2-1.5B's down-projection K
+    (8, 8, 300, (8, 8, 128)),           # bm < 64, bn < 64, C direct
+    (40, 300, 200, (32, 128, 64)),      # a slab under one 128-k band
+    (70, 90, 60, (64, 64, 16)),         # slabs under one k32 step
+])
+def test_int8_ragged_edges_are_exact(m, n, k, tile):
+    _int8_exact(*_operands(m, n, k, "int8", m + n + k), tile)
+
+
+def test_int8_reads_strided_views_exactly():
+    rng = np.random.default_rng(5)
+    big_a = torch.tensor(rng.integers(-128, 128, size=(260, 420)),
+                         dtype=torch.int8, device="cuda")
+    big_b = torch.tensor(rng.integers(-128, 128, size=(420, 333)),
+                         dtype=torch.int8, device="cuda")
+    ta = big_a[3:203, 5:405]         # base off 16 bytes: A copied
+    tb = big_b[7:407, 11:311]        # B read with its own row stride
+    assert ta.stride(0) == 420 and tb.stride(0) == 333
+    aligned = K.COPIES["aligned"]
+    _int8_exact(ta, tb, (64, 128, 128))
+    assert K.COPIES["aligned"] == aligned + 2
+
+
+def test_int8_extremes_at_k_8960_are_exact():
+    """Every operand -128 at Qwen2-1.5B's largest K: each sum is
+    8960 x 16384 = 146,800,640, inside int32."""
+    ta = torch.full((130, 8960), -128, dtype=torch.int8, device="cuda")
+    tb = torch.full((8960, 200), -128, dtype=torch.int8, device="cuda")
+    for tile in ((64, 128, 128), (128, 128, 128)):
+        _int8_exact(ta, tb, tile)
+    got = K.gemm_k_inner(ta, tb, tile=TileConfig(128, 128, 128))
+    assert int(got.min()) == int(got.max()) == 8960 * 128 * 128
+
+
+@pytest.mark.parametrize("k,n", [(27, 12544), (1, 1000), (4608, 49),
+                                 (390, 520), (1536, 2048)])
+def test_int8_transposed_copy_matches_its_plain_version(k, n):
+    rng = np.random.default_rng(k + n)
+    b = torch.tensor(rng.integers(-128, 128, size=(k, n)), dtype=torch.int8,
+                     device="cuda")
+    got = K.transposed_copy(b)
+    want = K.transposed_copy_plain(b)
+    torch.cuda.synchronize()
+    kp = -(-k // 16) * 16
+    assert got.shape == (n, k) and got.stride() == (kp, 1)
+    assert torch.equal(got, b.t()) and torch.equal(got, want)
+    padded = torch.as_strided(got, (n, kp), (kp, 1))
+    assert not bool(padded[:, k:].any())     # the pad is zero
+
+
+def test_int8_routes_to_wgmma_and_raises_on_an_unbuilt_tile():
+    assert K.route(torch.int8) == "wgmma"
+    ta, tb = _operands(64, 64, 64, "int8", 0)
+    with pytest.raises(ValueError, match="power-of-two"):
+        K.gemm_k_inner(ta, tb, tile=TileConfig(100, 128, 128))
 
 
 # ---------------------------------------------------------------------------

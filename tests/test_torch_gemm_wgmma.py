@@ -193,7 +193,7 @@ def test_a_single_row_needs_no_copy_whatever_its_stride():
 
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
                                          (torch.float32, "cuda_cores"),
-                                         (torch.int8, "cuda_cores")])
+                                         (torch.int8, "wgmma")])
 def test_cpu_tensors_count_no_launch_on_either_route(dtype, route):
     assert K.route(dtype) == route
     K.reset_launch_counts()
@@ -205,7 +205,7 @@ def test_cpu_tensors_count_no_launch_on_either_route(dtype, route):
                    tile=TileConfig(32, 128, 128, GridOrder.K_OUTER))
     assert K.LAUNCHES == {"gemm_k_inner": 0, "gemm_k_outer": 0}
     assert K.ROUTES == {"wgmma": 0, "cuda_cores": 0}
-    assert K.COPIES == {"aligned": 0}
+    assert K.COPIES == {"aligned": 0, "transposed": 0}
 
 
 @pytest.mark.parametrize("m,k,bm,want", [
