@@ -24,18 +24,25 @@ the attention and norm entry points on that model's activations (phase
              warpgroups, keys per step, stages and shared memory per
              head-dim width, the int8 GEMM (wgmma s8) instantiations'
              registers and spills and its configuration at every planner
-             tile, and the card's name and power limit.  Where the
-             toolkit has ``cuobjdump``, fail unless the gemm_bf16
-             library's SASS holds HGMMA instructions, the gemm_int8
-             library's IGMMA and UTMALDG, and the grouped_gemm_bf16 and
-             flash_attention_bf16 libraries' HGMMA and UTMALDG.
+             tile, the f32 (CUDA-core, ``tile_gemm.cuh``) instantiations'
+             registers and spills and their block (threads, register tile,
+             sub-slab depth, stages, shared memory, blocks per SM) at every
+             planner tile and 64x128x128 and for the f32 grouped tiles, and
+             the card's name and power limit.  Where the toolkit has
+             ``cuobjdump``, fail unless the gemm_bf16 library's SASS holds
+             HGMMA instructions, the gemm_int8 library's IGMMA and UTMALDG,
+             the grouped_gemm_bf16 and flash_attention_bf16 libraries'
+             HGMMA and UTMALDG, and the gemm_f32 and grouped_gemm_f32
+             libraries' FFMA and no HMMA or HGMMA (no TF32).
 2. kernels — both loop orders against their plain PyTorch versions on the
              card: every tile the planner picks for the slice's shapes (the
              Qwen2-1.5B GEMMs, Table-2 in all three dtypes, granite's
              logits GEMM at M = 4, 8, 32, 128), in bf16, f32 and int8, on a
              divisible shape and one whose last k-outer pass is ragged;
              the Table-2 shapes whose rows TMA cannot read in place (K = 27,
-             1; N = 49, 196) in bf16 and int8 (int8 exact); every bf16 and
+             1; N = 49, 196) in bf16, int8 (exact) and f32 (B at a
+             weight's init scale); f32 on strided views whose base and row
+             stride fall off 16 bytes at every planner tile; every bf16 and
              int8 launch on the wgmma route and every f32 one on the CUDA
              cores (int8 after one transposed copy of B a call); plus the
              bf16
@@ -44,8 +51,10 @@ the attention and norm entry points on that model's activations (phase
              exactly one device kernel and allocate only its output.
 3. main    — the Qwen2-1.5B GEMMs at tokens=4096, planned on ``cuda`` for
              ``h100`` and executed (k-inner, then pinned to k-outer with the
-             same tile), each checked against its plain version, in bf16
-             and in int8 (exact; the int8 planner's tile).
+             same tile), each checked against its plain version, in bf16,
+             in int8 (exact; the int8 planner's tile) and in f32 (the f32
+             planner's 32x64x128, on the CUDA cores; B at a weight's init
+             scale).
 4. loop    — ``measure.run_campaign`` (Table-2 and the Qwen2-1.5B shapes, in
              int8 and bf16) -> ``fit_from_store`` -> ``validate_spec``, plus
              k-outer Qwen samples held out of the fit.
@@ -64,10 +73,12 @@ the attention and norm entry points on that model's activations (phase
              the planner's tiles, with the wrapper's host µs a call); two
              stages against as many as fit; the transposed copy of B
              alone.  With ``--parent``, the int8 GEMMs, the Table-2 cells
-             and the f32 route in both trees, each in a fresh process:
-             parent, change, change, parent.  Then the f32 route (the CUDA
-             cores, ``tile_gemm.cuh``) beside ``torch.matmul`` (TF32 off)
-             and its bound (67 TFLOP/s).  Phases 3, 4, 5 and 7 fail unless
+             and the f32 route (at 64x128x128 and at the f32 planner's
+             32x64x128) in both trees, each in a fresh process: parent,
+             change, change, parent.  Then the f32 route (the CUDA cores,
+             ``tile_gemm.cuh``) at both tiles beside ``torch.matmul`` (TF32
+             off) and its bound (67 TFLOP/s).  Phases 3, 4, 5 and 7 fail
+             unless
              every bf16 and int8 GEMM launch went through the wgmma route,
              phase 5 unless every f32 launch went through the CUDA
              cores.
@@ -81,12 +92,12 @@ the attention and norm entry points on that model's activations (phase
              the CUDA cores; the f32 errors of both against a float64
              product are printed.  Then the ring's stage cap (3, 2, 4 and
              as many as fit three blocks to an SM) is timed in turns at the
-             served shapes, and the kernel is timed beside its plain
-             version, ``torch.bmm`` and its bound: device time by
-             CUDA-graph replay (20 calls a graph; a CUDA-event loop at these
-             sizes reads the host's enqueue rate) beside the event time;
-             with ``--parent`` also that tree's, in the order parent,
-             change, change, parent.
+             served shapes, and the kernel is timed in bf16 and in f32
+             beside its plain version, ``torch.bmm`` and its bound: device
+             time by CUDA-graph replay (20 calls a graph; a CUDA-event loop
+             at these sizes reads the host's enqueue rate) beside the event
+             time; with ``--parent`` also that tree's, both dtypes, in the
+             order parent, change, change, parent.
 7. serve   — ``serve_demo`` serves 8 requests (prompts of 3-11 tokens, 12
              new tokens, max_batch 4, max_len 256, bf16) with
              granite-moe-3b-a800m at full width (32 layers, d_model 1536,
@@ -152,14 +163,16 @@ and print a request's logits against another request's as the error a
 slot mix-up would give.
 
 Launch counters are zeroed just before each path and read just after it:
-phases 3-4 must launch both GEMM kernels in bf16 and in int8 (the int8
-launches are counted apart, by the counters' growth over the int8 runs),
+phases 3-4 must launch both GEMM kernels in bf16, in int8 and in f32 (the
+int8 and f32 launches are counted apart, by the counters' growth over
+their runs),
 phase 7 the grouped kernel and
 at least one GEMM kernel, phases 9 and 10 (each) the flash attention and
 RMSNorm kernels.  The line before the last is the
-``{"kernels": [...]}`` record (the GEMM kernels twice: bf16 from
-``wgmma_gemm.cuh`` and int8, ``*_int8``, from ``wgmma_s8.cuh``, the
-latter timed on the int8 planner's tile); the last line is
+``{"kernels": [...]}`` record (the GEMM kernels three times: bf16 from
+``wgmma_gemm.cuh``, int8, ``*_int8``, from ``wgmma_s8.cuh``, timed on the
+int8 planner's tile, and f32, ``*_f32``, from ``tile_gemm.cuh``, timed on
+the f32 planner's 32x64x128); the last line is
 ``{"ok": true, "device": {...}}``.  Samples, the fitted manifest and the
 per-shape timings and the serving profile are written under ``--out``
 (default ``build/chip_smoke``).  In the kernels line, ``ms``,
@@ -415,10 +428,12 @@ def planner_tiles(gemm, get_config, model_gemm_shapes, table2, GemmShape):
                                            machine="h100")})
 
 
-def sass_check(build, lib, name, need):
+def sass_check(build, lib, name, need, forbid=()):
     """Fails unless the library ``name``'s SASS holds each instruction in
     ``need`` (HGMMA: a bf16 wgmma; IGMMA: an int8 one; UTMALDG: a TMA
-    load); says so where the toolkit has no cuobjdump."""
+    load; FFMA: an FP32 fused multiply-add) and none in ``forbid`` (HMMA,
+    HGMMA: tensor-core products, which an f32 library must not run, or
+    TF32 would slip in); says so where the toolkit has no cuobjdump."""
     import shutil
     cands = [os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
              shutil.which("cuobjdump") or ""]
@@ -429,12 +444,17 @@ def sass_check(build, lib, name, need):
         return
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, timeout=300).stdout
-    n = {op: sass.count(op) for op in ("HGMMA", "IGMMA", "UTMALDG")}
-    print(f"{name} SASS ({tool}): {n['HGMMA']} HGMMA and {n['IGMMA']} IGMMA "
-          f"instructions, {n['UTMALDG']} TMA loads (UTMALDG)")
+    n = {op: len(re.findall(rf"\b{op}\b", sass))
+         for op in ("HGMMA", "IGMMA", "HMMA", "UTMALDG", "FFMA")}
+    print(f"{name} SASS ({tool}): {n['HGMMA']} HGMMA, {n['IGMMA']} IGMMA, "
+          f"{n['HMMA']} HMMA and {n['FFMA']} FFMA instructions, "
+          f"{n['UTMALDG']} TMA loads (UTMALDG)")
     for op in need:
         check(n[op] > 0, f"the {name} library's SASS has no {op} "
                          f"instruction")
+    for op in forbid:
+        check(n[op] == 0, f"the {name} library's SASS has {n[op]} {op} "
+                          f"instructions")
 
 
 def one_norm_kernel(dev, R):
@@ -479,6 +499,14 @@ def all_on_wgmma(K, label, since=None):
     check(n > 0 and routes == {"wgmma": n, "cuda_cores": 0},
           f"{label}: {n} bf16 GEMM launches, by route {routes}: not every "
           f"one went through wgmma")
+
+
+def core_line(cfg):
+    """One line of a CUDA-core (f32) block's configuration."""
+    return (f"{cfg.threads} threads, {cfg.rm}x{cfg.rn} register tile, "
+            f"sub-slabs {cfg.ks} deep, {cfg.stages} stages, "
+            f"{cfg.smem_bytes} B dynamic shared memory, "
+            f"{cfg.blocks_per_sm} blocks per SM by shared memory and threads")
 
 
 def c_stream_ms(m, n, k, bk, tag="bf16"):
@@ -618,16 +646,18 @@ def table2_timings(K, cells, dev):
 
 
 def int8_turn(K, dev, shapes):
-    """One turn of the int8 comparison with ``--parent``: the Qwen2-1.5B
-    GEMMs at each tile of ``shapes["qwen"]`` (both orders) and the Table-2
-    cells of ``shapes["table2"]`` (k-inner), in this process's tree; and
-    the f32 route (the CUDA cores, unchanged) at ``shapes["f32"]``."""
+    """One turn of the int8 and f32 comparison with ``--parent``: the
+    Qwen2-1.5B GEMMs at each tile of ``shapes["qwen"]`` in int8 and of
+    ``shapes["f32"]`` in f32 (the CUDA cores; both orders) and the Table-2
+    int8 cells of ``shapes["table2"]`` (k-inner), in this process's
+    tree."""
     return {"qwen": {name: gemm_timings(K, rows, dev, plain=False,
                                         quiet=True, tag="int8")
                      for name, rows in shapes["qwen"].items()},
             "table2": table2_timings(K, shapes["table2"], dev),
-            "f32": gemm_timings(K, shapes["f32"], dev, plain=False,
-                                quiet=True, tag="f32")}
+            "f32": {name: gemm_timings(K, rows, dev, plain=False,
+                                       quiet=True, tag="f32")
+                    for name, rows in shapes["f32"].items()}}
 
 
 def transpose_timings(K, shapes, dev):
@@ -689,11 +719,24 @@ def compare_int8(turns):
     print(f"  Table-2 int8 sum over {len(cells[0])} cells: parent "
           f"{sums[0]:.4f} / {sums[3]:.4f}, change {sums[1]:.4f} / "
           f"{sums[2]:.4f}")
-    for kname in ("gemm_k_inner", "gemm_k_outer"):
-        sums = [sum(r["ms"] for r in t["f32"] if r["kernel"] == kname)
-                for t in turns]
-        print(f"  f32 {kname} sum (CUDA cores): parent {sums[0]:.4f} / "
-              f"{sums[3]:.4f}, change {sums[1]:.4f} / {sums[2]:.4f}")
+    for tile in turns[0]["f32"]:
+        for kname in ("gemm_k_inner", "gemm_k_outer"):
+            per = [[r for r in t["f32"][tile] if r["kernel"] == kname]
+                   for t in turns]
+            for r0, r1, r2, r3 in zip(*per):
+                print(f"  f32 {tile} {kname:<13}{r1['gemm']:<8}parent "
+                      f"{r0['ms']:.4f} / {r3['ms']:.4f}, change "
+                      f"{r1['ms']:.4f} / {r2['ms']:.4f}")
+            sums = [sum(r["ms"] for r in rs) for rs in per]
+            extra = (f", C-stream floor "
+                     f"{sum(r['c_stream_ms'] for r in per[1]):.4f}"
+                     if kname == "gemm_k_outer" else "")
+            print(f"  f32 {tile} {kname} sum (CUDA cores): parent "
+                  f"{sums[0]:.4f} / {sums[3]:.4f}, change {sums[1]:.4f} / "
+                  f"{sums[2]:.4f} "
+                  f"({min(sums[0], sums[3]) / min(sums[1], sums[2]):.2f}x); "
+                  f"torch.matmul {sum(r['library_ms'] for r in per[1]):.4f}"
+                  f", bound {sum(r['bound_ms'] for r in per[1]):.4f}{extra}")
 
 
 def tree_run(tree, what, out, shapes=None):
@@ -735,11 +778,12 @@ def time_tree(tree, what, shapes, path):
                          rows] for t, rows in shapes["qwen"].items()},
             "table2": [(m, n, k, tuple(t)) for m, n, k, t in
                        shapes["table2"]],
-            "f32": [(n, m, nn, k, tuple(t)) for n, m, nn, k, t in
-                    shapes["f32"]]})
+            "f32": {t: [(n, m, nn, k, tuple(tl)) for n, m, nn, k, tl in
+                        rows] for t, rows in shapes["f32"].items()}})
     elif what == "grouped":
         from repro_torch.kernels import grouped_gemm as G
-        res = grouped_timings(G, dev, plain=False)
+        res = {tag: grouped_timings(G, dev, plain=False, tag=tag)
+               for tag in ("bf16", "f32")}
     elif what == "norm":
         from repro_torch.kernels import rmsnorm as R
         res = norm_timings(R, dev)
@@ -871,31 +915,36 @@ def grouped_phase(args, dev, G):
     parent = []
     if args.parent:
         parent.append(tree_run(args.parent, "grouped", args.out))
-    rows = grouped_timings(G, dev)
+    mine = {tag: grouped_timings(G, dev, tag=tag) for tag in ("bf16", "f32")}
     if args.parent:
-        again = grouped_timings(G, dev, plain=False)
+        again = {tag: grouped_timings(G, dev, plain=False, tag=tag)
+                 for tag in ("bf16", "f32")}
         parent.append(tree_run(args.parent, "grouped", args.out))
-        print("grouped, parent vs this change on this card (order: parent, "
-              "change, change, parent; device ms by CUDA-graph replay, "
-              "event ms in brackets):")
-        sums = [[0.0, 0.0] for _ in range(4)]
-        for r0, r1, r2, r3 in zip(parent[0], rows, again, parent[1]):
-            print(f"  {r1['shape_name']:<19}parent {r0['ms']:.4f} / "
-                  f"{r3['ms']:.4f} ({r0['event_ms']:.4f} / "
-                  f"{r3['event_ms']:.4f}), change {r1['ms']:.4f} / "
-                  f"{r2['ms']:.4f} ({r1['event_ms']:.4f} / "
-                  f"{r2['event_ms']:.4f})")
-            if r1["served"]:
-                for j, r in enumerate((r0, r1, r2, r3)):
-                    sums[j][0] += r["ms"]
-                    sums[j][1] += r["event_ms"]
-        print(f"  served-shape sum: parent {sums[0][0]:.4f} / "
-              f"{sums[3][0]:.4f} ms, change {sums[1][0]:.4f} / "
-              f"{sums[2][0]:.4f} ms "
-              f"({min(sums[0][0], sums[3][0]) / min(sums[1][0], sums[2][0]):.1f}x"
-              f"); events: parent {sums[0][1]:.4f} / {sums[3][1]:.4f}, "
-              f"change {sums[1][1]:.4f} / {sums[2][1]:.4f}")
-    return rows, err["bf16"], parent, stage_rows
+        for tag in ("bf16", "f32"):
+            print(f"grouped {tag}, parent vs this change on this card "
+                  f"(order: parent, change, change, parent; device ms by "
+                  f"CUDA-graph replay, event ms in brackets):")
+            sums = [[0.0, 0.0] for _ in range(4)]
+            for r0, r1, r2, r3 in zip(parent[0][tag], mine[tag], again[tag],
+                                      parent[1][tag]):
+                print(f"  {r1['shape_name']:<19}parent {r0['ms']:.4f} / "
+                      f"{r3['ms']:.4f} ({r0['event_ms']:.4f} / "
+                      f"{r3['event_ms']:.4f}), change {r1['ms']:.4f} / "
+                      f"{r2['ms']:.4f} ({r1['event_ms']:.4f} / "
+                      f"{r2['event_ms']:.4f})")
+                if r1["served"]:
+                    for j, r in enumerate((r0, r1, r2, r3)):
+                        sums[j][0] += r["ms"]
+                        sums[j][1] += r["event_ms"]
+            best_p = min(sums[0][0], sums[3][0])
+            best_c = min(sums[1][0], sums[2][0])
+            print(f"  {tag} served-shape sum: parent {sums[0][0]:.4f} / "
+                  f"{sums[3][0]:.4f} ms, change {sums[1][0]:.4f} / "
+                  f"{sums[2][0]:.4f} ms ({best_p / best_c:.3f}x; change "
+                  f"{100 * (best_c / best_p - 1):+.1f}%); events: parent "
+                  f"{sums[0][1]:.4f} / {sums[3][1]:.4f}, change "
+                  f"{sums[1][1]:.4f} / {sums[2][1]:.4f}")
+    return mine, err["bf16"], parent, stage_rows
 
 
 #: phase 6: the grouped ring's stage caps timed in turns (8: as many
@@ -939,22 +988,22 @@ def grouped_stage_timings(G, dev):
     return rows
 
 
-def grouped_timings(G, dev, *, plain=True):
-    """The bf16 grouped kernel at every ``GROUPED_SHAPES`` entry: device ms
-    by CUDA-graph replay and ms by CUDA events, and (``plain``) the plain
-    version, ``torch.bmm`` and the bound beside them, printed.  Takes only
-    ``G.grouped_gemm`` / ``G.grouped_gemm_plain``, so it also times an
-    older tree's module (quietly: ``plain`` False)."""
+def grouped_timings(G, dev, *, plain=True, tag="bf16"):
+    """The grouped kernel in ``tag`` (bf16: wgmma; f32: the CUDA cores) at
+    every ``GROUPED_SHAPES`` entry: device ms by CUDA-graph replay and ms by
+    CUDA events, and (``plain``) the plain version, ``torch.bmm`` and the
+    bound beside them, printed.  Takes only ``G.grouped_gemm`` /
+    ``G.grouped_gemm_plain``, so it also times an older tree's module
+    (quietly: ``plain`` False)."""
     import torch
 
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}[tag]
     rows = []
     for i, (name, (e, c, d, f)) in enumerate(GROUPED_SHAPES.items()):
         g = torch.Generator(dev).manual_seed(400 + i)
-        x = torch.randn((e, c, d), generator=g, device=dev,
-                        dtype=torch.bfloat16)
-        w = torch.randn((e, d, f), generator=g, device=dev,
-                        dtype=torch.bfloat16)
-        row = {"kernel": "grouped_gemm", "shape_name": name,
+        x = torch.randn((e, c, d), generator=g, device=dev, dtype=dt)
+        w = torch.randn((e, d, f), generator=g, device=dev, dtype=dt)
+        row = {"kernel": "grouped_gemm", "dtype": tag, "shape_name": name,
                "shape": [e, c, d, f], "served": name in SERVED_SHAPES,
                "ms": graph_ms(lambda: G.grouped_gemm(x, w)),
                "event_ms": cuda_ms(lambda: G.grouped_gemm(x, w))}
@@ -962,9 +1011,9 @@ def grouped_timings(G, dev, *, plain=True):
         if not plain:
             continue
         ms = row["ms"]
-        bms, by = grouped_bound(e, c, d, f, "bf16")
+        bms, by = grouped_bound(e, c, d, f, tag)
         row.update({
-            "tile": str(G.grouped_tile(c, torch.bfloat16)),
+            "tile": str(G.grouped_tile(c, dt)),
             "plain_ms": graph_ms(lambda: G.grouped_gemm_plain(x, w),
                                  calls=4),
             "plain_event_ms": cuda_ms(lambda: G.grouped_gemm_plain(x, w),
@@ -973,9 +1022,10 @@ def grouped_timings(G, dev, *, plain=True):
             "library_event_ms": cuda_ms(lambda: torch.bmm(x, w)),
             "bound_ms": bms, "bound_by": by,
             "tflops": 2.0 * e * c * d * f / ms / 1e9,
-            "tb_per_s": (e * c * d + e * d * f + e * c * f) * 2 / ms / 1e9,
+            "tb_per_s": (e * c * d + e * d * f + e * c * f)
+            * ELEM_BYTES[tag] / ms / 1e9,
             "bound_share": bms / ms})
-        print(f"grouped {name:<19}bf16: device {ms:.4f} ms (events "
+        print(f"grouped {name:<19}{tag}: device {ms:.4f} ms (events "
               f"{row['event_ms']:.4f}; {row['tb_per_s']:.2f} TB/s, "
               f"{100 * bms / ms:.1f}% of the bound), plain "
               f"{row['plain_ms']:.4f} ms, torch.bmm {row['library_ms']:.4f} "
@@ -988,15 +1038,11 @@ def grouped_timings(G, dev, *, plain=True):
         tot = {k: sum(r[k] for r in served) for k in
                ("ms", "event_ms", "library_ms", "library_event_ms",
                 "bound_ms")}
-        print(f"grouped over the four served shapes: device {tot['ms']:.4f} "
-              f"ms (events {tot['event_ms']:.4f}), torch.bmm "
-              f"{tot['library_ms']:.4f} (events "
-              f"{tot['library_event_ms']:.4f}), bound {tot['bound_ms']:.4f}; "
-              f"minimum <= 0.32 ms {'met' if tot['ms'] <= 0.32 else 'NOT met'}"
-              f", target <= {tot['bound_ms'] * 2:.4f} ms (half the bound) "
-              f"{'met' if tot['ms'] <= 2 * tot['bound_ms'] else 'not met'}, "
-              f"no slower than torch.bmm "
-              f"{'met' if tot['ms'] <= tot['library_ms'] else 'not met'}")
+        print(f"grouped {tag} over the four served shapes: device "
+              f"{tot['ms']:.4f} ms (events {tot['event_ms']:.4f}), "
+              f"torch.bmm {tot['library_ms']:.4f} (events "
+              f"{tot['library_event_ms']:.4f}), bound {tot['bound_ms']:.4f} "
+              f"({100 * tot['bound_ms'] / tot['ms']:.1f}% of it)")
     return rows
 
 
@@ -1896,15 +1942,20 @@ def main(argv=None) -> int:
                                    for fn, r, smem, _ in entries))
         if v == "flash_attention_bf16":
             flash_entries = entries
-        if v in ("gemm_bf16", "gemm_int8", "grouped_gemm_bf16"):
+        if v in ("gemm_bf16", "gemm_int8", "grouped_gemm_bf16", "gemm_f32",
+                 "grouped_gemm_f32"):
             for fn, r, _, sp in entries:
                 print(f"  {fn}: {r} registers; {sp or 'no spill line'}")
+        if v == "gemm_f32":
+            f32_entries = entries
     sass_check(build, paths["gemm_bf16"], "gemm_bf16", ("HGMMA",))
     sass_check(build, paths["gemm_int8"], "gemm_int8", ("IGMMA", "UTMALDG"))
     sass_check(build, paths["grouped_gemm_bf16"], "grouped_gemm_bf16",
                ("HGMMA", "UTMALDG"))
     sass_check(build, paths["flash_attention_bf16"], "flash_attention_bf16",
                ("HGMMA", "UTMALDG"))
+    for v in ("gemm_f32", "grouped_gemm_f32"):
+        sass_check(build, paths[v], v, ("FFMA",), forbid=("HMMA", "HGMMA"))
     for w in FA.HEAD_DIMS:
         c = FA.wgmma_config(w)
         name = f"flash_wgmma<{w}, {c.block_k}, {c.consumers}>"
@@ -1929,10 +1980,10 @@ def main(argv=None) -> int:
               f"{cfg.threads} threads"
               + (f"; blocks per launch {blocks} on {G.SMS} SMs" if blocks
                  else ""))
-    tiles = {str(G.grouped_tile(c, torch.float32)): K.smem_bytes(
-        G.grouped_tile(c, torch.float32), "f32") for c in (8, 24, 32, 128)}
-    print(f"grouped f32 (CUDA cores): dynamic shared memory per tile {tiles} "
-          f"(a block may claim {K.MAX_SMEM_BYTES})")
+    for c in (8, 24, 32, 128):
+        t = G.grouped_tile(c, torch.float32)
+        print(f"grouped f32 (CUDA cores) C = {c}: tile {t}, "
+              f"{core_line(K.launch_config(t, 'f32'))}")
     print(f"flash attention f32 (CUDA cores): dynamic shared memory per "
           f"block by head dim { {d: FA.smem_bytes(d) for d in FA.HEAD_DIMS} }"
           f"; RMSNorm: none")
@@ -1948,6 +1999,18 @@ def main(argv=None) -> int:
                       f"{c.rounds} round(s), slab {c.ks} deep, {c.stages} "
                       f"stage(s) of {c.stage_bytes} B, {c.smem_bytes} B "
                       f"dynamic shared memory, {c.threads} threads")
+    for t in sorted(set(picks) | {(64, 128, 128)}):
+        for order in ("k_inner", "k_outer"):
+            cfg = K.launch_config(TileConfig(*t), "f32",
+                                  k_outer=order == "k_outer")
+            fixed = f"tile_gemm<{cfg.rm}, {cfg.rn}, {cfg.ks}, {t[0]}, {t[1]}>"
+            regs = [f"{r} registers; {sp or 'no spill line'}"
+                    for fn, r, _, sp in f32_entries if fn == fixed]
+            print(f"f32 (CUDA cores) {t[0]}x{t[1]}x{t[2]} {order}: "
+                  f"{core_line(cfg)}; "
+                  + (f"{fixed}: {regs[0]}" if regs else
+                     f"run-time extents, tile_gemm<{cfg.rm}, {cfg.rn}, 0, 0, "
+                     f"0>"))
     print(f"device: {card}, {torch.cuda.device_count()} visible, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     print(smi("name,power.limit"))
@@ -1984,12 +2047,17 @@ def main(argv=None) -> int:
           f"orders, the last k-outer pass of {shapes[1]} ragged)")
     unaligned = [(r.m, r.n, r.k) for r in TABLE2
                  if r.k % 8 or r.n % 8]
-    for tag in ("bf16", "int8"):
-        odt = torch.bfloat16 if tag == "bf16" else torch.int32
+    for tag in ("bf16", "int8", "f32"):
+        odt = {"bf16": torch.bfloat16, "int8": torch.int32,
+               "f32": torch.float32}[tag]
         for j, ((m, n, k), d) in enumerate(zip(unaligned, gemm.plan_many(
                 [GemmShape(m, n, k, dtype=tag) for m, n, k in unaligned],
                 backend="cuda", machine="h100"))):
             a, b = seeded(m, n, k, tag, 200 + j, dev)
+            if tag == "f32":
+                # at a weight's init scale, so C stays O(1) up to K = 9216
+                # (phase 3 says why)
+                b *= k ** -0.5
             c0 = torch.zeros((m, n), dtype=odt, device=dev)
             t = d.selection
             copies = dict(K.COPIES)
@@ -2003,11 +2071,12 @@ def main(argv=None) -> int:
                     passes=-(-k // t.bk),
                     peak=k_outer_peak(a, b, c0, t.bk) if tag == "bf16"
                     else None)
-            expect["wgmma"] += 1 + -(-k // t.bk)
+            expect[K.route(tag)] += 1 + -(-k // t.bk)
             made = {c: K.COPIES[c] - copies[c] for c in copies}
             print(f"Table-2 {m}x{n}x{k} ({tag}, tile {t.bm}x{t.bn}x{t.bk}): "
                   f"both orders match; copies {made} (to TMA-aligned rows; "
-                  f"int8: B transposed, once per call)")
+                  f"int8: B transposed, once per call; f32: none, rows "
+                  f"that are not 16-byte aligned are read 4 bytes a copy)")
             if tag == "bf16" and k <= t.bk:
                 # one k-outer pass: how far kernel and plain version each
                 # lie from the float64 product rounded to bf16
@@ -2020,6 +2089,21 @@ def main(argv=None) -> int:
                       f"{int((want != exact).sum())} plain-version elements "
                       f"of {m * n} differ from the float64 product rounded "
                       f"to bf16")
+    # f32 on views whose base and row stride are not 16-byte aligned
+    big_a, big_b = seeded(301, 530, 400, "f32", 250, dev)
+    a, b = big_a[1:, 3:393], big_b[5:395, 1:521]
+    c0 = torch.zeros((300, 520), device=dev)
+    for t in picks:
+        compare("gemm_k_inner", "f32",
+                K.gemm_k_inner(a, b, tile=TileConfig(*t)),
+                K.gemm_k_inner_plain(a, b))
+        compare("gemm_k_outer", "f32",
+                K.gemm_k_outer(a, b, c0, tile=TileConfig(*t,
+                                                         GridOrder.K_OUTER)),
+                K.gemm_k_outer_plain(a, b, c0, bk=t[2]))
+        expect["cuda_cores"] += 1 + -(-390 // t[2])
+    print("f32 300x520x390 on strided views (base and row stride off 16 "
+          "bytes): both orders match at every planner tile")
     torch.cuda.synchronize()
     routes = dict(K.ROUTES)
     print(f"phase 2 launches by route: {routes}, expected {expect} (every "
@@ -2100,6 +2184,46 @@ def main(argv=None) -> int:
     for kname in K.LAUNCHES:
         int8_launches[kname] += K.LAUNCHES[kname] - before[kname]
     all_on_wgmma(K, "phase 3")
+    # and in f32, on the f32 planner's tiles (tile_gemm.cuh, the CUDA
+    # cores): within rtol 1e-5 / atol 1e-4 of the plain versions; counted
+    # apart for the f32 entries of the kernels line
+    f32_err = {kname: 0.0 for kname in K.LAUNCHES}
+    f32_shapes = []
+    before = snapshot(K)
+    counts = dict(K.LAUNCHES)
+    for i, (name, plan) in enumerate(zip(names, plans)):
+        p = GemmProblem(plan.problem.m, plan.problem.n, plan.problem.k,
+                        dtype="f32")
+        planned = gemm.plan(p, backend="cuda", machine="h100")
+        t = planned.selection
+        a, b = seeded(p.m, p.n, p.k, "f32", 1200 + i, dev)
+        # B at a weight's init scale (std K^-1/2): C is O(1), as in the
+        # models (with N(0, 1) operands at K = 1536 |C| reaches ~40, and
+        # any two f32 sum orders differ past atol 1e-4)
+        b *= p.k ** -0.5
+        c0 = torch.zeros((p.m, p.n), device=dev)
+        f32_err["gemm_k_inner"] = max(f32_err["gemm_k_inner"], compare(
+            "gemm_k_inner", "f32", planned.execute(a, b),
+            K.gemm_k_inner_plain(a, b)))
+        pinned = gemm.plan(p, backend="cuda", machine="h100",
+                           tile=TileConfig(t.bm, t.bn, t.bk,
+                                           GridOrder.K_OUTER))
+        f32_err["gemm_k_outer"] = max(f32_err["gemm_k_outer"], compare(
+            "gemm_k_outer", "f32", pinned.execute(a, b),
+            K.gemm_k_outer_plain(a, b, c0, bk=t.bk)))
+        f32_shapes.append((name, p.m, p.n, p.k, (t.bm, t.bn, t.bk)))
+        print(f"{name:<8} {p.m}x{p.n}x{p.k} f32 tile {t}: k_inner and "
+              f"k_outer match their plain versions")
+        del a, b, c0
+        torch.cuda.empty_cache()
+    f32_launches = {kname: K.LAUNCHES[kname] - counts[kname]
+                    for kname in K.LAUNCHES}
+    n_f32 = sum(K.LAUNCHES.values()) - before[0]
+    print(f"phase 3 f32: {n_f32} GEMM launches, by route "
+          f"{ {r: K.ROUTES[r] - before[1][r] for r in K.ROUTES} }")
+    check(K.ROUTES["cuda_cores"] - before[1]["cuda_cores"] == n_f32 > 0
+          and K.ROUTES["wgmma"] == before[1]["wgmma"],
+          "an f32 GEMM launch of phase 3 left the CUDA-core route")
 
     # -- phase 4 ---------------------------------------------------------
     phase(4, "loop: run_campaign -> fit_from_store -> validate_spec")
@@ -2174,12 +2298,14 @@ def main(argv=None) -> int:
     print(f"MAPE: campaign {report.mape:.4g}% over {len(report.rows)} cells; "
           f"held-out k_outer {heldout.mape:.4g}% over {len(heldout.rows)}")
     launches = dict(K.LAUNCHES)
-    # phases 3-4 run bf16 and int8, every launch on wgmma
-    print(f"main-path launches: {launches} (int8: {int8_launches}), by "
-          f"route {dict(K.ROUTES)}")
+    # phases 3-4 run bf16 and int8, every launch on wgmma; phase 3 also f32,
+    # every launch on the CUDA cores
+    print(f"main-path launches: {launches} (int8: {int8_launches}, f32: "
+          f"{f32_launches}), by route {dict(K.ROUTES)}")
     for name_, n_ in launches.items():
-        check(n_ > int8_launches[name_] > 0,
-              f"{name_} was never launched in bf16 or in int8 on the main "
+        check(n_ - int8_launches[name_] - f32_launches[name_] > 0
+              and int8_launches[name_] > 0 and f32_launches[name_] > 0,
+              f"{name_} was never launched in bf16, int8 or f32 on the main "
               f"path")
 
     # -- phase 5 ---------------------------------------------------------
@@ -2207,8 +2333,11 @@ def main(argv=None) -> int:
                     for r, d in zip(TABLE2, gemm.plan_many(
                         [GemmShape(r.m, r.n, r.k, dtype="int8")
                          for r in TABLE2], backend="cuda", machine="h100"))]
+    # f32 at bf16's tile and at the f32 planner's (32x64x128)
+    f32_sets = {"x".join(map(str, sh[0][4])): sh
+                for sh in (gemm_shapes, f32_shapes)}
     turn_shapes = {"qwen": int8_sets, "table2": table2_cells,
-                   "f32": gemm_shapes}
+                   "f32": f32_sets}
     int8_rows = {t: gemm_timings(K, sh, dev, tag="int8")
                  for t, sh in int8_sets.items()}
     table2_rows = table2_timings(K, table2_cells, dev)
@@ -2222,10 +2351,11 @@ def main(argv=None) -> int:
                        for t, sh in int8_sets.items()}
     transpose_rows = transpose_timings(K, gemm_shapes, dev)
     all_on_wgmma(K, "phase 5", before)
-    # the f32 route (tile_gemm.cuh) at the same shapes and tiles, beside
-    # torch.matmul (TF32 off)
+    # the f32 route (tile_gemm.cuh) at the same shapes, on bf16's tile and
+    # the f32 planner's, beside torch.matmul (TF32 off)
     before = snapshot(K)
-    core_rows = gemm_timings(K, gemm_shapes, dev, tag="f32")
+    core_rows = {t: gemm_timings(K, sh, dev, tag="f32")
+                 for t, sh in f32_sets.items()}
     n_core = sum(K.LAUNCHES.values()) - before[0]
     check(K.ROUTES["cuda_cores"] - before[1]["cuda_cores"] == n_core > 0,
           "an f32 GEMM launch left the CUDA-core route")
@@ -2235,8 +2365,9 @@ def main(argv=None) -> int:
                       for t in (args.parent, HERE, HERE, args.parent)]
         compare_int8(int8_turns)
 
-    grouped_rows, grouped_err, grouped_parent, grouped_stage_rows = \
+    grouped_tags, grouped_err, grouped_parent, grouped_stage_rows = \
         grouped_phase(args, dev, G)
+    grouped_rows = grouped_tags["bf16"]
     serve_turns = []
     if args.parent:
         serve_turns += [tree_run(args.parent, "serve", args.out),
@@ -2262,7 +2393,8 @@ def main(argv=None) -> int:
     int8_tile = "x".join(map(str, int8_shapes[0][4]))
     kernels = [kernel_entry(kname, f"{csrc}/wgmma_gemm.cuh",
                             f"src/repro/kernels/gemm.py:{line}",
-                            launches[kname] - int8_launches[kname],
+                            launches[kname] - int8_launches[kname]
+                            - f32_launches[kname],
                             max_err[kname],
                             [r for r in rows if r["kernel"] == kname])
                for kname, line in (("gemm_k_inner", 56), ("gemm_k_outer", 89))]
@@ -2270,6 +2402,14 @@ def main(argv=None) -> int:
                              f"src/repro/kernels/gemm.py:{line}",
                              int8_launches[kname], int8_err[kname],
                              [r for r in int8_rows[int8_tile]
+                              if r["kernel"] == kname])
+                for kname, line in (("gemm_k_inner", 56),
+                                    ("gemm_k_outer", 89))]
+    f32_tile = "x".join(map(str, f32_shapes[0][4]))
+    kernels += [kernel_entry(f"{kname}_f32", f"{csrc}/tile_gemm.cuh",
+                             f"src/repro/kernels/gemm.py:{line}",
+                             f32_launches[kname], f32_err[kname],
+                             [r for r in core_rows[f32_tile]
                               if r["kernel"] == kname])
                 for kname, line in (("gemm_k_inner", 56),
                                     ("gemm_k_outer", 89))]
@@ -2287,6 +2427,7 @@ def main(argv=None) -> int:
         json.dump({"device": card, "power": smi("name,power.limit"),
                    "rows": rows, "stage_rows": stage_rows,
                    "parent_rows": parent, "grouped_rows": grouped_rows,
+                   "grouped_f32_rows": grouped_tags["f32"],
                    "parent_grouped_rows": grouped_parent,
                    "grouped_stage_rows": grouped_stage_rows,
                    "serve": served, "serve_turns": serve_turns,
@@ -2301,7 +2442,8 @@ def main(argv=None) -> int:
                    "transpose_rows": transpose_rows,
                    "int8_main_path_launches": int8_launches}, f, indent=1)
     print(f"\n(GEMM times are sums over the five Qwen2-1.5B GEMMs, bf16 "
-          f"at its planner tile, int8 at {int8_tile}; grouped "
+          f"at its planner tile, int8 at {int8_tile}, f32 at {f32_tile}; "
+          f"grouped "
           f"times over the four bf16 shapes of the served run, flash "
           f"attention and RMSNorm times over the bf16 shapes phase 9 "
           f"recorded from the model; grouped and RMSNorm times are device "

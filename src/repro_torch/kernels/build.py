@@ -37,8 +37,10 @@ _VP, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 
 #: each launcher's ctypes argument types.  Every pointer and the stream is a
 #: c_void_p: a bare Python int would go through as a 32-bit int and cut it.
-_GEMM_ARGS = (_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I64, _I64, _I64, _I32,
-              _I32, _I32, _VP)
+#: A, B, Cin, Cout; M, N, k0, k1; lda, ldb, ldc; bm, bn, bk, group; stream
+#: (the f32 GEMM)
+_GEMM_ARGS = (_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I64, _I64, _I64,
+              _I32, _I32, _I32, _I32, _VP)
 #: maps; Cin, Cout; M, N, K; ldc; k0, k1; bm, bn, ks, stages, group; stream
 _WGMMA_ARGS = (_VP, _VP, _VP, _I32, _I32, _I32, _I64, _I32, _I32, _I32,
                _I32, _I32, _I32, _I32, _VP)

@@ -19,20 +19,16 @@
 //     rounding of ref.gemm_ref_streamed.
 //
 // What bounds the f32 build on an H100: at the planner's tiles the products
-// are far above the card's ridge point, so the bound is arithmetic.  It
-// multiplies on the CUDA cores (FP32 FMA; no TF32, which would not compute
-// the f32 function), against the 67 TFLOP/s FP32 rate.  The design keeps
-// the CUDA cores fed: each thread owns an RM x RN register tile of C, so one
-// k step costs RM + RN shared-memory reads for RM * RN multiply-adds; a warp
-// reads one A value (broadcast) and 32 consecutive B values (no bank
-// conflicts).
-//
-// Ragged edges are masked: loads outside A or B read zero (zero K padding is
-// exact) and stores outside C are skipped, so any (M, N, K) runs on the
-// plan's tile without padded copies.
-//
-// The CUDA-core tile kernel is tile_gemm.cuh's (shared with
-// grouped_gemm.cu); this file is its plain-GEMM entry point, one group.
+// are far above the card's ridge point, so the bound is arithmetic, the
+// 67 TFLOP/s FP32 rate of the CUDA cores (FFMA only; TF32 would not compute
+// the f32 function).  tile_gemm.cuh's note gives the design that keeps them
+// fed: register tiles read as LDS.128 fragments from A's and B's sub-slabs,
+// a cp.async ring of sub-slabs ks deep inside the plan's bk, and blocks
+// walked M fastest in raster groups.  Ragged edges
+// are masked inside the kernel (loads past M, N or k1 read zero, stores
+// past M or N are skipped), so any (M, N, K) runs on the plan's tile
+// without padded copies.  This file is its plain-GEMM entry point, one
+// group; k-outer passes [k0, k1) to each launch instead of offset operands.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -DREPRO_GEMM_<BF16|F32|INT8> gemm.cu
@@ -124,15 +120,19 @@ int repro_transpose_s8(const void* B, void* Bt, int K, int N, int64_t ldb,
 
 #else
 
-// C = A.B (Cin null) or C = round(Cin + A.B) over an M x N x K problem with
-// row-major strides lda/ldb/ldc, on a bm x bn x bk thread-block tile.
+// Cout = (Cin +) A[:, k0:k1] . B[k0:k1, :] in f32 over an M x N product
+// (Cin null, or Cout), row-major strides lda/ldb/ldc, on a bm x bn x bk
+// tile; blocks walk M fastest within groups of `group` m tiles.  k-inner is
+// one call over [0, K); k-outer one call per k block with Cin = Cout.
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 int repro_gemm_tile(const void* A, const void* B, const void* Cin, void* Cout,
-                    int M, int N, int K, int64_t lda, int64_t ldb, int64_t ldc,
-                    int bm, int bn, int bk, void* stream) {
-  return repro::gemm_tile_groups<ReproElem>(A, B, Cin, Cout, M, N, K, lda,
-                                            ldb, ldc, 1, 0, 0, 0, bm, bn, bk,
-                                            stream);
+                    int M, int N, int k0, int k1, int64_t lda, int64_t ldb,
+                    int64_t ldc, int bm, int bn, int bk, int group,
+                    void* stream) {
+  return repro::gemm_tile_groups(
+      static_cast<const float*>(A), static_cast<const float*>(B),
+      static_cast<const float*>(Cin), static_cast<float*>(Cout), M, N, k0,
+      k1, lda, ldb, ldc, 1, 0, 0, 0, bm, bn, bk, group, stream);
 }
 
 #endif

@@ -53,9 +53,13 @@
 // The wrapper encodes each tensor map once per (base, dims, strides, box)
 // and keeps it (kernels/grouped_gemm.py: the expert weights are the same
 // 96 maps every forward), so a call costs one ctypes launch and no
-// cuTensorMapEncodeTiled call.  f32 stays on the CUDA cores (tile_gemm.cuh, FP32 FMA: TF32 would
-// not compute the f32 function): bc = the smallest power of two >=
-// min(C, 128), bf = 128, bk = 128, at most 131,072 B of shared memory.
+// cuTensorMapEncodeTiled call.
+//
+// f32 stays on the CUDA cores (FP32 FMA: TF32 would not compute the f32
+// function): the kernel of tile_gemm.cuh, one group per expert (blockIdx.z)
+// with the experts' strides, on a bc x bf x bk tile with bc = the smallest
+// power of two >= min(C, 128), bf = 128, bk = 128 (kernels/grouped_gemm.py);
+// its cp.async ring keeps each block's next weight sub-slab in flight.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -DREPRO_GEMM_<BF16|F32> grouped_gemm.cu
@@ -147,9 +151,12 @@ int repro_grouped_gemm(const void* x, const void* w, void* y, int E, int C,
   const int64_t sx = static_cast<int64_t>(C) * D;
   const int64_t sw = static_cast<int64_t>(D) * F;
   const int64_t sy = static_cast<int64_t>(C) * F;
-  return repro::gemm_tile_groups<ReproElem>(x, w, nullptr, y, C, F, D, D, F,
-                                            F, E, sx, sw, sy, bc, bf, bk,
-                                            stream);
+  // one raster group holds every C tile of an expert: blocks of the same F
+  // columns share that expert's weights
+  return repro::gemm_tile_groups(
+      static_cast<const float*>(x), static_cast<const float*>(w), nullptr,
+      static_cast<float*>(y), C, F, 0, D, D, F, F, E, sx, sw, sy, bc, bf, bk,
+      C, stream);
 }
 
 #endif

@@ -28,9 +28,12 @@ Two routes, by operand dtype (:func:`route`):
   k0.  TMA needs 16-byte aligned bases and row strides: an operand without
   them is first copied once into an aligned buffer (:func:`aligned_copy`,
   counted in ``COPIES["aligned"]``).
-* ``"cuda_cores"``: f32 runs the register-tiled kernel of
-  ``csrc/tile_gemm.cuh`` (FP32 FMA; no TF32, which would not compute the
-  f32 function), configured by :func:`launch_config`.
+* ``"cuda_cores"``: f32 runs ``csrc/tile_gemm.cuh`` on the CUDA cores
+  (FP32 FMA; no TF32, which would not compute the f32 function): register
+  tiles read as 16-byte fragments from a cp.async ring of sub-slabs,
+  configured by :func:`launch_config`.  A call resolves the library once
+  and passes each launch its k range, so a k-outer pass is one ctypes
+  call.
 
 Bound on an H100: at the planner's tiles and Qwen2-1.5B's shapes k-inner is
 bound by operations; at decode (M of a few rows) by the bytes of B; k-outer
@@ -59,8 +62,13 @@ from repro_torch.kernels import ref
 #: shared memory one Hopper thread block may claim (bytes)
 MAX_SMEM_BYTES = 232448
 MAX_THREADS = 256
-#: largest per-thread register tile (RM x RN accumulators) compiled
+#: accumulators one thread of the CUDA-core kernel keeps, at most
 MAX_REGISTER_TILE = 64
+#: floats after each row of A's sub-slab in a CUDA-core stage (sub-slabs
+#: of 4 k or more; shallower rows are packed)
+A_ROW_PAD = 4
+#: sub-slabs the CUDA-core kernel's cp.async ring holds, at most
+CORE_STAGES = 3
 
 #: kernel launches since the last reset, by kernel name
 LAUNCHES = {"gemm_k_inner": 0, "gemm_k_outer": 0}
@@ -101,41 +109,98 @@ def out_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.int32 if dtype == torch.int8 else dtype
 
 
-def smem_bytes(tile: TileConfig, dtype) -> int:
-    """Dynamic shared memory one block of the CUDA-core kernel
-    (``tile_gemm.cuh``: f32 and the f32 grouped GEMM) claims: the A and B
-    slabs (bm x bk and bk x bn) in the operand dtype; the accumulator lives
-    in registers.  The wgmma route's is :func:`wgmma_config`'s (bf16) or
-    :func:`int8_config`'s."""
-    s = DTYPE_BYTES[_tag(dtype)]
-    return (tile.bm * tile.bk + tile.bk * tile.bn) * s
-
-
 def _pow2(x: int) -> bool:
     return x > 0 and x & (x - 1) == 0
 
 
-def launch_config(tile: TileConfig, dtype) -> tuple[int, int, int]:
-    """``(threads, RM, RN)`` of the block that runs ``tile``: threads form a
-    TY x TX grid with TX = min(bn, 32), and each owns an RM x RN register
-    tile of C.  Raises ValueError for a tile the kernels do not take (the
-    same rule ``csrc/gemm.cu`` applies)."""
+class CoreConfig(NamedTuple):
+    """How ``csrc/tile_gemm.cuh`` runs one tile on the CUDA cores (the f32
+    GEMM and the f32 grouped GEMM)."""
+    threads: int        #: (bm / rm) x (bn / rn), at most 256
+    rm: int             #: rows of C one thread owns (its register tile)
+    rn: int             #: columns of C one thread owns
+    ks: int             #: sub-slab depth staged at a time; divides bk
+    stages: int         #: sub-slabs the cp.async ring holds
+    smem_bytes: int     #: dynamic shared memory one block claims
+    blocks_per_sm: int  #: resident blocks by shared memory and threads
+
+
+def register_tile(bm: int, bn: int) -> tuple[int, int]:
+    """(rm, rn): the rows and columns of C one thread of a bm x bn block
+    owns (``reg_tile`` in csrc/tile_gemm.cuh): 64 accumulators from 8,192
+    elements of C, 32 from 2,048, else as many as leave 128 threads (a
+    narrow tile has few blocks, and its threads must fill the SM); split as
+    square as powers of two allow, rn >= rm, at most 8 a side unless the
+    other side is too short, and never more than :data:`MAX_THREADS`
+    threads."""
+    e = bm * bn
+    acc = 64 if e >= 8192 else 32 if e >= 2048 else max(1, e // 128)
+    acc = min(acc, min(8, bm) * min(8, bn))
+    if e // acc > MAX_THREADS:
+        acc = e // MAX_THREADS
+    rn = min(8, bn, 1 << (acc.bit_length() // 2))
+    rm = acc // rn
+    if rm > bm:
+        rm, rn = bm, acc // bm
+    return rm, rn
+
+
+def launch_config(tile: TileConfig, dtype="f32", *,
+                  k_outer: bool = False) -> CoreConfig:
+    """The block that runs ``tile`` on the CUDA-core kernel
+    (``csrc/tile_gemm.cuh``, built for f32; shared memory scales with
+    ``dtype``'s element size), mirroring its ``tile_config``: the register
+    tile of :func:`register_tile`; sub-slabs ``ks`` = min(bk, 32) deep; a
+    ring of :data:`CORE_STAGES` stages (a k-outer pass at most as many as
+    its sub-slabs, at least two), each bm rows of A (ks + 4 floats; ks
+    below 4) and ks rows of B, and for k-outer the bm x bn C tile after
+    them.  Where that exceeds a block's shared memory the ring drops to
+    two stages, then ks halves.  Raises ValueError for a tile the kernel
+    does not take (the same rule ``csrc/gemm.cu`` applies)."""
     bm, bn, bk = tile.bm, tile.bn, tile.bk
     if not (_pow2(bm) and _pow2(bn) and _pow2(bk)):
         raise ValueError(f"tile {tile}: the kernels take power-of-two "
                          f"bm, bn, bk")
-    threads = min(MAX_THREADS, bm * bn)
-    tx = min(bn, 32)
-    rm, rn = bm // (threads // tx), bn // tx
-    if rm * rn > MAX_REGISTER_TILE or rn > 32:
+    e = bm * bn
+    if e > MAX_REGISTER_TILE * MAX_THREADS:
         raise ValueError(
-            f"tile {tile}: {rm}x{rn} accumulators per thread exceed the "
-            f"compiled register tiles (at most {MAX_REGISTER_TILE}, RN <= 32)")
-    need = smem_bytes(tile, dtype)
-    if need > MAX_SMEM_BYTES:
-        raise ValueError(f"tile {tile}: {need} bytes of shared memory exceed "
-                         f"the {MAX_SMEM_BYTES} a Hopper block may claim")
-    return threads, rm, rn
+            f"tile {tile}: {e} elements of C need more than "
+            f"{MAX_REGISTER_TILE} accumulators on each of {MAX_THREADS} "
+            f"threads, past the compiled register tiles")
+    s = DTYPE_BYTES[_tag(dtype)]
+    rm, rn = register_tile(bm, bn)
+    threads = (bm // rm) * (bn // rn)
+    ks = min(32, bk)
+    stages = min(CORE_STAGES, max(2, bk // ks)) if k_outer else CORE_STAGES
+    c_tile = -(-e // 4) * 4 if k_outer else 0
+
+    def need(ks, stages):
+        a_row = ks + A_ROW_PAD if ks >= 4 else ks
+        stage = -(-bm * a_row // 4) * 4 + ks * -(-bn // 4) * 4
+        return (stages * stage + c_tile) * s
+
+    while need(ks, stages) > MAX_SMEM_BYTES:
+        if stages > 2:
+            stages -= 1
+        elif ks > 1:
+            ks //= 2
+        else:
+            raise ValueError(
+                f"tile {tile}: {need(ks, stages)} bytes of shared memory "
+                f"exceed the {MAX_SMEM_BYTES} a Hopper block may claim")
+    smem = need(ks, stages)
+    resident = min(SM_SMEM_BYTES // (smem + BLOCK_RESERVED_SMEM),
+                   SM_THREADS // threads, SM_BLOCKS)
+    return CoreConfig(threads, rm, rn, ks, stages, smem, resident)
+
+
+def smem_bytes(tile: TileConfig, dtype="f32", *, k_outer: bool = False) -> int:
+    """Dynamic shared memory one block of the CUDA-core kernel
+    (``tile_gemm.cuh``: f32 and the f32 grouped GEMM) claims: the cp.async
+    ring of :func:`launch_config` and, for k-outer, the C tile; the
+    accumulators live in registers.  The wgmma route's is
+    :func:`wgmma_config`'s (bf16) or :func:`int8_config`'s."""
+    return launch_config(tile, dtype, k_outer=k_outer).smem_bytes
 
 
 #: bf16 columns of one 128-byte-swizzled TMA box (csrc/wgmma_gemm.cuh)
@@ -225,6 +290,9 @@ S8_STAGES = 8
 #: an H100 SM's shared memory, and what the system keeps of it per block
 SM_SMEM_BYTES = 233472
 BLOCK_RESERVED_SMEM = 1024
+#: threads and blocks an H100 SM holds at once
+SM_THREADS = 2048
+SM_BLOCKS = 32
 
 
 def _s8_stage(bm: int, bn: int, ks: int, c_tile: bool) -> tuple[int, int]:
@@ -424,21 +492,34 @@ def _check_cuda(*ts) -> None:
         raise ValueError("operands on different CUDA devices")
 
 
-def _launch(a, b, c_in, c_out, m: int, n: int, k: int, tile) -> None:
+def _core_launches(kname: str, a, b, c_in, c_out, m: int, n: int, k: int,
+                   tile, step: int) -> None:
+    """The CUDA-core kernel over k in passes of ``step`` (k-inner: one
+    pass over [0, k), even when k is 0; k-outer: bk), each one launch that
+    adds one to ``LAUNCHES[kname]``; the library, pointers and stream are
+    resolved once."""
     from repro_torch.kernels import build
 
-    lib = build.load(f"gemm_{_tag(a.dtype)}")
-    with on_device(a):
-        stream = raw_stream(a)
-        err = lib.repro_gemm_tile(
-            a.data_ptr(), b.data_ptr(),
-            None if c_in is None else c_in.data_ptr(), c_out.data_ptr(),
-            m, n, k, a.stride(0), b.stride(0), c_out.stride(0),
-            tile.bm, tile.bn, tile.bk, stream)
-    if err != 0:
-        msg = lib.repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"gemm kernel launch failed for {m}x{n}x{k} on "
-                           f"tile {tile}: {msg} (cuda error {err})")
+    lib = build.load("gemm_f32")
+    launch = lib.repro_gemm_tile
+    group = raster_group(m, max(1, min(step, k)), tile.bm, 4)
+    pa, pb, pc = (a.data_ptr(), b.data_ptr(),
+                  None if c_in is None else c_in.data_ptr())
+    po, lda, ldb, ldc = c_out.data_ptr(), a.stride(0), b.stride(0), \
+        c_out.stride(0)
+    with on_device(c_out):
+        stream = raw_stream(c_out)
+        for k0 in range(0, max(k, 1), step):
+            k1 = min(k0 + step, k)
+            err = launch(pa, pb, pc, po, m, n, k0, k1, lda, ldb, ldc,
+                         tile.bm, tile.bn, tile.bk, group, stream)
+            if err != 0:
+                msg = lib.repro_cuda_error_string(err).decode()
+                raise RuntimeError(
+                    f"gemm kernel launch failed for {m}x{n}x{k} (k "
+                    f"{k0}..{k1}) on tile {tile}: {msg} (cuda error {err})")
+            LAUNCHES[kname] += 1
+            ROUTES["cuda_cores"] += 1
 
 
 #: per tensor-core dtype: its library, map encoder and launcher
@@ -523,9 +604,11 @@ def gemm_k_inner(a, b, *, tile: TileConfig):
     _check_cuda(a, b)
     out = torch.empty((m, n), dtype=out_dtype(a.dtype), device=a.device)
     if route(a.dtype) == "cuda_cores":
-        _launch(a, b, None, out, m, n, k, tile)
-        ROUTES["cuda_cores"] += 1
-    elif out.numel() and k == 0:
+        if out.numel():
+            _core_launches("gemm_k_inner", a, b, None, out, m, n, k, tile,
+                           max(k, 1))
+        return out
+    if out.numel() and k == 0:
         out.zero_()
         return out
     elif out.numel():
@@ -557,12 +640,8 @@ def gemm_k_outer(a, b, c, *, tile: TileConfig):
     out = c.clone(memory_format=torch.contiguous_format)
     bk = tile.bk
     if route(a.dtype) == "cuda_cores":
-        for k0 in range(0, k, bk):
-            span = min(bk, k - k0)
-            _launch(a[:, k0:k0 + span], b[k0:k0 + span], out, out, m, n,
-                    span, tile)
-            LAUNCHES["gemm_k_outer"] += 1
-            ROUTES["cuda_cores"] += 1
+        if out.numel() and k:
+            _core_launches("gemm_k_outer", a, b, out, out, m, n, k, tile, bk)
         return out
     if not (out.numel() and k):
         return out

@@ -26,9 +26,11 @@ Two routes, by dtype (:func:`route`), as for the GEMM (``kernels/gemm.py``):
   cannot read (D or F not a multiple of 8, a misaligned base) are first
   copied once to aligned rows (``kernels.gemm.aligned_copy``, counted in
   ``COPIES``).
-* ``"cuda_cores"``: f32 runs the register-tiled kernel of
+* ``"cuda_cores"``: f32 runs the GEMM's CUDA-core kernel,
   ``csrc/tile_gemm.cuh`` (FP32 FMA: TF32 would not compute the f32
-  function), tile bc x 128 x 128, at most 131,072 B of shared memory.
+  function), with the expert as ``blockIdx.z``, on a bc x 128 x 128 tile:
+  register tiles of 4-wide fragments fed by a cp.async ring of weight
+  sub-slabs (``kernels.gemm.launch_config``).
 
 A tile the route does not take raises ValueError, on any device.  Ragged
 edges are handled in the kernels, so C, D and F need not divide the tile.
@@ -59,7 +61,7 @@ ROUTES = {"wgmma": 0, "cuda_cores": 0}
 COPIES = {"aligned": 0}
 _TAGS = {torch.bfloat16: "bf16", torch.float32: "f32"}
 MAX_BLOCK_C = 128
-#: the CUDA-core route's tile: bf x bk (128 * (bc + 128) * 4 B <= 131,072 B)
+#: the CUDA-core route's tile: bf x bk
 BLOCK_F = 128
 BLOCK_K = 128
 #: the wgmma route's tile: F columns per block (gate/up at F = 512 then has

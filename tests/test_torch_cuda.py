@@ -134,6 +134,142 @@ def test_wrapper_rejects_c_in_another_dtype_on_the_card():
 
 
 # ---------------------------------------------------------------------------
+# f32 GEMM on the CUDA cores (csrc/tile_gemm.cuh): rtol 1e-5 / atol 1e-4
+# ---------------------------------------------------------------------------
+
+#: the f32 tiles the planner picks (tests/test_torch_gemm_f32.py holds the
+#: planner to this list) and phase 5's 64x128x128
+F32_TILES = [(8, 128, 128), (32, 64, 128), (64, 32, 128), (64, 128, 128)]
+
+
+def _f32_both_orders(ta, tb, c, tile):
+    """Both loop orders on the card against their plain versions; every
+    launch on the CUDA cores, one a k-outer pass."""
+    m, k = ta.shape
+    before, routes = dict(K.LAUNCHES), dict(K.ROUTES)
+    got_i = K.gemm_k_inner(ta, tb, tile=TileConfig(*tile))
+    got_o = K.gemm_k_outer(ta, tb, c,
+                           tile=TileConfig(*tile, GridOrder.K_OUTER))
+    torch.cuda.synchronize()
+    passes = -(-k // tile[2])
+    assert K.LAUNCHES["gemm_k_inner"] == before["gemm_k_inner"] + 1
+    assert K.LAUNCHES["gemm_k_outer"] == before["gemm_k_outer"] + passes
+    assert K.ROUTES == {"wgmma": routes["wgmma"],
+                        "cuda_cores": routes["cuda_cores"] + 1 + passes}
+    tol = dict(rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got_i, K.gemm_k_inner_plain(ta, tb), **tol)
+    torch.testing.assert_close(
+        got_o, K.gemm_k_outer_plain(ta, tb, c, bk=tile[2]), **tol)
+
+
+@pytest.mark.parametrize("tile", F32_TILES)
+@pytest.mark.parametrize("m,n,k", [
+    (300, 520, 390),     # ragged in every dimension and in the last pass
+    (33, 1000, 200),     # a few rows (decode-like), two passes
+    (4133, 300, 1536),   # more m tiles than one raster group, 12 passes
+])
+def test_f32_kernel_matches_plain_version_at_the_planners_tiles(tile, m, n,
+                                                                 k):
+    """B at a weight's init scale (std K^-1/2), so C is O(1) as in the
+    models: with N(0, 1) operands at K = 1536 |C| reaches ~40, and the
+    kernel's and cuBLAS's sum orders then differ past atol 1e-4 (the two
+    land on either side of the float64 product)."""
+    ta, tb = _operands(m, n, k, "f32", sum(tile) + m)
+    tb = tb * k ** -0.5
+    c = torch.randn(m, n, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(m))
+    _f32_both_orders(ta, tb, c, tile)
+
+
+@pytest.mark.parametrize("tile", [(32, 64, 128), (64, 128, 128)])
+def test_f32_kernel_is_as_close_to_float64_as_a_sequential_f32_sum(tile):
+    """N(0, 1) operands at K = 4608 (|C| ~ 68), where any two f32 sum
+    orders differ past atol 1e-4: each thread sums an element's products
+    in k order in one f32 register, so k-inner lies no further from the
+    float64 product than twice a sequential f32 sum does, and k-outer no
+    further than twice the same sum restarted each pass and added to C
+    (cuBLAS, which splits K its own way, lands closer than both)."""
+    m, n, k = 128, 256, 4608
+    ta, tb = _operands(m, n, k, "f32", k)
+    exact = ta.double() @ tb.double()
+    whole = torch.zeros(m, n, device="cuda")
+    passes = torch.zeros(m, n, device="cuda")
+    for k0 in range(0, k, tile[2]):
+        part = torch.zeros(m, n, device="cuda")
+        for kk in range(k0, min(k0 + tile[2], k)):
+            whole.addcmul_(ta[:, kk:kk + 1], tb[kk:kk + 1])
+            part.addcmul_(ta[:, kk:kk + 1], tb[kk:kk + 1])
+        passes += part
+    got = (K.gemm_k_inner(ta, tb, tile=TileConfig(*tile)),
+           K.gemm_k_outer(ta, tb, torch.zeros(m, n, device="cuda"),
+                          tile=TileConfig(*tile, GridOrder.K_OUTER)))
+    torch.cuda.synchronize()
+    for g, seq in zip(got, (whole, passes)):
+        assert (g - exact).abs().max().item() <= \
+            2 * (seq - exact).abs().max().item()
+
+
+@pytest.mark.parametrize("tile", [(64, 32, 2), (2048, 2, 16), (1, 1024, 128),
+                                  (16384, 1, 2), (8, 8, 1)])
+def test_f32_kernel_takes_degenerate_tiles(tile):
+    """Tiles no planner picks but the kernel takes: sub-slabs of one or two
+    k (A's rows packed, read a float at a time), 1-row and 1-column
+    tiles on the instantiations with run-time extents."""
+    ta, tb = _operands(300, 70, 45, "f32", sum(tile))
+    c = torch.randn(300, 70, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(1))
+    _f32_both_orders(ta, tb, c, tile)
+
+
+@pytest.mark.parametrize("case", ["k27", "n49", "strided"])
+def test_f32_kernel_reads_unaligned_rows_and_strided_views(case):
+    """Table-2's K = 27 (A's rows 108 bytes) and N = 49 (B's and C's rows
+    196 bytes: B in 4-byte copies, C stored per element), and views whose
+    base and row stride fall off 16 bytes."""
+    rng = np.random.default_rng(len(case))
+    if case == "k27":
+        ta, tb = _operands(3000, 32, 27, "f32", 5)
+        tile = (32, 64, 128)
+    elif case == "n49":
+        ta, tb = _operands(512, 49, 300, "f32", 6)
+        tile = (64, 32, 128)
+    else:
+        big_a, big_b = operands_from_numpy(
+            rng.normal(size=(301, 400)).astype(np.float32),
+            rng.normal(size=(400, 530)).astype(np.float32), device="cuda",
+            dtype="f32")
+        ta, tb = big_a[1:, 3:393], big_b[5:395, 1:521]
+        assert ta.data_ptr() % 16 and tb.data_ptr() % 16
+        tile = (32, 64, 128)
+    m, n = ta.shape[0], tb.shape[1]
+    c = operands_from_numpy(rng.normal(size=(m, n)).astype(np.float32),
+                            device="cuda", dtype="f32")
+    _f32_both_orders(ta, tb, c, tile)
+
+
+@pytest.mark.parametrize("e,c,d,f", [(40, 32, 1536, 512), (40, 32, 512, 1536),
+                                     (40, 8, 1536, 512), (40, 8, 512, 1536),
+                                     (40, 24, 1536, 512)])
+def test_f32_grouped_experts_equal_the_gemm_kernel_on_each_expert(e, c, d,
+                                                                   f):
+    """The served f32 grouped shapes run the GEMM's kernel with the expert
+    as blockIdx.z: each expert's rows equal, bit for bit, the f32 GEMM on
+    that expert alone with the same tile (same instantiation, same sum
+    order), and the plain version within tolerance."""
+    from repro_torch.kernels import grouped_gemm as G
+
+    x, w = _grouped_operands(e, c, d, f, "f32")
+    tile = G.grouped_tile(c, torch.float32)
+    got = G.grouped_gemm(x, w)
+    alone = [K.gemm_k_inner(x[i], w[i], tile=tile) for i in range(e)]
+    torch.cuda.synchronize()
+    for i in range(e):
+        assert torch.equal(got[i], alone[i]), f"expert {i}"
+    torch.testing.assert_close(got, G.grouped_gemm_plain(x, w), rtol=1e-5,
+                               atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
 # int8 GEMM on wgmma (csrc/wgmma_s8.cuh): exact against the plain version
 # ---------------------------------------------------------------------------
 
@@ -318,12 +454,13 @@ def test_gemm_and_grouped_libraries_each_configure_their_kernel(first):
     """The f32 GEMM and f32 grouped libraries compile the same tile kernel
     from ``tile_gemm.cuh`` (bf16 now runs wgmma in both); each copy must
     get its own shared-memory attribute, whichever library launches a
-    register tile first (163,840 and 196,608 B here, over the 48 KB
-    default)."""
+    register tile first (76,800 B at 64x128, an instantiation with fixed
+    extents, and 203,520 B at 16x512, one with run-time extents; both over
+    the 48 KB default)."""
     from repro_torch.kernels import grouped_gemm as G
 
-    tile = TileConfig(32, 128, 256) if first == "gemm" else \
-        TileConfig(32, 64, 512)
+    tile = TileConfig(64, 128, 128) if first == "gemm" else \
+        TileConfig(16, 512, 256)
     x = torch.randn(3, 32, 520, device="cuda")
     # weights at the model's init scale, for atol 1e-4 (see above)
     w = torch.randn(3, 520, 200, device="cuda") * 520 ** -0.5
@@ -459,72 +596,6 @@ def test_flash_attention_kernel_takes_b_times_h_past_65535(dt):
     want = FA.flash_attention_plain(q, k, v)
     tol = 3e-2 if dt == "bf16" else 1e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-
-
-def _flash_operands(shapes, seed, dt="bf16"):
-    rng = np.random.default_rng(seed)
-    return operands_from_numpy(
-        *(rng.normal(size=shape).astype(np.float32) for shape in shapes),
-        device="cuda", dtype=dt)
-
-
-@pytest.mark.parametrize("b,s,skv,h,d,copied", [
-    (1, 256, 256, 4, 160, 0),     # stablelm-12b's head dim (width 256)
-    (1, 256, 256, 4, 192, 0),     # xlstm-125m's
-    (1, 128, 128, 2, 256, 0),     # paligemma-3b's
-    (1, 200, 200, 3, 100, 3),     # d = 100: rows TMA cannot read, copied
-    (2, 192, 320, 3, 64, 0),      # Skv != S, neither a multiple of a tile
-])
-def test_flash_attention_bf16_head_dims_on_wgmma(b, s, skv, h, d, copied):
-    """bf16 at every served head-dim class on the tensor cores, causal and
-    not, against the plain version at 3e-2; an operand TMA cannot read is
-    copied once to aligned rows (and only then)."""
-    from repro_torch.kernels import flash_attention as FA
-
-    q, k, v = _flash_operands(((b, s, h, d), (b, skv, h, d),
-                               (b, skv, h, d)), s + skv + d)
-    for causal in (True, False):
-        FA.reset_launch_counts()
-        got = FA.flash_attention_fwd(q, k, v, causal=causal, block_q=s,
-                                     block_k=skv)
-        torch.cuda.synchronize()
-        assert FA.ROUTES == {"wgmma": 1, "cuda_cores": 0}
-        assert FA.COPIES["aligned"] == copied
-        want = FA.flash_attention_plain(q, k, v, causal=causal)
-        torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
-                                   atol=3e-2)
-
-
-def test_flash_attention_bf16_qwen2_long_sequence():
-    """Qwen2-1.5B's (1, 4096, 12, 128), causal: 32 query tiles, the longest
-    first, against the plain version at 3e-2."""
-    from repro_torch.kernels import flash_attention as FA
-
-    q, k, v = _flash_operands([(1, 4096, 12, 128)] * 3, 4096)
-    FA.reset_launch_counts()
-    got = FA.flash_attention_fwd(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    assert FA.ROUTES == {"wgmma": 1, "cuda_cores": 0}
-    want = FA.flash_attention_plain(q, k, v, causal=True)
-    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
-                               atol=3e-2)
-
-
-def test_flash_attention_bf16_reads_strided_operands_in_place():
-    """bf16 (B, S, H, D) views of (B, H, S, D) tensors go through the
-    tensor maps with their own strides: no copy, the plain version's
-    result."""
-    from repro_torch.kernels import flash_attention as FA
-
-    q, k, v = (torch.randn(2, 3, 256, 64, device="cuda",
-                           dtype=torch.bfloat16).transpose(1, 2)
-               for _ in range(3))
-    FA.reset_launch_counts()
-    got = FA.flash_attention_fwd(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    assert FA.COPIES["aligned"] == 0 and FA.ROUTES["wgmma"] == 1
-    torch.testing.assert_close(got.float(), FA.flash_attention_plain(
-        q, k, v).float(), rtol=3e-2, atol=3e-2)
 
 
 @pytest.mark.parametrize("dt", ["bf16", "f32"])

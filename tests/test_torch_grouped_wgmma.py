@@ -95,8 +95,8 @@ def test_route_config_at_every_card_shape(e, c, d, f):
     assert cfg.threads == 128 * cfg.consumers + 32 and cfg.nw == 64
     if (e, c, d, f) in SERVED:
         assert G.grid_blocks(e, c, f, tile) >= G.SMS
-    threads, _, _ = G.check_tile(G.grouped_tile(c, torch.float32),
-                                 torch.float32)
+    threads = G.check_tile(G.grouped_tile(c, torch.float32),
+                           torch.float32).threads
     assert threads <= K.MAX_THREADS
 
 

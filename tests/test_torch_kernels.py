@@ -175,7 +175,7 @@ def test_k_outer_never_mutates_callers_c():
 @pytest.mark.parametrize("tile,match", [
     (TileConfig(100, 128, 128), "power-of-two"),
     (TileConfig(256, 256, 128), "register tiles"),
-    (TileConfig(8, 1024, 2048), "shared memory"),
+    (TileConfig(8, 4096, 128), "register tiles"),
 ])
 def test_wrapper_rejects_tiles_the_kernels_do_not_take(tile, match):
     with pytest.raises(ValueError, match=match):
