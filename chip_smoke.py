@@ -18,9 +18,12 @@ the attention and norm entry points on that model's activations (phase
              configuration per tile (bf16: slab depth, stages, shared
              memory, blocks per SM, blocks per launch at the served
              shapes; f32: shared memory), the GEMM's wgmma configuration at
-             every planner tile, the f32 flash attention and RMSNorm
-             kernels' registers and shared memory per kernel, the bf16
-             flash attention (wgmma) kernel's registers, spills,
+             every planner tile, the RMSNorm kernels' registers and shared
+             memory per kernel, the f32 flash attention (CUDA-core)
+             instantiations' registers and spills and their block per
+             head-dim width and block height (threads, register tile, K and
+             V pieces, ring, shared memory, blocks per SM; a spill fails),
+             the bf16 flash attention (wgmma) kernel's registers, spills,
              warpgroups, keys per step, stages and shared memory per
              head-dim width, the int8 GEMM (wgmma s8) instantiations'
              registers and spills and its configuration at every planner
@@ -32,8 +35,9 @@ the attention and norm entry points on that model's activations (phase
              ``cuobjdump``, fail unless the gemm_bf16 library's SASS holds
              HGMMA instructions, the gemm_int8 library's IGMMA and UTMALDG,
              the grouped_gemm_bf16 and flash_attention_bf16 libraries'
-             HGMMA and UTMALDG, and the gemm_f32 and grouped_gemm_f32
-             libraries' FFMA and no HMMA or HGMMA (no TF32).
+             HGMMA and UTMALDG, and the gemm_f32, grouped_gemm_f32 and
+             flash_attention_f32 libraries' FFMA and no HMMA or HGMMA (no
+             TF32).
 2. kernels — both loop orders against their plain PyTorch versions on the
              card: every tile the planner picks for the slice's shapes (the
              Qwen2-1.5B GEMMs, Table-2 in all three dtypes, granite's
@@ -151,9 +155,11 @@ the attention and norm entry points on that model's activations (phase
              the CUDA cores (aligned copies printed).  With ``--parent``,
              RMSNorm at 4, 32 and 32768 rows and flash attention (causal;
              bf16 at S = 32, granite and Qwen2-1.5B at S = 4096,
-             paligemma-3b's D = 256; f32 at the two S = 4096 shapes) in
-             both trees, each in a fresh process: parent, change, change,
-             parent.
+             paligemma-3b's D = 256; f32 at the two S = 4096 shapes,
+             paligemma-3b's D = 256, stablelm-12b's D = 160,
+             xlstm-125m's D = 192 and the launch-bound S = 32, 256, D =
+             16, 32) in both trees, each in a fresh process: parent,
+             change, change, parent.
 
 With tied embeddings and random weights, the token's own embedding
 dominates the last hidden state, so greedy decoding echoes the input token
@@ -172,7 +178,9 @@ RMSNorm kernels.  The line before the last is the
 ``{"kernels": [...]}`` record (the GEMM kernels three times: bf16 from
 ``wgmma_gemm.cuh``, int8, ``*_int8``, from ``wgmma_s8.cuh``, timed on the
 int8 planner's tile, and f32, ``*_f32``, from ``tile_gemm.cuh``, timed on
-the f32 planner's 32x64x128); the last line is
+the f32 planner's 32x64x128; flash attention twice: bf16 over the shapes
+phase 9 recorded, ``flash_attention_f32`` at phase 10's granite S = 4096
+causal f32 row with phase 10's f32 launches); the last line is
 ``{"ok": true, "device": {...}}``.  Samples, the fitted manifest and the
 per-shape timings and the serving profile are written under ``--out``
 (default ``build/chip_smoke``).  In the kernels line, ``ms``,
@@ -406,8 +414,8 @@ def ptxas_entries(log):
         names = []
     if len(names) != len(entries):
         names = [e["name"] for e in entries]
-    # "void repro::(anonymous namespace)::flash_fwd<float, 64>(...)" ->
-    # "flash_fwd<float, 64>"
+    # "void repro::(anonymous namespace)::flash_fwd<64, 4, true>(...)" ->
+    # "flash_fwd<64, 4, true>"
     short = [re.search(r"(\w+<[^()]*>)\(", n) for n in names]
     return [(m.group(1) if m else n, e.get("registers"), e.get("smem"),
              e["spill"]) for n, m, e in zip(names, short, entries)]
@@ -1677,6 +1685,8 @@ def attention_norm_phase(dev, FA, R, ops):
             del q, k, v, qt, kt, vt
             torch.cuda.empty_cache()
     flash_routes(FA, "phase 10", expect)
+    f32_launches = expect["cuda_cores"]
+    check(f32_launches > 0, "phase 10 launched no f32 flash attention kernel")
     norms = [(f"{n} rows", n, NORM_D, "contiguous") for n in NORM_ROWS]
     for i, (nname, n, nd, layout) in enumerate(norms + list(NORM_EXTRA)):
         for tag in ("bf16", "f32"):
@@ -1757,7 +1767,7 @@ def attention_norm_phase(dev, FA, R, ops):
     for name_, n_ in launches.items():
         check(n_ > 0, f"{name_} was never launched in phase 10")
     torch.cuda.empty_cache()
-    return rows
+    return rows, f32_launches
 
 
 #: phase 10 with ``--parent``: RMSNorm rows of NORM_D timed in both trees
@@ -1808,6 +1818,14 @@ FLASH_TURN_SHAPES = (
     ("paligemma-3b D=256", (1, 2048, 8, 256), "bf16"),
     ("granite S=4096", (1, 4096, 24, 64), "f32"),
     ("qwen2-1.5b S=4096", (1, 4096, 12, 128), "f32"),
+    ("paligemma-3b D=256", (1, 2048, 8, 256), "f32"),
+    ("stablelm-12b D=160", (1, 2048, 32, 160), "f32"),
+    ("xlstm-125m D=192", (1, 2048, 4, 192), "f32"),
+    # the launch-bound f32 shapes
+    ("granite S=32", (1, 32, 24, 64), "f32"),
+    ("granite S=256", (1, 256, 24, 64), "f32"),
+    ("smoke D=16", (2, 128, 4, 16), "f32"),
+    ("D=32", (1, 256, 8, 32), "f32"),
 )
 
 
@@ -1850,6 +1868,38 @@ def compare_flash(turns):
               f"{r1['event_ms']:.4f} / {r2['event_ms']:.4f}; host us parent "
               f"{r0['host_us']:.1f} / {r3['host_us']:.1f}, change "
               f"{r1['host_us']:.1f} / {r2['host_us']:.1f}")
+
+
+#: the phase-10 row whose f32 times the kernels line's flash_attention_f32
+#: entry reports (causal)
+FLASH_F32_ROW = "granite S=4096"
+
+
+def flash_f32_phase1(FA, entries):
+    """Phase 1 for the f32 flash attention kernel: each instantiation's
+    registers and spills, the configuration per width in both block
+    heights; fails on a spill."""
+    for w in FA.F32_HEAD_DIMS:
+        for bq in (FA.BLOCK_Q, FA.BLOCK_Q // 2):
+            c = FA.f32_config(w, bq)
+            rm = c.rows
+            kern = [f"{fn}: {r} registers; {sp or 'no spill line'}"
+                    for fn, r, _, sp in entries
+                    if fn in (f"flash_fwd<{w}, {rm}, true>",
+                              f"flash_fwd<{w}, {rm}, false>")]
+            print(f"flash f32 (CUDA cores) width {w}, {bq} rows: "
+                  f"{c.threads} threads, register tile {c.rows} rows x "
+                  f"{c.keys} keys, {c.columns} output columns, K pieces of "
+                  f"{c.k_slab} columns, V pieces of {c.v_slab} keys, "
+                  f"{c.stages} slots of {c.slot_bytes} B, "
+                  f"{c.smem_bytes} B dynamic shared memory, "
+                  f"{c.blocks_per_sm} blocks per SM by shared memory; "
+                  + ("; ".join(kern) or "not named in the ptxas log"))
+    spills = [(fn, sp) for fn, _, _, sp in entries if not (
+        " 0 bytes spill stores" in sp and " 0 bytes spill loads" in sp)]
+    check(len(entries) == 4 * len(FA.F32_HEAD_DIMS) and not spills,
+          f"flash_attention_f32: {len(entries)} instantiations, spills "
+          f"{spills}")
 
 
 def kernel_entry(name, source, replaces, launches, max_err, rows):
@@ -1936,12 +1986,14 @@ def main(argv=None) -> int:
             " 0 bytes spill stores" in sp and " 0 bytes spill loads" in sp)]
         print(f"ptxas {v}: {len(regs)} kernels, registers "
               f"{min(regs)}..{max(regs)}, {len(spills)} with spills")
-        if v.startswith(("flash_attention_f32", "rmsnorm")):
+        if v.startswith("rmsnorm"):
             print("  " + ", ".join(f"{fn} {r} registers / {smem} B static "
                                    f"shared memory"
                                    for fn, r, smem, _ in entries))
         if v == "flash_attention_bf16":
             flash_entries = entries
+        if v == "flash_attention_f32":
+            flash_f32_entries = entries
         if v in ("gemm_bf16", "gemm_int8", "grouped_gemm_bf16", "gemm_f32",
                  "grouped_gemm_f32"):
             for fn, r, _, sp in entries:
@@ -1954,7 +2006,7 @@ def main(argv=None) -> int:
                ("HGMMA", "UTMALDG"))
     sass_check(build, paths["flash_attention_bf16"], "flash_attention_bf16",
                ("HGMMA", "UTMALDG"))
-    for v in ("gemm_f32", "grouped_gemm_f32"):
+    for v in ("gemm_f32", "grouped_gemm_f32", "flash_attention_f32"):
         sass_check(build, paths[v], v, ("FFMA",), forbid=("HMMA", "HGMMA"))
     for w in FA.HEAD_DIMS:
         c = FA.wgmma_config(w)
@@ -1984,9 +2036,8 @@ def main(argv=None) -> int:
         t = G.grouped_tile(c, torch.float32)
         print(f"grouped f32 (CUDA cores) C = {c}: tile {t}, "
               f"{core_line(K.launch_config(t, 'f32'))}")
-    print(f"flash attention f32 (CUDA cores): dynamic shared memory per "
-          f"block by head dim { {d: FA.smem_bytes(d) for d in FA.HEAD_DIMS} }"
-          f"; RMSNorm: none")
+    flash_f32_phase1(FA, flash_f32_entries)
+    print("RMSNorm: no dynamic shared memory")
     picks = planner_tiles(gemm, get_config, model_gemm_shapes, TABLE2,
                           GemmShape)
     for t in picks:
@@ -2379,7 +2430,7 @@ def main(argv=None) -> int:
         compare_serving(served, serve_turns)
     greedy = greedy_phase(dev)
     model_k = model_kernels_phase(dev, FA, R, ops)
-    attn_rows = attention_norm_phase(dev, FA, R, ops)
+    attn_rows, flash_f32_launches = attention_norm_phase(dev, FA, R, ops)
     norm_turns, flash_turns = [], []
     if args.parent:
         norm_turns = [tree_run(t, "norm", args.out)
@@ -2423,6 +2474,12 @@ def main(argv=None) -> int:
             f"src/repro/kernels/{kname}.py:{line}",
             model_k["launches"][kname], model_k["max_abs_err"][kname],
             [r for r in attn_rows if r["kernel"] == kname and r["served"]]))
+    f32_row = [r for r in attn_rows if r["kernel"] == "flash_attention"
+               and r["dtype"] == "f32" and r["shape_name"] == FLASH_F32_ROW]
+    kernels.append(kernel_entry(
+        "flash_attention_f32", f"{csrc}/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:68", flash_f32_launches,
+        f32_row[0]["max_abs_err"], f32_row))
     with open(os.path.join(args.out, "timings.json"), "w") as f:
         json.dump({"device": card, "power": smi("name,power.limit"),
                    "rows": rows, "stage_rows": stage_rows,

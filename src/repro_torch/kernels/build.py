@@ -7,7 +7,9 @@ process per library): ``gemm.cu`` for bf16, f32 and int8,
 f32.  The bf16 builds of ``gemm.cu``, ``grouped_gemm.cu`` and
 ``flash_attention.cu`` include ``wgmma_gemm.cuh`` (the tensor-core route:
 TMA, mbarriers, wgmma), the int8 build of ``gemm.cu`` ``wgmma_s8.cuh``
-(which includes it), the f32 GEMM builds ``tile_gemm.cuh``.
+(which includes it), the f32 GEMM builds ``tile_gemm.cuh``; that header
+and the f32 build of ``flash_attention.cu`` take their cp.async copies and
+fragment loads from ``cp_async.cuh``.
 Libraries land in ``build/repro_torch/<hash>/`` at the repository root
 (``.gitignore`` lists ``build/``; ``REPRO_TORCH_BUILD_DIR`` moves it), keyed
 by a hash of every file under ``csrc/`` and the flags, so an edit to any

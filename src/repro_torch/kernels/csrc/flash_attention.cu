@@ -18,10 +18,11 @@
 // is masked for every row of the tile, and such a block would give p = 0
 // and corr = 1, so skipping it is exact.
 //
-// Head dims.  Both routes are compiled for the widths D = 64, 128 and 256
-// and take the true head dim d <= D at run time (the smallest width that
-// holds it); columns past d read zero, which adds nothing to q.k, stores
-// past d are skipped, and the scale is d**-0.5 of the true d.
+// Head dims.  Each route is compiled for a few widths D and takes the true
+// head dim d <= D at run time (the smallest width that holds it): bf16 64,
+// 128 and 256, f32 64, 128, 160, 192 and 256; columns past d read zero,
+// which adds nothing to q.k, stores past d are skipped, and the scale is
+// d**-0.5 of the true d.
 //
 // What bounds it on an H100: at the served prefill (S = 32) it moves a few
 // hundred KB and is bound by bytes and launch latency; from S of a few
@@ -33,24 +34,48 @@
 // stop.  Each element type has its own kernel (one library each):
 //
 // f32: the CUDA cores (flash_fwd below).  TF32 would not compute the f32
-// function at the JAX tests' 1e-5, so f32 multiplies in FP32 FMA.  q is
-// scaled by D**-0.5 in f32 before the q.k product, as in the JAX kernel.
-//   Tiles.  The JAX 128 x 128 blocks are a VMEM choice: in f32 with D = 128
-//   the q, k and v tiles alone would take 192 KB of the 227 KB a block may
-//   claim.  This kernel stages a 64 x D query tile (scaled, f32), a 64 x D
-//   key tile and a 64 x D value tile in shared memory as f32, plus the 64 x
-//   64 probabilities: 70,144 B at D = 64, 119,296 B at D = 128, 217,600 B
-//   at D = 256 (of the 232,448 a block may claim).  The q and k rows are
-//   padded to D + 1 floats and the p rows to 80, so the reads below are
-//   free of bank conflicts.  256 threads form a 16 x 16 grid; thread
-//   (ty, tx) owns query rows ty + 16i (i < 4), score columns tx + 16j
-//   (j < 4) and output columns tx + 16c (c < D/16).  Rows and keys past S
-//   or Skv are masked, so S and Skv need not divide the tile.  Blocks run
-//   on a (B*H, ceil(S/64)) grid: B*H on gridDim.x (up to 2^31 - 1), the
-//   query tiles on gridDim.y (up to 65,535, so S up to 4,194,240).  Loads
-//   read q, k and v through the batch, sequence and head strides the
-//   wrapper passes (D has unit stride); expf, not __expf, so f32 holds
-//   1e-5.
+// function at the JAX tests' 1e-5, so f32 multiplies in FP32 FMA: every
+// step is two small GEMMs, S = q.k^T over the head dim and O += p.v over the
+// step's 64 keys, register-tiled like the f32 GEMM (tile_gemm.cuh).  q is
+// scaled by d**-0.5 in f32 before the q.k product, as in the JAX kernel.
+//   Threads.  128 threads (four warps) form a 16 x 8 grid; thread (ty, tx)
+//   owns query rows ty + 16 i (i < RM), the step's keys tx + 8 j (j < 8)
+//   and output columns 32 c + 4 tx + e.  A block is 16 RM query rows: RM = 4
+//   (64 rows), or 2 (32 rows) where 64-row tiles would give fewer than two
+//   blocks an SM (f32_rows: few heads at a few thousand positions, where
+//   the causal tiles' unequal lengths leave SMs idle).  The softmax's rows
+//   are the output's rows, so its max and rescale stay in registers: a
+//   row's eight threads are eight lanes of one warp and combine their max
+//   by three xor shuffles; l is kept per thread and summed at the end.
+//   Products.  Every operand fetch is an LDS.128 of four consecutive
+//   floats: per four head-dim columns, RM loads of q and 8 of k feed 32 RM
+//   FFMA of the scores; per four keys, RM loads of p, then per key W / 32
+//   loads of v feed 4 RM W / 32 FFMA of the output.  The next fragment
+//   loads while this one multiplies.  q (rows of W + 4 floats) and K (rows
+//   of 36) are read row-major along the head dim; rows start four banks
+//   apart, so each load of a warp (four rows of q, eight keys of K) is free
+//   of bank conflicts.  p goes through shared memory once a step (rows of
+//   72 floats: a warp's scalar stores and LDS.128 both conflict-free); v
+//   rows are read 128 contiguous bytes a warp.
+//   Stream.  q is loaded once.  K and V stream through a ring of three
+//   9,216-byte slots filled by cp.async: each step is W / 32 pieces of K
+//   (64 keys x 32 columns), then pieces of V (the largest power of two of
+//   keys, VS, whose rows of W fit a slot: 32 at W = 64, 16 at 128, 8
+//   above), so two pieces are in flight while one multiplies, with one
+//   __syncthreads a piece.  Copies are 16 bytes where every operand's base
+//   and (batch, sequence, head) strides allow (an instantiation of their
+//   own), else 4 bytes; the source size cuts each at Skv and at d, so what
+//   lies past them lands as zero and S, Skv and d need not divide a tile.
+//   Shared memory is q + p + the ring: 63,488 B at W = 64 to 112,640 B at
+//   W = 256 for 64 rows, so two blocks share an SM at every width
+//   (kernels/flash_attention.py:f32_config mirrors the numbers); ptxas
+//   holds each instantiation under 255 registers without spilling.
+//   Softmax.  exp(s - m) as exp2(s log2e - m log2e), one FFMA and one MUFU
+//   op a score; the mask is applied only on a step that straddles the
+//   diagonal or Skv, and the key loop stops at the diagonal.
+//   Order.  The query tiles run longest first (blockIdx.x counts down the
+//   tiles, heads fastest), as in the bf16 kernel: ceil(S / rows) * B * H
+//   blocks, at most 2^31 - 1.
 //
 // bf16: the tensor cores, wgmma fed by TMA (flash_wgmma below; the TMA,
 // mbarrier, descriptor and Wgmma helpers are wgmma_gemm.cuh's).
@@ -116,12 +141,15 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -DREPRO_ELEM_<BF16|F32> flash_attention.cu
 // One shared library per element type, loaded with ctypes by
-// kernels/build.py: the f32 one exports repro_flash_attention, the bf16 one
-// repro_flash_encode (one tensor map) and repro_flash_attention_wgmma.
+// kernels/build.py: the f32 one (which includes cp_async.cuh) exports
+// repro_flash_attention, the bf16 one repro_flash_encode (one tensor map)
+// and repro_flash_attention_wgmma.
 
 #if defined(REPRO_ELEM_BF16)
 #include "wgmma_gemm.cuh"
-#elif !defined(REPRO_ELEM_F32)
+#elif defined(REPRO_ELEM_F32)
+#include "cp_async.cuh"
+#else
 #error "define one of REPRO_ELEM_BF16, REPRO_ELEM_F32"
 #endif
 
@@ -136,198 +164,451 @@ namespace repro {
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the JAX kernel's mask fill
+constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x log2(e))
 
 #if defined(REPRO_ELEM_F32)
 
-constexpr int kBQ = 64;           // query rows per block
-constexpr int kBK = 64;           // keys per step
-constexpr int kThreads = 256;     // a 16 x 16 thread grid
-constexpr int kRows = kBQ / 16;   // query rows per thread
-constexpr int kCols = kBK / 16;   // score columns per thread
-constexpr int kLP = kBK + 16;     // padded row stride of the p tile
+constexpr int kBK = 64;            // keys per step
+constexpr int kThreads = 128;      // four warps, a 16 x 8 thread grid
+constexpr int kTY = 16;            // threads down the rows
+constexpr int kTX = 8;             // threads across a row (keys, columns)
+constexpr int kRN = kBK / kTX;     // keys per thread (8)
+constexpr int kSMs = 132;          // an H100 SXM's SMs
+constexpr int kMinBlocks = 2;      // blocks an SM the launch bounds ask for
+constexpr int kDS = 32;            // head-dim columns of one K piece
+constexpr int kStages = 3;         // slots of the cp.async ring
+constexpr int kLK = kDS + 4;       // row stride of a K piece (floats)
+constexpr int kSlot = kBK * kLK;   // floats of one slot: a K or a V piece
+constexpr int kLP = kBK + 8;       // row stride of the p tile
 
-// Loads widen to f32; stores round to the element type.
-template <typename T> struct Elem;
-template <> struct Elem<float> {
-  __device__ __forceinline__ static float up(float x) { return x; }
-  __device__ __forceinline__ static void put(float* p, float v) { *p = v; }
+__host__ __device__ constexpr int pow2_floor(int x) {
+  int p = 1;
+  while (2 * p <= x) p *= 2;
+  return p;
+}
+// the largest power of two that divides x and is at most cap
+__host__ __device__ constexpr int pow2_divisor(int x, int cap) {
+  int p = 1;
+  while (x % (2 * p) == 0 && 2 * p <= cap) p *= 2;
+  return p;
+}
+
+// The geometry of the W-wide instantiation (mirrored by
+// kernels/flash_attention.py:f32_config): the scaled q tile (rows of W + 4
+// floats), the p tile, then kStages slots.  A step's K arrives in W / kDS
+// pieces of kBK keys x kDS columns, its V in kBK / kVS pieces of kVS keys x
+// W columns, kVS the largest power of two whose piece fits a slot.
+template <int W, int RM>
+struct F32Tile {
+  static_assert(W % kDS == 0 && W % (4 * kTX) == 0,
+                "widths are multiples of 32");
+  static constexpr int kBQ = RM * kTY;               // query rows a block
+  static constexpr int kLQ = W + 4;                 // row stride of q
+  static constexpr int kVS = pow2_floor(kSlot / W);  // keys of a V piece
+  static constexpr int kNK = W / kDS;                // K pieces a step
+  static constexpr int kNV = kBK / kVS;              // V pieces a step
+  static constexpr int kPieces = kNK + kNV;          // pieces a step
+  static constexpr int kCN = W / (4 * kTX);  // 4-wide output fragments a thread
+  static constexpr int kSmem =
+      4 * (kBQ * kLQ + kBQ * kLP + kStages * kSlot);
 };
 
-// Max and sum over the 16 threads of one half-warp (the threads of one
-// query row).  The xor butterfly leaves the same value in every lane.
+// Calls f(r, col) for the V-float chunks (V = 4 or 1) of a ROWS x COLS
+// block that thread tid owns: kCW threads across a row (the largest power
+// of two that divides the row's chunks, at most kThreads), rows kThreads /
+// kCW apart; no division.  The 16-byte chunks (a few a thread) unroll; the
+// 4-byte ones (four times as many) stay a loop, whose addresses would
+// otherwise take the accumulators' registers.
+template <int ROWS, int COLS, int V, typename F>
+__device__ __forceinline__ void for_chunks(int tid, F f) {
+  constexpr int kChunks = COLS / V;
+  constexpr int kCW = pow2_divisor(kChunks, kThreads);
+  constexpr int kRW = kThreads / kCW;
+  const int cq = tid & (kCW - 1), r0 = tid / kCW;
+  auto visit = [&](int i, int j) {
+    const int r = r0 + j * kRW;
+    if (ROWS % kRW == 0 || r < ROWS) f(r, (cq + i * kCW) * V);
+  };
+  if constexpr (V == 4) {
+#pragma unroll
+    for (int i = 0; i < kChunks / kCW; ++i)
+#pragma unroll
+      for (int j = 0; j < (ROWS + kRW - 1) / kRW; ++j) visit(i, j);
+  } else {
+#pragma unroll 1
+    for (int i = 0; i < kChunks / kCW; ++i)
+#pragma unroll 1
+      for (int j = 0; j < (ROWS + kRW - 1) / kRW; ++j) visit(i, j);
+  }
+}
+
+// Rows [0, ROWS) x columns [0, COLS) of the row-major block at src (row
+// stride ld elements) into dst (row stride SD floats) by cp.async, in
+// 16-byte copies (VEC: src's base and row stride 16-byte aligned) or 4-byte
+// ones; the source size is cut at rows_valid rows and cols_valid columns,
+// so what lies past them lands as zero, and a copy of nothing names `safe`.
+template <int ROWS, int COLS, int SD, bool VEC>
+__device__ __forceinline__ void copy_block(float* dst, const float* src,
+                                           int64_t ld, int rows_valid,
+                                           int cols_valid, const float* safe,
+                                           int tid) {
+  if constexpr (VEC) {
+    for_chunks<ROWS, COLS, 4>(tid, [&](int r, int col) {
+      const int b = r < rows_valid ? 4 * max(0, min(4, cols_valid - col)) : 0;
+      cp_async16(dst + r * SD + col, b ? src + r * ld + col : safe, b);
+    });
+  } else {
+    for_chunks<ROWS, COLS, 1>(tid, [&](int r, int col) {
+      const int b = r < rows_valid && col < cols_valid ? 4 : 0;
+      cp_async4(dst + r * SD + col, b ? src + r * ld + col : safe, b);
+    });
+  }
+}
+
+// The (batch, head) index of this block, blockIdx.x % BH.  Read anew where
+// it is needed: a value kept over the key loop would hold registers the
+// accumulators need.
+__device__ __forceinline__ int block_bh(int BH) {
+  unsigned x;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(x));
+  return static_cast<int>(x % static_cast<unsigned>(BH));
+}
+
+// Max and sum over the kTX = 8 threads of one query row (lanes that differ
+// in their low three bits).  The xor butterfly leaves the value in each.
 __device__ __forceinline__ float row_max(float v) {
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
+  for (int off = 1; off < kTX; off <<= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
 __device__ __forceinline__ float row_sum(float v) {
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
+  for (int off = 1; off < kTX; off <<= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
 
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (static_cast<size_t>(kBQ) * (D + 1) +
-                          static_cast<size_t>(kBK) * (D + 1) +
-                          static_cast<size_t>(kBK) * D +
-                          static_cast<size_t>(kBQ) * kLP);
+// s[i][j] += q[row i, dc .. dc + kDS) . k[key j, same columns] for one K
+// piece: per four columns, kRM LDS.128 of q and kRN of k feed 4 kRM kRN
+// FFMA, each fragment loaded while the one before it multiplies.  qp: row
+// ty of q at column dc; kp: key tx of the piece.
+template <int LQ, int kRM>
+__device__ __forceinline__ void scores_piece(float (&s)[kRM][kRN],
+                                             const float* qp,
+                                             const float* kp) {
+  constexpr int N = kDS / 4;
+  float a[2][kRM][4], b[2][4];
+  auto load_a = [&](float (&f)[kRM][4], int c4) {
+#pragma unroll
+    for (int i = 0; i < kRM; ++i) ld_frag<4>(f[i], qp + i * 16 * LQ + c4);
+  };
+  load_a(a[0], 0);
+  ld_frag<4>(b[0], kp);
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int j = 0; j < kRN; ++j) {
+      if (j == 0 && n + 1 < N) load_a(a[(n + 1) & 1], 4 * (n + 1));
+      const int y = n * kRN + j, x = y + 1;
+      if (x < N * kRN)
+        ld_frag<4>(b[x & 1], kp + (x % kRN) * kTX * kLK + 4 * (x / kRN));
+#pragma unroll
+      for (int i = 0; i < kRM; ++i)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          s[i][j] = fmaf(a[n & 1][i][u], b[y & 1][u], s[i][j]);
+    }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int S, int Skv, int H,
-          int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb, int64_t kss,
-          int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh, int d,
-          int causal, float scale) {
-  static_assert(D % 32 == 0, "the padded rows assume D % 32 == 0");
-  using E = Elem<T>;
-  constexpr int kLD = D + 1;      // padded row stride of the q and k tiles
-  constexpr int kOut = D / 16;    // output columns per thread
+// acc[i][.] += p[row i, keys kv .. kv + VS) . v[those keys, columns] for
+// one V piece: per four keys, kRM LDS.128 of p, then per key CN LDS.128 of
+// v feed 4 kRM CN FFMA, each fragment loaded while the one before it
+// multiplies.  pp: row ty of p at key kv; vp: the piece's row 0 at column
+// 4 tx.
+template <int W, int VS, int CN, int kRM>
+__device__ __forceinline__ void values_piece(float (&acc)[kRM][4 * CN],
+                                             const float* pp,
+                                             const float* vp) {
+  constexpr int N = VS / 4;
+  float a[2][kRM][4], b[2][4];
+  auto load_a = [&](float (&f)[kRM][4], int k4) {
+#pragma unroll
+    for (int i = 0; i < kRM; ++i) ld_frag<4>(f[i], pp + i * 16 * kLP + k4);
+  };
+  load_a(a[0], 0);
+  ld_frag<4>(b[0], vp);
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int c = 0; c < CN; ++c) {
+        if (u == 0 && c == 0 && n + 1 < N)
+          load_a(a[(n + 1) & 1], 4 * (n + 1));
+        const int y = (n * 4 + u) * CN + c, x = y + 1;
+        if (x < N * 4 * CN)
+          ld_frag<4>(b[x & 1], vp + (x / CN) * W + (x % CN) * 4 * kTX);
+#pragma unroll
+        for (int i = 0; i < kRM; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[i][4 * c + e] =
+                fmaf(a[n & 1][i][u], b[y & 1][e], acc[i][4 * c + e]);
+      }
+}
+
+// One block: query tile `tile` (16 kRM rows) of one (batch, head).  Thread
+// (ty, tx) owns query rows ty + 16 i (i < kRM), the step's keys tx + 8 j
+// (j < 8) and output columns 32 c + 4 tx + e (c < W / 32, e < 4); a warp
+// is four rows of eight threads.  VEC: q, k and v take 16-byte copies;
+// o_vec: o takes float4 stores.
+template <int W, int kRM, bool VEC>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, float* __restrict__ o, int S, int Skv,
+          int H, int BH, int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb,
+          int64_t kss, int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh,
+          int d, int causal, float scale, int o_vec) {
+  using G = F32Tile<W, kRM>;
+  constexpr int kBQ = G::kBQ;
+  constexpr int LQ = G::kLQ, VS = G::kVS, NK = G::kNK, CN = G::kCN;
+  constexpr int PS = G::kPieces;
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;               // kBQ x kLD, scaled q
-  float* Ks = Qs + kBQ * kLD;     // kBK x kLD
-  float* Vs = Ks + kBK * kLD;     // kBK x D
-  float* Ps = Vs + kBK * D;       // kBQ x kLP, probabilities
+  float* Qs = smem;                 // kBQ x LQ, scaled q
+  float* Ps = Qs + kBQ * LQ;        // kBQ x kLP, the step's p
+  float* ring = Ps + kBQ * kLP;     // kStages slots of kSlot floats
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int q0 = blockIdx.y * kBQ;
-  const T* qb = q + b * qsb + h * qsh;
-  const T* kb = k + b * ksb + h * ksh;
-  const T* vb = v + b * vsb + h * vsh;
+  const int lane = tid & 31;
+  const int tx = lane & (kTX - 1);
+  const int ty = (tid >> 5) * 4 + (lane >> 3);
+  // longest tiles first: blockIdx.x counts the tiles down, heads fastest
+  const int tiles = (S + kBQ - 1) / kBQ;
+  const int tile = tiles - 1 - static_cast<int>(blockIdx.x / BH);
+  const int q0 = tile * kBQ;
+  int b = block_bh(BH), h = b % H;
+  b /= H;
+  const float* qb = q + b * qsb + h * qsh;
+  const float* kb = k + b * ksb + h * ksh;
+  const float* vb = v + b * vsb + h * vsh;
+  // causal: keys past the tile's last query are masked for every row
+  const int kv_end = causal ? min(Skv, q0 + kBQ) : Skv;
+  const int steps = (kv_end + kBK - 1) / kBK;
+  const int pieces = steps * PS;
 
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    const int qi = q0 + r;
-    Qs[r * kLD + c] =
-        qi < S && c < d ? E::up(qb[qi * qss + c]) * scale : 0.0f;
+  // piece t of the stream: step t / PS; first its NK pieces of K (kDS
+  // columns each), then its pieces of V (VS keys each)
+  auto load_piece = [&](int t, float* slot) {
+    const int j = t / PS, p = t - j * PS;
+    const int k0 = j * kBK;
+    if (p < NK) {
+      const int dc = p * kDS;
+      copy_block<kBK, kDS, kLK, VEC>(slot, kb + k0 * kss + dc, kss,
+                                     Skv - k0, d - dc, kb, tid);
+    } else {
+      const int kv = k0 + (p - NK) * VS;
+      copy_block<VS, W, W, VEC>(slot, vb + kv * vss, vss, Skv - kv, d, vb,
+                                tid);
+    }
+  };
+
+  copy_block<kBQ, W, LQ, VEC>(Qs, qb + q0 * qss, qss, S - q0, d, qb, tid);
+  cp_commit();
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < pieces) load_piece(t, ring + t * kSlot);
+    cp_commit();
+  }
+  // q * scale in f32, as the JAX kernel scales it, before any product: each
+  // thread scales the elements it copied, once they have landed
+  cp_wait<kStages - 1>();
+  if constexpr (VEC) {
+    for_chunks<kBQ, W, 4>(tid, [&](int r, int col) {
+      float4* e = reinterpret_cast<float4*>(Qs + r * LQ + col);
+      float4 x = *e;
+      x.x *= scale;
+      x.y *= scale;
+      x.z *= scale;
+      x.w *= scale;
+      *e = x;
+    });
+  } else {
+    for_chunks<kBQ, W, 1>(tid,
+                          [&](int r, int col) { Qs[r * LQ + col] *= scale; });
   }
 
-  float m[kRows], l[kRows], acc[kRows][kOut];
+  float m[kRM], l[kRM], acc[kRM][4 * CN], s[kRM][kRN];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < kRM; ++i) {
     m[i] = kNegInf;
     l[i] = 0.0f;
 #pragma unroll
-    for (int c = 0; c < kOut; ++c) acc[i][c] = 0.0f;
+    for (int c = 0; c < 4 * CN; ++c) acc[i][c] = 0.0f;
   }
 
-  // causal: keys past the tile's last query are masked for every row
-  const int kv_end = causal ? min(Skv, q0 + kBQ) : Skv;
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
-    __syncthreads();  // the last step's readers of Ks, Vs and Ps are done
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int r = e / D, c = e % D;
-      const int kj = k0 + r;
-      const bool in = kj < Skv && c < d;
-      Ks[r * kLD + c] = in ? E::up(kb[kj * kss + c]) : 0.0f;
-      Vs[r * D + c] = in ? E::up(vb[kj * vss + c]) : 0.0f;
-    }
-    __syncthreads();
+  // the next piece of the stream: wait for it, then refill the slot the
+  // last one used; returns the piece's slot
+  int t = 0, rd = 0, wr = kStages - 1;
+  auto next = [&]() {
+    cp_wait<kStages - 2>();  // piece t has landed (this thread's copies)
+    __syncthreads();         // ... everyone's; slot wr is free, and the p
+                             // tile written before it is visible
+    if (t + kStages - 1 < pieces)
+      load_piece(t + kStages - 1, ring + wr * kSlot);
+    cp_commit();
+    const float* slot = ring + rd * kSlot;
+    ++t;
+    rd = rd + 1 == kStages ? 0 : rd + 1;
+    wr = wr + 1 == kStages ? 0 : wr + 1;
+    return slot;
+  };
 
-    float s[kRows][kCols];
+#pragma unroll 1
+  for (int j = 0; j < steps; ++j) {
+    const int k0 = j * kBK;
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
+    for (int i = 0; i < kRM; ++i)
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[kRows], bk[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) a[i] = Qs[(ty + 16 * i) * kLD + d];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) bk[j] = Ks[(tx + 16 * j) * kLD + d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] += a[i] * bk[j];
-    }
+      for (int jj = 0; jj < kRN; ++jj) s[i][jj] = 0.0f;
+#pragma unroll 1
+    for (int p = 0; p < NK; ++p)
+      scores_piece<LQ, kRM>(s, Qs + ty * LQ + p * kDS, next() + tx * kLK);
 
+    // the online softmax of step j: mask only a step that straddles the
+    // diagonal or Skv; p = exp(s - m_new) as exp2(s log2e - m_new log2e)
+    // into shared memory for the values pieces; l is this thread's part of
+    // its row's sum (corr is the row's)
+    if (k0 + kBK > Skv || (causal && k0 + kBK - 1 > q0)) {
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qi = q0 + ty + 16 * i;
-      float mx = kNegInf;
+      for (int i = 0; i < kRM; ++i)
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        if (kj >= Skv || (causal && kj > qi)) s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
+        for (int jj = 0; jj < kRN; ++jj) {
+          const int key = k0 + tx + kTX * jj;
+          if (key >= Skv || (causal && key > q0 + ty + 16 * i))
+            s[i][jj] = kNegInf;
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < kRM; ++i) {
+      float mx = s[i][0];
+#pragma unroll
+      for (int jj = 1; jj < kRN; ++jj) mx = fmaxf(mx, s[i][jj]);
       const float m_new = fmaxf(m[i], row_max(mx));
-      float rs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
-        Ps[(ty + 16 * i) * kLP + tx + 16 * j] = s[i][j];
-      }
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + row_sum(rs);
+      const float corr = exp2f((m[i] - m_new) * kLog2e);
+      const float mc = m_new * kLog2e;
       m[i] = m_new;
+      float rs = 0.0f;
+      float* prow = Ps + (ty + 16 * i) * kLP + tx;
 #pragma unroll
-      for (int c = 0; c < kOut; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float p[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) p[i] = Ps[(ty + 16 * i) * kLP + kk];
-#pragma unroll
-      for (int c = 0; c < kOut; ++c) {
-        const float vv = Vs[kk * D + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) acc[i][c] += p[i] * vv;
+      for (int jj = 0; jj < kRN; ++jj) {
+        const float e = exp2f(fmaf(s[i][jj], kLog2e, -mc));
+        rs += e;
+        prow[kTX * jj] = e;
       }
+      l[i] = l[i] * corr + rs;
+#pragma unroll
+      for (int c = 0; c < 4 * CN; ++c) acc[i][c] *= corr;
     }
+
+#pragma unroll 1
+    for (int p = 0; p < G::kNV; ++p)
+      values_piece<W, VS, CN, kRM>(acc, Ps + ty * kLP + p * VS,
+                                   next() + 4 * tx);
   }
 
+  // acc / max(l, 1e-30), rows < S, columns < d
+  const int bh = block_bh(BH);
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    if (qi >= S) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    T* orow = o + ((static_cast<int64_t>(b) * S + qi) * H + h) * d;
+  for (int i = 0; i < kRM; ++i) {
+    const float den = fmaxf(row_sum(l[i]), 1e-30f);
+    const int row = q0 + ty + 16 * i;
+    if (row >= S) continue;
+    float* orow = o + (static_cast<int64_t>(row) * H + bh % H) * d +
+                  static_cast<int64_t>(bh / H) * S * H * d;
 #pragma unroll
-    for (int c = 0; c < kOut; ++c)
-      if (tx + 16 * c < d) E::put(orow + tx + 16 * c, acc[i][c] / den);
+    for (int c = 0; c < CN; ++c) {
+      const int col = c * 4 * kTX + 4 * tx;
+      float r[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) r[e] = acc[i][4 * c + e] / den;
+      if (o_vec && col + 4 <= d) {
+        *reinterpret_cast<float4*>(orow + col) =
+            make_float4(r[0], r[1], r[2], r[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < d) orow[col + e] = r[e];
+      }
+    }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int Skv, int H, int d, const int64_t* st,
-                   int causal, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+// 16-byte copies of a (B, S, H, D) operand need its base and its batch,
+// sequence and head strides 16-byte aligned
+inline bool rows16(const void* p, int64_t sb, int64_t ss, int64_t sh) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 4 == 0 &&
+         ss % 4 == 0 && sh % 4 == 0;
+}
+
+// Query rows a block: 64, or 32 where 64-row tiles would give fewer blocks
+// than two an SM (S of a few thousand over a few heads): a causal call's
+// tiles differ in length, and with few of them the longest leave SMs idle.
+inline int f32_rows(int B, int S, int H) {
+  return (static_cast<int64_t>(S) + 63) / 64 * B * H < 2 * kSMs ? 32 : 64;
+}
+
+template <int W, int RM, bool VEC>
+cudaError_t launch_rows(const float* q, const float* k, const float* v,
+                        float* o, int B, int S, int Skv, int H, int d,
+                        const int64_t* st, int causal, cudaStream_t stream) {
+  using G = F32Tile<W, RM>;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        flash_fwd<W, RM, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        G::kSmem);
+    // two blocks share an SM: ask for all of its memory as shared
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_fwd<W, RM, VEC>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   // d**-0.5 of the true head dim, rounded once to f32, as the JAX kernel's
   // Python float scale
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
-  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
-  flash_fwd<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, Skv, H, st[0], st[1],
-      st[2], st[3], st[4], st[5], st[6], st[7], st[8], d, causal != 0,
-      scale);
+  const int64_t tiles = (static_cast<int64_t>(S) + G::kBQ - 1) / G::kBQ;
+  // float4 stores need d % 4 == 0 and a 16-byte aligned o
+  const int o_vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(o) % 16 == 0;
+  flash_fwd<W, RM, VEC><<<static_cast<unsigned>(tiles * B * H), kThreads,
+                          G::kSmem, stream>>>(
+      q, k, v, o, S, Skv, H, B * H, st[0], st[1], st[2], st[3], st[4], st[5],
+      st[6], st[7], st[8], d, causal != 0, scale, o_vec);
   return cudaGetLastError();
 }
 
-#else  // REPRO_ELEM_BF16
+template <int W>
+cudaError_t launch_f32(const float* q, const float* k, const float* v,
+                       float* o, int B, int S, int Skv, int H, int d,
+                       const int64_t* st, int causal, cudaStream_t stream) {
+  // 16-byte copies when every operand allows them, else 4-byte ones
+  const bool vec = rows16(q, st[0], st[1], st[2]) &&
+                   rows16(k, st[3], st[4], st[5]) &&
+                   rows16(v, st[6], st[7], st[8]);
+  const bool r32 = f32_rows(B, S, H) == 32;
+  if (vec)
+    return r32 ? launch_rows<W, 2, true>(q, k, v, o, B, S, Skv, H, d, st,
+                                         causal, stream)
+               : launch_rows<W, 4, true>(q, k, v, o, B, S, Skv, H, d, st,
+                                         causal, stream);
+  return r32 ? launch_rows<W, 2, false>(q, k, v, o, B, S, Skv, H, d, st,
+                                        causal, stream)
+             : launch_rows<W, 4, false>(q, k, v, o, B, S, Skv, H, d, st,
+                                        causal, stream);
+}
 
-constexpr float kLog2e = 1.4426950408889634f;
+#else  // REPRO_ELEM_BF16
 
 // The shared-memory layout of one block at head-dim width W with BK keys
 // per step: the q tile (W/64 bands of 128 rows x 128 bytes), then `stages`
@@ -691,9 +972,12 @@ extern "C" {
 
 // o (B, S, H, D), contiguous = attention of q (B, S, H, D) over k, v
 // (B, Skv, H, D), each given by its (batch, sequence, head) strides in
-// elements with unit stride on D.  D is 1 to 256 (the 64-, 128- or 256-wide
-// instantiation, the smallest that holds it).  Launches on `stream` and
-// returns cudaGetLastError() (0 on success).
+// elements with unit stride on D.  D is 1 to 256: the 64-, 128-, 160-, 192-
+// or 256-wide instantiation, the smallest that holds it
+// (kernels/flash_attention.py:f32_width).  One block per 64 query rows of
+// one (batch, head), or per 32 where that gives fewer than two blocks an SM
+// (f32_rows): ceil(S / 64) * B * H < 2^31.  Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
 int repro_flash_attention(const void* q, const void* k, const void* v,
                           void* o, int B, int S, int Skv, int H, int D,
                           int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb,
@@ -701,19 +985,23 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
                           int64_t vsh, int causal, void* stream) {
   if (B <= 0 || S <= 0 || Skv <= 0 || H <= 0 || D <= 0 || D > 256)
     return cudaErrorInvalidValue;
-  if (static_cast<int64_t>(B) * H > 2147483647LL ||
-      (static_cast<int64_t>(S) + repro::kBQ - 1) / repro::kBQ > 65535)
+  if ((static_cast<int64_t>(S) + 63) / 64 * B * H >
+      2147483647LL)
     return cudaErrorInvalidValue;
   const int64_t st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
+  const auto* fq = static_cast<const float*>(q);
+  const auto* fk = static_cast<const float*>(k);
+  const auto* fv = static_cast<const float*>(v);
+  auto* fo = static_cast<float*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 64)
-    return repro::launch<float, 64>(q, k, v, o, B, S, Skv, H, D, st,
-                                        causal, s);
-  if (D <= 128)
-    return repro::launch<float, 128>(q, k, v, o, B, S, Skv, H, D, st,
-                                         causal, s);
-  return repro::launch<float, 256>(q, k, v, o, B, S, Skv, H, D, st,
-                                       causal, s);
+#define REPRO_FLASH_F32(W_)                                                  \
+  if (D <= W_)                                                               \
+    return repro::launch_f32<W_>(fq, fk, fv, fo, B, S, Skv, H, D, st,        \
+                                 causal, s);
+  REPRO_FLASH_F32(64) REPRO_FLASH_F32(128) REPRO_FLASH_F32(160)
+  REPRO_FLASH_F32(192) REPRO_FLASH_F32(256)
+#undef REPRO_FLASH_F32
+  return cudaErrorInvalidValue;
 }
 
 #else  // REPRO_ELEM_BF16

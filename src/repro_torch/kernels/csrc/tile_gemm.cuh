@@ -72,6 +72,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 // Everything here has internal linkage: each library that includes the
 // header keeps its own kernels and its own `configured` flags.  With external
 // linkage the flags become process-wide unique symbols, so the first library
@@ -184,37 +186,6 @@ struct TileArgs {
   int c_vec;          // C's rows and base 16-byte aligned
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Copy `bytes` (4 or 0) from src and zero the rest of the 4 bytes at dst.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-// Copy `bytes` (0 to 16) from src and zero the rest of the 16 bytes at dst.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Wait until every group but the newest stages - 2 has landed (stages is
 // 2 or 3).
 __device__ __forceinline__ void cp_wait_ring(int stages) {
@@ -222,23 +193,6 @@ __device__ __forceinline__ void cp_wait_ring(int stages) {
     cp_wait<1>();
   else
     cp_wait<0>();
-}
-
-template <int V>
-__device__ __forceinline__ void ld_frag(float* d, const float* s) {
-  if constexpr (V == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(s);
-    d[0] = v.x;
-    d[1] = v.y;
-    d[2] = v.z;
-    d[3] = v.w;
-  } else if constexpr (V == 2) {
-    const float2 v = *reinterpret_cast<const float2*>(s);
-    d[0] = v.x;
-    d[1] = v.y;
-  } else {
-    d[0] = *s;
-  }
 }
 
 // Rows [0, 2^rows_log2) x columns [0, 2^cols_log2) of the row-major block

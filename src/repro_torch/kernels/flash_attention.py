@@ -8,11 +8,11 @@ of ``csrc/flash_attention.cu``; it replaces
 ``D**-0.5``, the causal mask is top-left aligned (key j visible to query i
 when j <= i) and filled with -1e30, the softmax runs online in f32 and the
 output is cast to q's dtype.  bf16 and f32 are taken, at any head dim up
-to :data:`MAX_HEAD_DIM`: both kernels are compiled for the widths
-:data:`HEAD_DIMS` and a head dim runs on the smallest that holds it
-(:func:`compiled_width`), loads past it reading zero and stores past it
-skipped; a wider head dim raises.  There is no GQA: callers repeat the KV
-heads, as for the JAX kernel.
+to :data:`MAX_HEAD_DIM`: each kernel is compiled for a few widths (bf16
+:data:`HEAD_DIMS`, f32 :data:`F32_HEAD_DIMS`) and a head dim runs on the
+smallest that holds it (:func:`compiled_width`, :func:`f32_width`), loads
+past it reading zero and stores past it skipped; a wider head dim raises.
+There is no GQA: callers repeat the KV heads, as for the JAX kernel.
 
 Bound on an H100: bytes at the served prefill (S = 32), operations from a
 few hundred positions on.  Both kernels keep the scores out of device
@@ -32,9 +32,14 @@ dtype (:func:`route`); neither dtype ever takes the other's:
   (:func:`aligned_copy`, counted in ``COPIES``).  B * H times the query
   tiles is limited by the grid (:func:`_check_wgmma_grid`).
 * ``"cuda_cores"``: f32 runs the FP32 kernel (TF32 would not compute the
-  f32 function at 1e-5): q scaled in f32 before the product, 64 x 64 f32
-  tiles (:data:`BLOCK_Q`, :data:`BLOCK_K`, :func:`smem_bytes`), q, k and v
-  read through their strides; B * H and S are limited by the grid
+  f32 function at 1e-5): q scaled in f32 before the product; each step of
+  :data:`BLOCK_K` keys is two register-tiled products on the CUDA cores
+  (q.k^T, then p.v), fed by a cp.async ring that streams K and V in pieces
+  (the CUDA source gives the design).  :func:`f32_config` owns its tile,
+  ring and shared memory per width; a block is :data:`BLOCK_Q` query rows,
+  or half that where the grid would give fewer than two blocks an SM
+  (:func:`f32_rows`).  q, k and v are read through their strides;
+  ceil(S / :data:`BLOCK_Q`) * B * H is limited by the grid
   (:func:`_check_grid`).
 
 ``block_q`` and ``block_k`` only decide which calls are accepted: as the
@@ -58,8 +63,9 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.gemm import MAX_SMEM_BYTES, _on_cpu, on_device, \
-    raw_stream
+from repro_torch.kernels.gemm import BLOCK_RESERVED_SMEM, MAX_SMEM_BYTES, \
+    SM_SMEM_BYTES, SM_THREADS, _on_cpu, on_device, raw_stream
+from repro_torch.kernels.grouped_gemm import SMS
 
 #: kernel launches since the last reset
 LAUNCHES = {"flash_attention": 0}
@@ -68,13 +74,31 @@ ROUTES = {"wgmma": 0, "cuda_cores": 0}
 #: operands copied into a TMA-aligned buffer before a wgmma launch
 COPIES = {"aligned": 0}
 _TAGS = {torch.bfloat16: "bf16", torch.float32: "f32"}
-#: head-dim widths the kernels are compiled for
+#: head-dim widths the bf16 (wgmma) kernel is compiled for
 HEAD_DIMS = (64, 128, 256)
+#: head-dim widths the f32 (CUDA-core) kernel is compiled for: stablelm-12b's
+#: 160 and xlstm-125m's 192 run on widths of their own, not on 256
+F32_HEAD_DIMS = (64, 128, 160, 192, 256)
 #: the widest head dim taken
 MAX_HEAD_DIM = HEAD_DIMS[-1]
-#: the CUDA-core (f32) kernel's tile: query rows per block, keys per step
+#: the CUDA-core (f32) kernel (``flash_fwd`` in the CUDA source, whose
+#: constants these mirror): query rows per block (32 on small grids, see
+#: f32_rows) and keys per step; 128 threads, a 16 x 8 grid, each owning
+#: F32_ROWS (or half) query rows x F32_KEYS keys of the scores; K streams
+#: in pieces of F32_K_SLAB head-dim columns through F32_STAGES slots; the
+#: p tile's rows are BLOCK_K + F32_P_PAD floats, q's and K's rows
+#: F32_ROW_PAD past their width; the launch bounds ask for two blocks an SM
 BLOCK_Q = 64
 BLOCK_K = 64
+F32_THREADS = 128
+F32_TX = 8
+F32_ROWS = BLOCK_Q * F32_TX // F32_THREADS
+F32_KEYS = BLOCK_K // F32_TX
+F32_K_SLAB = 32
+F32_STAGES = 3
+F32_ROW_PAD = 4
+F32_P_PAD = 8
+F32_MIN_BLOCKS = 2
 #: the wgmma (bf16) kernel by compiled width: keys per step, consumer
 #: warpgroups (64 query rows each; a block's rows), and the K/V ring's
 #: depth.  A consumer holds its 64 x BK scores, their bf16 copy and its
@@ -107,26 +131,91 @@ def route(dtype) -> str:
     return "wgmma" if _tag(dtype) == "bf16" else "cuda_cores"
 
 
-def compiled_width(d: int) -> int:
-    """The compiled head-dim width that runs head dim ``d``: the smallest
-    of :data:`HEAD_DIMS` that holds it.  Raises ValueError past
-    :data:`MAX_HEAD_DIM`."""
-    for width in HEAD_DIMS:
+def _smallest_width(d: int, widths: tuple) -> int:
+    for width in widths:
         if 0 < d <= width:
             return width
     raise ValueError(f"the flash attention kernel takes head dims from 1 "
                      f"to {MAX_HEAD_DIM}, not {d}")
 
 
+def compiled_width(d: int) -> int:
+    """The compiled head-dim width that runs head dim ``d`` on the bf16
+    route: the smallest of :data:`HEAD_DIMS` that holds it.  Raises
+    ValueError past :data:`MAX_HEAD_DIM`."""
+    return _smallest_width(d, HEAD_DIMS)
+
+
+def f32_width(d: int) -> int:
+    """The compiled width that runs head dim ``d`` on the f32 route: the
+    smallest of :data:`F32_HEAD_DIMS` that holds it.  Raises ValueError past
+    :data:`MAX_HEAD_DIM`."""
+    return _smallest_width(d, F32_HEAD_DIMS)
+
+
+def f32_rows(b: int, s: int, h: int) -> int:
+    """Query rows one block of the f32 kernel takes for a (b, s, h) query:
+    :data:`BLOCK_Q`, or half that where BLOCK_Q-row tiles would give fewer
+    than two blocks an SM (few heads at a few thousand positions: a causal
+    call's tiles differ in length, and with few of them the longest leave
+    SMs idle).  ``f32_rows`` in the CUDA source."""
+    return BLOCK_Q // 2 if -(-s // BLOCK_Q) * b * h < 2 * SMS else BLOCK_Q
+
+
+class F32Config(NamedTuple):
+    """How ``flash_fwd`` in the CUDA source runs one head-dim width."""
+    width: int        #: compiled head-dim width
+    block_q: int      #: query rows per block (16 x rows)
+    block_k: int      #: keys per step
+    threads: int      #: a 16 x 8 grid
+    rows: int         #: query rows per thread (its register tile's rows)
+    keys: int         #: keys per thread (the score tile's columns)
+    columns: int      #: output columns per thread, in 4-wide fragments
+    k_slab: int       #: head-dim columns of one K piece
+    v_slab: int       #: keys of one V piece
+    stages: int       #: slots in the cp.async ring
+    q_bytes: int      #: the scaled q tile, rows of width + 4 floats
+    p_bytes: int      #: the p tile, rows of block_k + 8 floats
+    slot_bytes: int   #: one slot: block_k keys x (k_slab + 4) floats
+    smem_bytes: int   #: dynamic shared memory one block claims
+    blocks_per_sm: int  #: resident blocks by shared memory and threads
+
+
+def f32_config(d: int, block_q: int = BLOCK_Q) -> F32Config:
+    """The f32 route's configuration at head dim ``d`` (run on
+    :func:`f32_width`'s width) with ``block_q`` query rows a block (64, or
+    32: :func:`f32_rows`), as ``F32Tile`` in the CUDA source lays it out:
+    the scaled q tile, the p tile, then :data:`F32_STAGES` slots, each a
+    piece of K (:data:`BLOCK_K` keys x :data:`F32_K_SLAB` columns) or of V
+    (``v_slab`` keys x the width: the largest power of two of keys whose
+    piece fits a slot).  Raises ValueError for a head dim or a block the
+    kernel does not take."""
+    w = f32_width(d)
+    if block_q not in (BLOCK_Q, BLOCK_Q // 2):
+        raise ValueError(f"the f32 kernel runs blocks of {BLOCK_Q} or "
+                         f"{BLOCK_Q // 2} query rows, not {block_q}")
+    slot = BLOCK_K * (F32_K_SLAB + F32_ROW_PAD)
+    v_slab = 1 << ((slot // w).bit_length() - 1)
+    q_bytes = 4 * block_q * (w + F32_ROW_PAD)
+    p_bytes = 4 * block_q * (BLOCK_K + F32_P_PAD)
+    smem = q_bytes + p_bytes + F32_STAGES * 4 * slot
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"head dim {d}: {smem} bytes of shared memory "
+                         f"exceed the {MAX_SMEM_BYTES} a Hopper block may "
+                         f"claim")
+    resident = min(SM_SMEM_BYTES // (smem + BLOCK_RESERVED_SMEM),
+                   SM_THREADS // F32_THREADS)
+    return F32Config(w, block_q, BLOCK_K, F32_THREADS,
+                     block_q * F32_TX // F32_THREADS, F32_KEYS, w // F32_TX,
+                     F32_K_SLAB, v_slab, F32_STAGES, q_bytes, p_bytes,
+                     4 * slot, smem, resident)
+
+
 def smem_bytes(d: int) -> int:
-    """Dynamic shared memory one block of the CUDA-core (f32) kernel claims
-    at head dim ``d``: the f32 q and k tiles with rows padded to D + 1, the
-    v tile, and the probabilities with rows padded to BLOCK_K + 16, where D
-    is the compiled width that runs ``d``.  The wgmma route's is
-    :func:`wgmma_config`'s."""
-    w = compiled_width(d)
-    return 4 * (BLOCK_Q * (w + 1) + BLOCK_K * (w + 1) + BLOCK_K * w
-                + BLOCK_Q * (BLOCK_K + 16))
+    """Dynamic shared memory one 64-row block of the CUDA-core (f32)
+    kernel claims at head dim ``d`` (:func:`f32_config`'s).  The wgmma
+    route's is :func:`wgmma_config`'s."""
+    return f32_config(d).smem_bytes
 
 
 class WgmmaConfig(NamedTuple):
@@ -163,12 +252,13 @@ def wgmma_config(d: int) -> WgmmaConfig:
 
 
 def _check_grid(b: int, s: int, h: int, skv: int) -> None:
-    """The CUDA-core launch grid is (B*H, ceil(S/BLOCK_Q)): B*H on
-    gridDim.x, the query tiles on gridDim.y (at most 65,535)."""
-    if b * h >= 2 ** 31 or -(-s // BLOCK_Q) > 65535 or skv >= 2 ** 31:
+    """The CUDA-core launch grid is one dimension of ceil(S/BLOCK_Q) * B *
+    H blocks (at most 2**31 - 1; twice the tiles only where that stays
+    under two an SM, see :func:`f32_rows`)."""
+    if -(-s // BLOCK_Q) * b * h >= 2 ** 31 or s >= 2 ** 31 \
+            or skv >= 2 ** 31:
         raise ValueError(f"B * H = {b * h}, S = {s}, Skv = {skv}: the grid "
-                         f"takes B * H < 2**31 and S <= "
-                         f"{65535 * BLOCK_Q}")
+                         f"takes ceil(S / {BLOCK_Q}) * B * H < 2**31")
 
 
 def _check_wgmma_grid(b: int, s: int, h: int, skv: int,
@@ -233,13 +323,13 @@ def plan(q, k, v, block_q: int = 128, block_k: int = 128) -> Plan:
         _check(q, k, v, block_q, block_k)
         b, s, h, d = q.shape
         skv = k.shape[1]
-        compiled_width(d)
         rt = route(q.dtype)
         if rt == "wgmma":
             cfg = wgmma_config(d)
             _check_wgmma_grid(b, s, h, skv, cfg.block_q)
             p = Plan(b, s, skv, h, d, rt, cfg)
         else:
+            f32_width(d)
             _check_grid(b, s, h, skv)
             p = Plan(b, s, skv, h, d, rt, None)
         if len(_PLANS) >= MAX_PLANS:

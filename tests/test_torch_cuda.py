@@ -598,6 +598,73 @@ def test_flash_attention_kernel_takes_b_times_h_past_65535(dt):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+def _f32_flash_case(q, k, v):
+    """f32 flash attention on the card, causal and full: one launch on the
+    CUDA cores a call, the plain version's result at rtol = atol = 1e-5."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+
+    for causal in (True, False):
+        FA.reset_launch_counts()
+        got = ops.flash_attention(q, k, v, causal=causal, block_q=q.shape[1],
+                                  block_k=k.shape[1])
+        torch.cuda.synchronize()
+        assert FA.LAUNCHES == {"flash_attention": 1}
+        assert FA.ROUTES == {"wgmma": 0, "cuda_cores": 1}
+        want = FA.flash_attention_plain(q, k, v, causal=causal)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("s,skv", [(100, 100), (200, 200), (100, 200),
+                                   (200, 100)])
+@pytest.mark.parametrize("d", [1, 100, 160, 192, 256])
+@pytest.mark.parametrize("b,h,rows", [(1, 2, 32), (2, 140, 64)])
+def test_flash_attention_f32_at_every_compiled_width(d, s, skv, b, h, rows):
+    """Every f32 width (d = 1, 100, 160, 192, 256 run on 64, 128, 160, 192,
+    256) in both block heights (32 rows on a small grid, 64 on a large
+    one), S and Skv off the tile, Skv < S and Skv > S, causal and full."""
+    from repro_torch.kernels import flash_attention as FA
+
+    assert FA.f32_rows(b, s, h) == rows
+    rng = np.random.default_rng(s + skv + d + h)
+    q, k, v = operands_from_numpy(
+        *(rng.normal(size=shape).astype(np.float32)
+          for shape in ((b, s, h, d), (b, skv, h, d), (b, skv, h, d))),
+        device="cuda")
+    _f32_flash_case(q, k, v)
+
+
+@pytest.mark.parametrize("d,layout", [(160, "bhsd"), (192, "bhsd"),
+                                      (64, "offset"), (3, "bshd"),
+                                      (100, "offset")])
+def test_flash_attention_f32_reads_strided_and_unaligned_operands(d, layout):
+    """(B, S, H, D) views of (B, H, S, D) tensors take 16-byte copies
+    through their own strides; bases off 16 bytes and rows of 36 bytes (d =
+    3 over 3 heads) take the 4-byte copies."""
+    g = torch.Generator("cuda").manual_seed(d)
+    if layout == "bhsd":
+        q, k, v = (torch.randn(2, 3, 192, d, device="cuda", generator=g)
+                   .transpose(1, 2) for _ in range(3))
+    elif layout == "offset":
+        q, k, v = (torch.randn(2, 192, 3, d + 1, device="cuda",
+                               generator=g)[..., 1:] for _ in range(3))
+    else:
+        q, k, v = (torch.randn(2, 192, 3, d, device="cuda", generator=g)
+                   for _ in range(3))
+    _f32_flash_case(q, k, v)
+
+
+@pytest.mark.parametrize("d", [64, 160])
+def test_flash_attention_f32_takes_b_times_h_of_70000(d):
+    """B * H = 70,000 on the one-dimensional grid, 64-row blocks."""
+    rng = np.random.default_rng(d)
+    q, k, v = operands_from_numpy(
+        *(rng.normal(size=(1000, 64, 70, d)).astype(np.float32)
+          for _ in range(3)), device="cuda")
+    _f32_flash_case(q, k, v)
+
+
 @pytest.mark.parametrize("dt", ["bf16", "f32"])
 @pytest.mark.parametrize("shape", [(4, 1, 1536), (1, 32, 1536), (4096, 1536),
                                    (13, 128), (8, 4096), (16, 1001)])

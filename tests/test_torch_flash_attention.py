@@ -143,8 +143,11 @@ def test_wrapper_refuses_what_neither_path_takes():
                                      (129, 256), (160, 256), (192, 256),
                                      (256, 256)])
 def test_head_dim_runs_on_the_smallest_compiled_width(d, width):
+    """bf16 runs d on the smallest of its widths; f32 on the smallest of
+    its own (160 and 192 have widths of their own there), and its shared
+    memory is that width's."""
     assert FA.compiled_width(d) == width
-    assert FA.smem_bytes(d) == FA.smem_bytes(width) <= 232448
+    assert FA.smem_bytes(d) == FA.smem_bytes(FA.f32_width(d)) <= 232448
 
 
 @pytest.mark.parametrize("d", [0, 257, 320, 512])
@@ -154,10 +157,14 @@ def test_head_dims_past_256_raise_naming_256(d):
 
 
 def test_the_grid_takes_any_b_times_h():
-    """B * H goes on gridDim.x (2^31 - 1 blocks), the query tiles on
-    gridDim.y (65,535): B * H = 70,000 is taken, S past 65,535 tiles is
+    """The f32 grid is one dimension of ceil(S / BLOCK_Q) * B * H blocks
+    (2^31 - 1): B * H = 70,000 is taken, and so is S past the 65,535 query
+    tiles the old two-dimensional grid allowed; a grid of 2^31 blocks is
     not."""
     FA._check_grid(1000, 64, 70, 64)
-    FA._check_grid(1, 65535 * FA.BLOCK_Q, 1, 64)
-    with pytest.raises(ValueError, match="grid"):
-        FA._check_grid(1, 65535 * FA.BLOCK_Q + 1, 1, 64)
+    FA._check_grid(1, 65535 * FA.BLOCK_Q + 1, 1, 64)
+    s = 2 ** 31 - 1                           # 2^25 query tiles
+    FA._check_grid(63, s, 1, 64)
+    for args in ((64, s, 1, 64), (1, 2 ** 31, 1, 64), (1, 64, 1, 2 ** 31)):
+        with pytest.raises(ValueError, match="grid"):
+            FA._check_grid(*args)
