@@ -39,10 +39,12 @@ the attention and norm entry points on that model's activations (phase
              flash_attention_f32 libraries' FFMA and no HMMA or HGMMA (no
              TF32).
 2. kernels — both loop orders against their plain PyTorch versions on the
-             card: every tile the planner picks for the slice's shapes (the
-             Qwen2-1.5B GEMMs, Table-2 in all three dtypes, granite's
-             logits GEMM at M = 4, 8, 32, 128), in bf16, f32 and int8, on a
-             divisible shape and one whose last k-outer pass is ragged;
+             card: every tile the planner (the Hopper tile model) picks for
+             the slice's shapes in that dtype (the Qwen2-1.5B GEMMs,
+             Table-2, granite's GEMMs at 1-256 rows and its logits GEMM at
+             M = 4, 8, 32, 128) and every tile phases 4-5 time, in bf16,
+             f32 and int8 (bf16 also 128x256x128, one warpgroup in rounds),
+             on a divisible shape and one whose last k-outer pass is ragged;
              the Table-2 shapes whose rows TMA cannot read in place (K = 27,
              1; N = 49, 196) in bf16, int8 (exact) and f32 (B at a
              weight's init scale); f32 on strided views whose base and row
@@ -54,36 +56,46 @@ the attention and norm entry points on that model's activations (phase
              k-inner's error; one RMSNorm call with a bf16 scale must run
              exactly one device kernel and allocate only its output.
 3. main    — the Qwen2-1.5B GEMMs at tokens=4096, planned on ``cuda`` for
-             ``h100`` and executed (k-inner, then pinned to k-outer with the
-             same tile), each checked against its plain version, in bf16,
-             in int8 (exact; the int8 planner's tile) and in f32 (the f32
-             planner's 32x64x128, on the CUDA cores; B at a weight's init
-             scale).
-4. loop    — ``measure.run_campaign`` (Table-2 and the Qwen2-1.5B shapes, in
-             int8 and bf16) -> ``fit_from_store`` -> ``validate_spec``, plus
-             k-outer Qwen samples held out of the fit.
+             ``h100`` (the Hopper tile model) and executed by
+             ``plan.execute`` in the planner's loop order and pinned to the
+             other with the same tile, each checked against its plain
+             version, in bf16, in int8 (exact) and in f32 (on the CUDA
+             cores; B at a weight's init scale).
+4. loop    — Table-2 in int8, bf16 and f32 at the planner's tiles
+             (``measure.run_campaign``), the five Qwen2-1.5B GEMMs in each
+             dtype at the planner's tile and two more (``gemm.plan(...,
+             tile=)`` and ``measure.Sample.from_measurement``), k-outer at
+             one tile per dtype -> ``fit_from_store`` on the Hopper model
+             with ``on_nonpositive="raise"`` -> ``validate_spec``, plus
+             bf16 k-outer at 64x128x128 held out of the fit.  Prints every
+             fitted rate and per-call cost beside the manifest's, the MAPE
+             by dtype and loop order (campaign and held out) and, per
+             Qwen2-1.5B GEMM and dtype, the planner's tile's time over the
+             fastest tile timed.
 5. timing  — each kernel at the Qwen2-1.5B shapes with CUDA events, beside
              its plain version, ``torch.matmul`` and its roofline bound
              (TFLOP/s and share of the bound; for k-outer also the C-stream
-             floor its variant defines); k-inner with two shared-memory
-             stages against as many as fit, in turns; with ``--parent DIR``
-             (an export of an earlier commit) also that tree's times, in
-             the order parent, change, change, parent.  Then the int8
-             route (wgmma s8, ``wgmma_s8.cuh``) at the same shapes on
-             bf16's tile and on the int8 planner's (128x128x128), beside
+             floor its variant defines), at the planner's tiles and at the
+             TPU model's old pick (64x128x128); k-inner with two
+             shared-memory stages against as many as fit, in turns; with
+             ``--parent DIR`` (an export of an earlier commit) also that
+             tree's times at the planner's tiles, in the order parent,
+             change, change, parent.  Then the int8 route (wgmma s8,
+             ``wgmma_s8.cuh``) at the same shapes at the int8 planner's
+             tile, the old 128x128x128 and 64x128x128, beside
              its plain version, ``torch._int_mm`` (int8 -> int32), its
              bound (the 1,979 TOP/s int8 tensor-core rate) and k-outer's
              int32 C-stream floor; the 19 Table-2 int8 cells (k-inner on
              the planner's tiles, with the wrapper's host µs a call); two
              stages against as many as fit; the transposed copy of B
              alone.  With ``--parent``, the int8 GEMMs, the Table-2 cells
-             and the f32 route (at 64x128x128 and at the f32 planner's
-             32x64x128) in both trees, each in a fresh process: parent,
-             change, change, parent.  Then the f32 route (the CUDA cores,
-             ``tile_gemm.cuh``) at both tiles beside ``torch.matmul`` (TF32
-             off) and its bound (67 TFLOP/s).  Phases 3, 4, 5 and 7 fail
-             unless
-             every bf16 and int8 GEMM launch went through the wgmma route,
+             and the f32 route (at the f32 planner's tile, the old
+             32x64x128 and 64x128x128) in both trees, each in a fresh
+             process: parent, change, change, parent.  Then the f32 route
+             (the CUDA cores, ``tile_gemm.cuh``) at those tiles beside
+             ``torch.matmul`` (TF32 off) and its bound (67 TFLOP/s).
+             Phases 3, 4, 5 and 7 fail unless every bf16 and int8 GEMM
+             launch went through the wgmma route,
              phase 5 unless every f32 launch went through the CUDA
              cores.
 6. grouped — the grouped (MoE expert) kernel against its plain version in
@@ -175,10 +187,10 @@ their runs),
 phase 7 the grouped kernel and
 at least one GEMM kernel, phases 9 and 10 (each) the flash attention and
 RMSNorm kernels.  The line before the last is the
-``{"kernels": [...]}`` record (the GEMM kernels three times: bf16 from
-``wgmma_gemm.cuh``, int8, ``*_int8``, from ``wgmma_s8.cuh``, timed on the
-int8 planner's tile, and f32, ``*_f32``, from ``tile_gemm.cuh``, timed on
-the f32 planner's 32x64x128; flash attention twice: bf16 over the shapes
+``{"kernels": [...]}`` record (the GEMM kernels three times, each timed at
+its dtype's planner tiles: bf16 from ``wgmma_gemm.cuh``, int8,
+``*_int8``, from ``wgmma_s8.cuh``, and f32, ``*_f32``, from
+``tile_gemm.cuh``; flash attention twice: bf16 over the shapes
 phase 9 recorded, ``flash_attention_f32`` at phase 10's granite S = 4096
 causal f32 row with phase 10's f32 launches); the last line is
 ``{"ok": true, "device": {...}}``.  Samples, the fitted manifest and the
@@ -192,7 +204,11 @@ int8 exact; f32 rtol 1e-5 / atol 1e-4 (FP32 FMA vs cuBLAS FP32, no TF32);
 bf16 k-inner and grouped rtol = atol = 2e-2 (both sum in f32 and round
 once; the sum order differs); bf16 k-outer one bf16 ulp of the running |C|
 per pass (each pass rounds C to bf16, and a different f32 sum order can
-cross a rounding boundary once per pass).  Served logits against the
+cross a rounding boundary once per pass) plus the spread of two f32 sums
+of the same K products in different orders, 2 gamma_K sum |a b| (gamma_K =
+K 2^-24 / (1 - K 2^-24)): where a single pass cancels to near zero that
+spread exceeds one ulp of |C|, and kernel and plain version land on either
+side of the float64 product.  Served logits against the
 per-request loop: f32 rtol = atol = 1e-4 per element (phase 8); bf16 0.1
 relative L2 per step (phase 7: the bucketed prefill and the batch of 4 take
 other bf16 rounding paths than one-token decode at batch 1, through 32
@@ -263,6 +279,22 @@ def k_outer_peak(a, b, c, bk):
     return peak
 
 
+def sum_order_bound(a, b):
+    """Per element, how far two f32 sums of the K products a_ik b_kj can
+    lie apart in different orders: 2 gamma_K sum_k |a_ik b_kj|, gamma_K =
+    K u / (1 - K u), u = 2^-24 (each within gamma_K of the exact sum)."""
+    k = a.shape[1]
+    gamma = k * 2.0 ** -24 / (1.0 - k * 2.0 ** -24)
+    return 2.0 * gamma * (a.float().abs() @ b.float().abs())
+
+
+def k_outer_bounds(a, b, c, bk):
+    """bf16 k-outer's tolerance terms for :func:`compare`: the peak |C| of
+    the passes and the f32 sum-order bound."""
+    return {"peak": k_outer_peak(a, b, c, bk),
+            "order_bound": sum_order_bound(a, b)}
+
+
 def held(name, tag, got, want, allowed=None):
     """Max |got - want|; raises when an element differs from ``want`` by
     more than ``allowed`` (a float, or a tensor shaped like ``want``), or,
@@ -290,8 +322,13 @@ def within(want, rtol, atol):
     return atol + rtol * want.float().abs()
 
 
-def compare(order, tag, got, want, *, passes=1, peak=None):
-    """:func:`held` with the GEMM kernels' stated tolerances."""
+def compare(order, tag, got, want, *, passes=1, peak=None, order_bound=None,
+            where=""):
+    """:func:`held` with the GEMM kernels' stated tolerances; ``where``
+    (e.g. the tile and shape) goes into a failure's message.  bf16
+    k-outer: one bf16 ulp of the running |C| per pass, plus
+    ``order_bound`` (:func:`sum_order_bound`), the f32 sum-order spread
+    the ulp alone does not cover where a sum cancels to near zero."""
     if tag == "int8":
         allowed = None
     elif tag == "f32":
@@ -300,7 +337,9 @@ def compare(order, tag, got, want, *, passes=1, peak=None):
         allowed = within(want, 2e-2, 2e-2)
     else:
         allowed = passes * bf16_ulp(peak)
-    return held(order, tag, got, want, allowed)
+        if order_bound is not None:
+            allowed = allowed + order_bound
+    return held(order + where, tag, got, want, allowed)
 
 
 def norm_tolerance(tag, want):
@@ -421,19 +460,181 @@ def ptxas_entries(log):
              e["spill"]) for n, m, e in zip(names, short, entries)]
 
 
+#: the tiles the TPU model (the port's planner before the Hopper model,
+#: still ``analytic-tpu``) picked for the five Qwen2-1.5B GEMMs: phase 5
+#: times the kernels there too, so the kernel table keeps comparable rows
+OLD_PICKS = {"bf16": (64, 128, 128), "int8": (128, 128, 128),
+             "f32": (32, 64, 128)}
+
+
+#: phase 4: the tile each dtype's k-outer fit samples run at (the held-out
+#: samples are bf16 k-outer at OLD_PICKS["bf16"], out of the fit)
+FIT_K_OUTER = {"bf16": (128, 128, 128), "int8": (128, 128, 128),
+               "f32": (64, 128, 128)}
+#: phase 4: a second tile for each Qwen2-1.5B GEMM, beside the old pick
+FIT_ALT = {"bf16": (128, 128, 128), "int8": (64, 128, 128),
+           "f32": (64, 128, 128)}
+#: phase 4's harness repetitions: one warm-up, 3 to 5 rounds
+FIT_TIMING = {"warmup": 1, "rounds": 3, "max_rounds": 5}
+
+
+def phase4_tiles(gemm, GemmShape, qwen, model_gemm_shapes, tag):
+    """{GEMM name: [the planner's tile, two more]} for the five Qwen2-1.5B
+    GEMMs in ``tag``: the planner's (in its loop order), then k-inner at
+    the first two of the TPU model's old pick, :data:`FIT_ALT` and the
+    Hopper model's next cheapest tiles that are not the planner's
+    (bm, bn, bk)."""
+    from repro_torch.core import hopper_model as H
+    from repro_torch.core.tpu_model import TileConfig
+    from repro_torch.machines import resolve
+
+    h100 = resolve("h100")
+    out = {}
+    for name, s in zip(["qkv", "o", "gate_up", "down", "logits"],
+                       model_gemm_shapes(qwen, tokens=4096)):
+        shape = GemmShape(s.m, s.n, s.k, dtype=tag)
+        pick = gemm.plan(shape, backend="cuda", machine="h100").selection
+        ranked = sorted(H.lattice(tag),
+                        key=lambda t: H.estimate(shape, t, h100).total)
+        tiles = [pick]
+        for t in [OLD_PICKS[tag], FIT_ALT[tag]] + [
+                (t.bm, t.bn, t.bk) for t in ranked]:
+            if tuple(t) not in {(x.bm, x.bn, x.bk) for x in tiles}:
+                tiles.append(TileConfig(*t))
+            if len(tiles) == 3:
+                break
+        out[name] = tiles
+    return out
+
+
+def pinned_sample(gemm, measure, harness, spec, problem, tile, grid, path):
+    """One harness sample of ``problem`` planned on ``cuda`` at ``tile``,
+    appended to the store at ``path``."""
+    plan = gemm.plan(problem, backend="cuda", machine="h100", tile=tile)
+    s = measure.Sample.from_measurement(
+        plan, harness.measure(plan, timing=FIT_TIMING), "cuda", spec,
+        meta={"grid": grid})
+    measure.SampleStore(path).append(s)
+    return s
+
+
+def route_check(K, label, tag, since):
+    """Fails unless every GEMM launch since ``since`` (a :func:`snapshot`)
+    took ``tag``'s route: wgmma for bf16 and int8, the CUDA cores for
+    f32."""
+    if tag != "f32":
+        all_on_wgmma(K, label, since)
+        return
+    n = sum(K.LAUNCHES.values()) - since[0]
+    routes = {r: K.ROUTES[r] - since[1][r] for r in K.ROUTES}
+    print(f"{label}: {n} GEMM launches, by route {routes}")
+    check(n > 0 and routes == {"wgmma": 0, "cuda_cores": n},
+          f"{label}: an f32 GEMM launch left the CUDA-core route")
+
+
+def main_path_gemms(gemm, K, names, shapes, tag, dev):
+    """Phase 3 in one dtype: each Qwen2-1.5B GEMM planned on ``cuda`` for
+    ``h100`` and run by ``plan.execute`` at the planner's tile, in its loop
+    order and pinned to the other, each against its plain version (int8
+    exact; f32 with B at a weight's init scale).  Returns the largest
+    error per kernel and the rows (name, m, n, k, (bm, bn, bk))."""
+    import torch
+    from repro_torch.core.tpu_model import GridOrder, TileConfig
+    from repro_torch.gemm.api import GemmProblem
+
+    err = {kname: 0.0 for kname in K.LAUNCHES}
+    rows = []
+    seed = {"bf16": 1000, "int8": 1100, "f32": 1200}[tag]
+    for i, (name, (m, n, k)) in enumerate(zip(names, shapes)):
+        p = GemmProblem(m, n, k, dtype=tag)
+        plan = gemm.plan(p, backend="cuda", machine="h100")
+        t = plan.selection
+        a, b = seeded(m, n, k, tag, seed + i, dev)
+        if tag == "f32":
+            # B at a weight's init scale (std K^-1/2): C is O(1), as in the
+            # models (with N(0, 1) operands at K = 1536 |C| reaches ~40,
+            # and any two f32 sum orders differ past atol 1e-4)
+            b *= k ** -0.5
+        c0 = torch.zeros((m, n), dtype=K.out_dtype(a.dtype), device=dev)
+        for order, kname in ((GridOrder.K_INNER, "gemm_k_inner"),
+                             (GridOrder.K_OUTER, "gemm_k_outer")):
+            run = plan if t.order is order else gemm.plan(
+                p, backend="cuda", machine="h100",
+                tile=TileConfig(t.bm, t.bn, t.bk, order))
+            got = run.execute(a, b)
+            if order is GridOrder.K_INNER:
+                want, kw = K.gemm_k_inner_plain(a, b), {}
+            else:
+                want = K.gemm_k_outer_plain(a, b, c0, bk=t.bk)
+                kw = {"passes": -(-k // t.bk)}
+                if tag == "bf16":
+                    kw.update(k_outer_bounds(a, b, c0, t.bk))
+            err[kname] = max(err[kname], compare(kname, tag, got, want,
+                                                 **kw))
+            del got, want
+        rows.append((name, m, n, k, (t.bm, t.bn, t.bk)))
+        print(f"{name:<8} {m}x{n}x{k} {tag} planned {t}: k_inner and "
+              f"k_outer match their plain versions")
+        del a, b, c0
+        torch.cuda.empty_cache()
+    return {"err": err, "shapes": rows}
+
+
+def fit_columns(rep, spec):
+    """Each fitted design column beside the manifest's value: rates in
+    bytes or ops per second, per-call costs in µs."""
+    import math
+    rows = []
+    for col, x in zip(rep.columns, rep.inverse_rates):
+        kind, _, key = col.partition(":")
+        if kind == "call":
+            fitted, manifest, unit = x * 1e6, spec.call_costs[key] * 1e6, "us"
+        elif kind == "rate":
+            o, _, d = key.partition("->")
+            fitted, manifest, unit = 1.0 / x, spec.rate(o, d), "B/s"
+        else:
+            fitted, manifest, unit = 1.0 / x, spec.arith_rate[key], "op/s"
+        check(math.isfinite(fitted), f"column {col} was not fitted")
+        rows.append({"column": col, "fitted": fitted, "manifest": manifest,
+                     "unit": unit, "ratio": fitted / manifest})
+    return rows
+
+
+def mape_breakdown(report, heldout):
+    """MAPE (%) by dtype, by loop order and by both, of the campaign
+    report, and of the held-out samples."""
+    groups = {}
+    for label, rep in (("campaign", report), ("held-out", heldout)):
+        for r in rep.rows:
+            order = (r.sample.tile or "").partition(":")[2] or "k_inner"
+            for key in (f"{label}", f"{label} {r.sample.dtype}",
+                        f"{label} {order}",
+                        f"{label} {r.sample.dtype} {order}"):
+                groups.setdefault(key, []).append(r.ape)
+    return {key: {"cells": len(v), "mape_pct": 100.0 * sum(v) / len(v)}
+            for key, v in sorted(groups.items())}
+
+
 def planner_tiles(gemm, get_config, model_gemm_shapes, table2, GemmShape):
-    """Every tile the planner picks on ``cuda`` for ``h100`` for the slice's
-    shapes: the Qwen2-1.5B GEMMs at tokens=4096, Table-2 in int8, bf16 and
-    f32, and granite-moe-3b-a800m's logits GEMM at M = 4, 8, 32, 128."""
+    """Every tile (bm, bn, bk) the planner picks on ``cuda`` for ``h100``,
+    by dtype, for the slice's shapes: the Qwen2-1.5B GEMMs at tokens=4096,
+    Table-2, granite-moe-3b-a800m's GEMMs at the rows its served run
+    plans (1 to 256 tokens) and its logits GEMM at M = 4, 8, 32, 128, each
+    in int8, bf16 and f32."""
     granite = get_config("granite-moe-3b-a800m")
-    shapes = list(model_gemm_shapes(get_config("qwen2-1.5b"), tokens=4096))
-    shapes += [GemmShape(r.m, r.n, r.k, dtype=tag) for tag in
-               ("int8", "bf16", "f32") for r in table2]
-    shapes += [GemmShape(m, granite.padded_vocab, granite.d_model,
-                         dtype="bf16") for m in (4, 8, 32, 128)]
-    return sorted({(d.selection.bm, d.selection.bn, d.selection.bk)
-                   for d in gemm.plan_many(shapes, backend="cuda",
-                                           machine="h100")})
+    qwen = model_gemm_shapes(get_config("qwen2-1.5b"), tokens=4096)
+    served = [s for t in (1, 2, 4, 8, 16, 32, 64, 128, 256)
+              for s in model_gemm_shapes(granite, tokens=t)]
+    picks = {}
+    for tag in ("int8", "bf16", "f32"):
+        shapes = [GemmShape(s.m, s.n, s.k, dtype=tag) for s in qwen + served]
+        shapes += [GemmShape(r.m, r.n, r.k, dtype=tag) for r in table2]
+        shapes += [GemmShape(m, granite.padded_vocab, granite.d_model,
+                             dtype=tag) for m in (4, 8, 32, 128)]
+        picks[tag] = sorted({(d.selection.bm, d.selection.bn, d.selection.bk)
+                             for d in gemm.plan_many(shapes, backend="cuda",
+                                                     machine="h100")})
+    return picks
 
 
 def sass_check(build, lib, name, need, forbid=()):
@@ -524,6 +725,17 @@ def c_stream_ms(m, n, k, bk, tag="bf16"):
     return m * n * out * 2 * -(-k // bk) / HBM_BYTES_PER_S * 1e3
 
 
+def tiles_label(shapes):
+    """The tiles of rows (name, m, n, k, (bm, bn, bk)), e.g. "64x128x128"
+    or "128x256x128 (qkv, o), 128x128x128 (down)"."""
+    by = {}
+    for name, *_, t in shapes:
+        by.setdefault("x".join(map(str, t)), []).append(name)
+    if len(by) == 1:
+        return next(iter(by))
+    return ", ".join(f"{t} ({', '.join(n)})" for t, n in by.items())
+
+
 def gemm_timings(K, shapes, dev, *, plain=True, quiet=False, tag="bf16"):
     """Both GEMM kernels at ``shapes`` [(name, m, n, k, (bm, bn, bk))] in
     ``tag`` (bf16 and int8: the wgmma route; f32: the CUDA cores), timed
@@ -566,10 +778,11 @@ def gemm_timings(K, shapes, dev, *, plain=True, quiet=False, tag="bf16"):
             if not quiet:
                 floor = (f", C-stream floor {row['c_stream_ms']:.4f} ms"
                          if c_in else "")
+                shown = f"plain {pms:.4f} ms, " if plain else ""
                 print(f"{kname:<13}{tag:<5}{name:<8}{m}x{n}x{k}: {ms:.4f} ms "
                       f"({row['tflops']:.2f} T(FL)OP/s, "
                       f"{100 * row['bound_share']:.1f}% of the bound), "
-                      f"plain {pms:.4f} ms, {mm.__name__} {lib:.4f} ms, "
+                      f"{shown}{mm.__name__} {lib:.4f} ms, "
                       f"bound {bms:.4f} ms ({by}){floor}")
         del a, b, c0
         torch.cuda.empty_cache()
@@ -579,12 +792,13 @@ def gemm_timings(K, shapes, dev, *, plain=True, quiet=False, tag="bf16"):
             floor = (f", C-stream floor "
                      f"{sum(r['c_stream_ms'] for r in mine):.4f} ms"
                      if kname == "gemm_k_outer" else "")
+            shown = (f"plain {sum(r['plain_ms'] for r in mine):.4f} ms, "
+                     if plain else "")
             print(f"{kname} {tag} over the five GEMMs at "
-                  f"{'x'.join(map(str, shapes[0][4]))}: "
+                  f"{tiles_label(shapes)}: "
                   f"{sum(r['ms'] for r in mine):.4f} ms, {mm.__name__} "
-                  f"{sum(r['library_ms'] for r in mine):.4f} ms, plain "
-                  f"{sum(r['plain_ms'] for r in mine):.4f} ms, bound "
-                  f"{sum(r['bound_ms'] for r in mine):.4f} ms{floor}")
+                  f"{sum(r['library_ms'] for r in mine):.4f} ms, {shown}"
+                  f"bound {sum(r['bound_ms'] for r in mine):.4f} ms{floor}")
     return rows
 
 
@@ -623,7 +837,7 @@ def stage_timings(K, shapes, dev, tag="bf16"):
         for st, v in r["ms_by_stages"].items():
             sums[st] = sums.get(st, 0.0) + v
     print(f"gemm_k_inner {tag} over the five GEMMs at "
-          f"{'x'.join(map(str, shapes[0][4]))} by shared-memory stages (the "
+          f"{tiles_label(shapes)} by shared-memory stages (the "
           f"faster of two turns each): "
           + ", ".join(f"{st} stage(s) {v:.4f} ms" for st, v in
                       sorted(sums.items())))
@@ -2040,8 +2254,19 @@ def main(argv=None) -> int:
     print("RMSNorm: no dynamic shared memory")
     picks = planner_tiles(gemm, get_config, model_gemm_shapes, TABLE2,
                           GemmShape)
-    for t in picks:
-        for tag in ("bf16", "int8"):
+    # and the tiles phases 4 and 5 time besides the planner's
+    qwen = get_config("qwen2-1.5b")
+    fit_tiles = {tag: phase4_tiles(gemm, GemmShape, qwen, model_gemm_shapes,
+                                   tag) for tag in picks}
+    checked_tiles = {tag: sorted(set(picks[tag]) | {
+        OLD_PICKS[tag], FIT_K_OUTER[tag], (64, 128, 128)} | {
+            (t.bm, t.bn, t.bk) for ts in fit_tiles[tag].values()
+            for t in ts}) for tag in picks}
+    # bf16 at N = 256 runs one warpgroup in rounds (two would spill)
+    checked_tiles["bf16"] = sorted(set(checked_tiles["bf16"])
+                                   | {(128, 256, 128)})
+    for tag in ("bf16", "int8"):
+        for t in checked_tiles[tag]:
             for order in ("k_inner", "k_outer"):
                 c = K.check_tile(TileConfig(*t), tag,
                                  k_outer=order == "k_outer")
@@ -2050,7 +2275,7 @@ def main(argv=None) -> int:
                       f"{c.rounds} round(s), slab {c.ks} deep, {c.stages} "
                       f"stage(s) of {c.stage_bytes} B, {c.smem_bytes} B "
                       f"dynamic shared memory, {c.threads} threads")
-    for t in sorted(set(picks) | {(64, 128, 128)}):
+    for t in checked_tiles["f32"]:
         for order in ("k_inner", "k_outer"):
             cfg = K.launch_config(TileConfig(*t), "f32",
                                   k_outer=order == "k_outer")
@@ -2068,34 +2293,36 @@ def main(argv=None) -> int:
 
     # -- phase 2 ---------------------------------------------------------
     phase(2, "kernels vs plain versions on the card")
-    qwen = get_config("qwen2-1.5b")
-    print(f"planner tiles for the slice: {picks}")
-    # 390 = 3 x 128 + 6: the k-outer passes end on a ragged one
+    print(f"planner tiles for the slice, by dtype: {picks}; with the tiles "
+          f"phases 4-5 time: {checked_tiles}")
+    # 390 = 3 x 128 + 6: at bk = 128 the k-outer passes end on a ragged one
     shapes = [(512, 512, 512), (300, 520, 390)]
     checked = 0
     K.reset_launch_counts()
     expect = {"wgmma": 0, "cuda_cores": 0}
-    for i, (bm, bn, bk) in enumerate(picks):
-        for tag in ("int8", "bf16", "f32"):
+    for tag in ("int8", "bf16", "f32"):
+        for i, (bm, bn, bk) in enumerate(checked_tiles[tag]):
             for (m, n, k) in shapes:
+                where = f" at {bm}x{bn}x{bk}, {m}x{n}x{k}"
                 a, b = seeded(m, n, k, tag, 100 + i, dev)
                 c0 = torch.zeros((m, n), dtype=K.out_dtype(a.dtype),
                                  device=dev)
                 ti = TileConfig(bm, bn, bk, GridOrder.K_INNER)
                 to = TileConfig(bm, bn, bk, GridOrder.K_OUTER)
                 compare("gemm_k_inner", tag, K.gemm_k_inner(a, b, tile=ti),
-                        K.gemm_k_inner_plain(a, b))
+                        K.gemm_k_inner_plain(a, b), where=where)
                 passes = -(-k // bk)
                 compare("gemm_k_outer", tag, K.gemm_k_outer(a, b, c0, tile=to),
                         K.gemm_k_outer_plain(a, b, c0, bk=bk), passes=passes,
-                        peak=k_outer_peak(a, b, c0, bk) if tag == "bf16"
-                        else None)
+                        where=where, **(k_outer_bounds(a, b, c0, bk)
+                                        if tag == "bf16" else {}))
                 expect[K.route(a.dtype)] += 1 + passes
                 checked += 2
     torch.cuda.synchronize()
     print(f"{checked} kernel/plain comparisons passed "
-          f"({len(picks)} tiles x 3 dtypes x {len(shapes)} shapes x 2 "
-          f"orders, the last k-outer pass of {shapes[1]} ragged)")
+          f"({ {t: len(v) for t, v in checked_tiles.items()} } tiles by "
+          f"dtype x {len(shapes)} shapes x 2 orders, the last k-outer pass "
+          f"of {shapes[1]} ragged at bk = 128)")
     unaligned = [(r.m, r.n, r.k) for r in TABLE2
                  if r.k % 8 or r.n % 8]
     for tag in ("bf16", "int8", "f32"):
@@ -2112,16 +2339,17 @@ def main(argv=None) -> int:
             c0 = torch.zeros((m, n), dtype=odt, device=dev)
             t = d.selection
             copies = dict(K.COPIES)
+            where = f" at {t.bm}x{t.bn}x{t.bk}, Table-2 {m}x{n}x{k}"
             compare("gemm_k_inner", tag,
                     K.gemm_k_inner(a, b, tile=TileConfig(t.bm, t.bn, t.bk)),
-                    K.gemm_k_inner_plain(a, b))
+                    K.gemm_k_inner_plain(a, b), where=where)
             compare("gemm_k_outer", tag,
                     K.gemm_k_outer(a, b, c0, tile=TileConfig(
                         t.bm, t.bn, t.bk, GridOrder.K_OUTER)),
                     K.gemm_k_outer_plain(a, b, c0, bk=t.bk),
-                    passes=-(-k // t.bk),
-                    peak=k_outer_peak(a, b, c0, t.bk) if tag == "bf16"
-                    else None)
+                    passes=-(-k // t.bk), where=where,
+                    **(k_outer_bounds(a, b, c0, t.bk) if tag == "bf16"
+                       else {}))
             expect[K.route(tag)] += 1 + -(-k // t.bk)
             made = {c: K.COPIES[c] - copies[c] for c in copies}
             print(f"Table-2 {m}x{n}x{k} ({tag}, tile {t.bm}x{t.bn}x{t.bk}): "
@@ -2144,7 +2372,7 @@ def main(argv=None) -> int:
     big_a, big_b = seeded(301, 530, 400, "f32", 250, dev)
     a, b = big_a[1:, 3:393], big_b[5:395, 1:521]
     c0 = torch.zeros((300, 520), device=dev)
-    for t in picks:
+    for t in checked_tiles["f32"]:
         compare("gemm_k_inner", "f32",
                 K.gemm_k_inner(a, b, tile=TileConfig(*t)),
                 K.gemm_k_inner_plain(a, b))
@@ -2178,192 +2406,130 @@ def main(argv=None) -> int:
     # -- phase 3 ---------------------------------------------------------
     phase(3, "main path: Qwen2-1.5B GEMMs planned on cuda@h100, executed")
     K.reset_launch_counts()
-    plans = gemm.plan_model_gemms(qwen, tokens=4096, backend="cuda",
-                                  machine="h100")
     names = ["qkv", "o", "gate_up", "down", "logits"]
-    max_err = {"gemm_k_inner": 0.0, "gemm_k_outer": 0.0}
-    for i, (name, plan) in enumerate(zip(names, plans)):
-        p, t = plan.problem, plan.selection
-        a, b = seeded(p.m, p.n, p.k, "bf16", 1000 + i, dev)
-        out = plan.execute(a, b)
-        torch.cuda.synchronize()
-        max_err["gemm_k_inner"] = max(max_err["gemm_k_inner"], compare(
-            "gemm_k_inner", "bf16", out, K.gemm_k_inner_plain(a, b)))
-        del out
-        pinned = gemm.plan(p, backend="cuda", machine="h100",
-                           tile=TileConfig(t.bm, t.bn, t.bk,
-                                           GridOrder.K_OUTER))
-        out = pinned.execute(a, b)
-        torch.cuda.synchronize()
-        c0 = torch.zeros((p.m, p.n), dtype=torch.bfloat16, device=dev)
-        want = K.gemm_k_outer_plain(a, b, c0, bk=t.bk)
-        max_err["gemm_k_outer"] = max(max_err["gemm_k_outer"], compare(
-            "gemm_k_outer", "bf16", out, want, passes=-(-p.k // t.bk),
-            peak=k_outer_peak(a, b, c0, t.bk)))
-        print(f"{name:<8} {p.m}x{p.n}x{p.k} tile {t}: k_inner and k_outer "
-              f"match their plain versions")
-        del out, want, a, b, c0
-        torch.cuda.empty_cache()
-    # the same GEMMs in int8, on the int8 planner's tiles (wgmma_s8.cuh):
-    # exact against the plain versions; their launches are counted apart
-    # for the int8 entries of the kernels line
-    int8_launches = {kname: 0 for kname in K.LAUNCHES}
-    int8_err = {kname: 0.0 for kname in K.LAUNCHES}
-    int8_shapes = []
-    before = dict(K.LAUNCHES)
-    for i, (name, plan) in enumerate(zip(names, plans)):
-        p = GemmProblem(plan.problem.m, plan.problem.n, plan.problem.k,
-                        dtype="int8")
-        planned = gemm.plan(p, backend="cuda", machine="h100")
-        t = planned.selection
-        a, b = seeded(p.m, p.n, p.k, "int8", 1100 + i, dev)
-        c0 = torch.zeros((p.m, p.n), dtype=torch.int32, device=dev)
-        int8_err["gemm_k_inner"] = max(int8_err["gemm_k_inner"], compare(
-            "gemm_k_inner", "int8", planned.execute(a, b),
-            K.gemm_k_inner_plain(a, b)))
-        pinned = gemm.plan(p, backend="cuda", machine="h100",
-                           tile=TileConfig(t.bm, t.bn, t.bk,
-                                           GridOrder.K_OUTER))
-        int8_err["gemm_k_outer"] = max(int8_err["gemm_k_outer"], compare(
-            "gemm_k_outer", "int8", pinned.execute(a, b),
-            K.gemm_k_outer_plain(a, b, c0, bk=t.bk)))
-        int8_shapes.append((name, p.m, p.n, p.k, (t.bm, t.bn, t.bk)))
-        print(f"{name:<8} {p.m}x{p.n}x{p.k} int8 tile {t}: k_inner and "
-              f"k_outer equal their plain versions")
-        del a, b, c0
-        torch.cuda.empty_cache()
-    for kname in K.LAUNCHES:
-        int8_launches[kname] += K.LAUNCHES[kname] - before[kname]
-    all_on_wgmma(K, "phase 3")
-    # and in f32, on the f32 planner's tiles (tile_gemm.cuh, the CUDA
-    # cores): within rtol 1e-5 / atol 1e-4 of the plain versions; counted
-    # apart for the f32 entries of the kernels line
-    f32_err = {kname: 0.0 for kname in K.LAUNCHES}
-    f32_shapes = []
-    before = snapshot(K)
-    counts = dict(K.LAUNCHES)
-    for i, (name, plan) in enumerate(zip(names, plans)):
-        p = GemmProblem(plan.problem.m, plan.problem.n, plan.problem.k,
-                        dtype="f32")
-        planned = gemm.plan(p, backend="cuda", machine="h100")
-        t = planned.selection
-        a, b = seeded(p.m, p.n, p.k, "f32", 1200 + i, dev)
-        # B at a weight's init scale (std K^-1/2): C is O(1), as in the
-        # models (with N(0, 1) operands at K = 1536 |C| reaches ~40, and
-        # any two f32 sum orders differ past atol 1e-4)
-        b *= p.k ** -0.5
-        c0 = torch.zeros((p.m, p.n), device=dev)
-        f32_err["gemm_k_inner"] = max(f32_err["gemm_k_inner"], compare(
-            "gemm_k_inner", "f32", planned.execute(a, b),
-            K.gemm_k_inner_plain(a, b)))
-        pinned = gemm.plan(p, backend="cuda", machine="h100",
-                           tile=TileConfig(t.bm, t.bn, t.bk,
-                                           GridOrder.K_OUTER))
-        f32_err["gemm_k_outer"] = max(f32_err["gemm_k_outer"], compare(
-            "gemm_k_outer", "f32", pinned.execute(a, b),
-            K.gemm_k_outer_plain(a, b, c0, bk=t.bk)))
-        f32_shapes.append((name, p.m, p.n, p.k, (t.bm, t.bn, t.bk)))
-        print(f"{name:<8} {p.m}x{p.n}x{p.k} f32 tile {t}: k_inner and "
-              f"k_outer match their plain versions")
-        del a, b, c0
-        torch.cuda.empty_cache()
-    f32_launches = {kname: K.LAUNCHES[kname] - counts[kname]
-                    for kname in K.LAUNCHES}
-    n_f32 = sum(K.LAUNCHES.values()) - before[0]
-    print(f"phase 3 f32: {n_f32} GEMM launches, by route "
-          f"{ {r: K.ROUTES[r] - before[1][r] for r in K.ROUTES} }")
-    check(K.ROUTES["cuda_cores"] - before[1]["cuda_cores"] == n_f32 > 0
-          and K.ROUTES["wgmma"] == before[1]["wgmma"],
-          "an f32 GEMM launch of phase 3 left the CUDA-core route")
+    qshapes = [(s_.m, s_.n, s_.k)
+               for s_ in model_gemm_shapes(qwen, tokens=4096)]
+    # bf16, int8 (exact) and f32 (the CUDA cores; B at a weight's init
+    # scale): each dtype's launches are counted apart for its entries of
+    # the kernels line
+    main_path = {}
+    for tag in ("bf16", "int8", "f32"):
+        before = snapshot(K)
+        counts = dict(K.LAUNCHES)
+        main_path[tag] = main_path_gemms(gemm, K, names, qshapes, tag, dev)
+        main_path[tag]["launches"] = {kname: K.LAUNCHES[kname] - counts[kname]
+                                      for kname in K.LAUNCHES}
+        route_check(K, f"phase 3 {tag}", tag, before)
 
     # -- phase 4 ---------------------------------------------------------
-    phase(4, "loop: run_campaign -> fit_from_store -> validate_spec")
+    phase(4, "loop: run_campaign -> fit_from_store (Hopper tile model) -> "
+             "validate_spec")
     store = os.path.join(args.out, "h100.jsonl")
     held = os.path.join(args.out, "h100_k_outer_heldout.jsonl")
     for path in (store, held):
         if os.path.exists(path):
             os.remove(path)
-    qshapes = [(pl.problem.m, pl.problem.n, pl.problem.k) for pl in plans]
-    for tag in ("int8", "bf16"):
+    h100 = resolve("h100")
+    harness = measure.get_harness("cuda")
+    pick_rows = []
+    for tag in ("int8", "bf16", "f32"):
         before = snapshot(K)
         counts = dict(K.LAUNCHES)
         res = measure.run_campaign("table2", harness="cuda", machine="h100",
-                                   dtype=tag, store=store)
-        print(f"table2/{tag}: {len(res.samples)} samples, "
-              f"{res.measured_seconds:.4g} s measured")
-        res = measure.run_campaign(
-            "table2", harness="cuda", machine="h100", store=store,
-            problems=[GemmProblem(m, n, k, dtype=tag) for m, n, k in qshapes])
-        print(f"qwen2-1.5b/{tag}: {len(res.samples)} samples, "
-              f"{res.measured_seconds:.4g} s measured")
-        all_on_wgmma(K, f"phase 4's {tag} campaigns", before)
-        if tag == "int8":
-            for kname in K.LAUNCHES:
-                int8_launches[kname] += K.LAUNCHES[kname] - counts[kname]
-    harness = measure.get_harness("cuda")
-    held_samples = []
+                                   dtype=tag, store=store, timing=FIT_TIMING)
+        print(f"table2/{tag}: {len(res.samples)} samples at the planner's "
+              f"tiles, {res.measured_seconds:.4g} s measured")
+        for name, (m, n, k) in zip(names, qshapes):
+            p = GemmProblem(m, n, k, dtype=tag)
+            tiles = fit_tiles[tag][name]
+            secs = [pinned_sample(gemm, measure, harness, h100, p, t,
+                                  "qwen2-1.5b", store).seconds
+                    for t in tiles]
+            pick_rows.append({"dtype": tag, "gemm": name,
+                              "tiles": [str(t) for t in tiles],
+                              "seconds": secs,
+                              "ratio": secs[0] / min(secs)})
+            pinned_sample(gemm, measure, harness, h100, p,
+                          TileConfig(*FIT_K_OUTER[tag], GridOrder.K_OUTER),
+                          "qwen2-1.5b-k_outer", store)
+        route_check(K, f"phase 4's {tag} samples", tag, before)
+        for kname in K.LAUNCHES:
+            main_path[tag]["launches"][kname] += \
+                K.LAUNCHES[kname] - counts[kname]
     before = snapshot(K)
-    for pl in plans:
-        t = pl.selection
-        pinned = gemm.plan(pl.problem, backend="cuda", machine="h100",
-                           tile=TileConfig(t.bm, t.bn, t.bk,
-                                           GridOrder.K_OUTER))
-        s = measure.Sample.from_measurement(
-            pinned, harness.measure(pinned), "cuda",
-            resolve("h100"),
-            meta={"grid": "qwen2-1.5b-k_outer"})
-        measure.SampleStore(held).append(s)
-        held_samples.append(s)
-    all_on_wgmma(K, "phase 4's held-out k-outer samples", before)
-    # columns the k-inner grid cannot constrain charge nothing ("free"):
-    # with int8 on the tensor cores the data-sheet charges that "drop"
-    # keeps for them exceed the measured times, and every column then
-    # solves non-positive
+    counts = dict(K.LAUNCHES)
+    held_samples = [pinned_sample(gemm, measure, harness, h100,
+                                  GemmProblem(m, n, k, dtype="bf16"),
+                                  TileConfig(*OLD_PICKS["bf16"],
+                                             GridOrder.K_OUTER),
+                                  "qwen2-1.5b-k_outer-heldout", held)
+                    for m, n, k in qshapes]
+    route_check(K, "phase 4's held-out k-outer samples", "bf16", before)
+    for kname in K.LAUNCHES:
+        main_path["bf16"]["launches"][kname] += \
+            K.LAUNCHES[kname] - counts[kname]
+    # every column must solve positive: the fit keeps them all
     spec, rep = measure.fit_from_store(
         store, "h100", name="h100-fit", date=time.strftime("%Y-%m-%d"),
-        on_nonpositive="free", manifest_dir=args.out)
-    print(f"fit: {rep.samples} samples, residual RMS {rep.residual_rms_s:.4g}"
-          f" s, in-sample MAPE {rep.insample_mape_pct:.4g}%, dropped "
-          f"{rep.dropped} (on_nonpositive='free': columns the k-inner grid "
-          f"cannot constrain charge nothing)")
-    for col, x in zip(rep.columns, rep.inverse_rates):
-        print(f"  {col:<16} " + ("dropped (charged nothing)"
-                                 if math.isnan(x) else f"{1.0 / x:.6g}"))
+        on_nonpositive="raise", manifest_dir=args.out)
+    check(not rep.dropped, f"the fit dropped {rep.dropped}")
+    print(f"fit (Hopper tile model, on_nonpositive='raise'): {rep.samples} "
+          f"samples, residual RMS {rep.residual_rms_s:.4g} s, in-sample "
+          f"MAPE {rep.insample_mape_pct:.4g}%; fitted beside the h100 "
+          f"manifest (data sheet; per-call costs placeholders):")
+    fitted = fit_columns(rep, h100)
+    for row in fitted:
+        print(f"  {row['column']:<14} {row['fitted']:.6g} {row['unit']} "
+              f"(manifest {row['manifest']:.6g}, x{row['ratio']:.3g})")
     print(f"fitted manifest: {os.path.join(args.out, 'h100-fit.json')}")
     report = measure.validate_spec(spec, store)
-    check(report.finite, "validation MAPE is not finite")
-    print(report.table())
     heldout = measure.validate_spec(spec, held_samples)
+    check(report.finite, "validation MAPE is not finite")
     check(heldout.finite, "held-out MAPE is not finite")
-    print("predicted vs measured on the Qwen2-1.5B shapes (bf16):")
-    inner_rows = {(r.sample.m, r.sample.n, r.sample.k): r
-                  for r in report.rows if r.sample.dtype == "bf16"
-                  and r.sample.meta.get("grid") == "custom"}
+    report.save(os.path.join(args.out, "validation.json"))
+    print(report.table(limit=12))
+    mapes = mape_breakdown(report, heldout)
+    for key, v in mapes.items():
+        print(f"  MAPE {key}: {v['mape_pct']:.4g}% over {v['cells']} cells")
+    print(f"MAPE: campaign {report.mape:.4g}% over {len(report.rows)} cells "
+          f"(target <= 25%: {'met' if report.mape <= 25 else 'missed'}); "
+          f"held-out bf16 k_outer at 64x128x128 {heldout.mape:.4g}% over "
+          f"{len(heldout.rows)} (target <= 30%: "
+          f"{'met' if heldout.mape <= 30 else 'missed'})")
     for r in heldout.rows:
-        key = (r.sample.m, r.sample.n, r.sample.k)
-        ri = inner_rows[key]
-        print(f"  {key[0]}x{key[1]}x{key[2]}: k_inner measured "
-              f"{ri.measured_s:.4g} s predicted {ri.predicted_s:.4g} s; "
-              f"k_outer measured {r.measured_s:.4g} s predicted "
-              f"{r.predicted_s:.4g} s (held out)")
-    print(f"MAPE: campaign {report.mape:.4g}% over {len(report.rows)} cells; "
-          f"held-out k_outer {heldout.mape:.4g}% over {len(heldout.rows)}")
+        print(f"  held out {r.sample.m}x{r.sample.n}x{r.sample.k}: measured "
+              f"{r.measured_s:.4g} s, predicted {r.predicted_s:.4g} s")
+    print("the planner's tile (first) against the other tiles timed, per "
+          "Qwen2-1.5B GEMM and dtype (harness seconds):")
+    for r in pick_rows:
+        print(f"  {r['dtype']:<5}{r['gemm']:<8}"
+              + ", ".join(f"{t} {sec * 1e3:.4f} ms"
+                          for t, sec in zip(r["tiles"], r["seconds"]))
+              + f": picked / fastest {r['ratio']:.3f}")
+    with open(os.path.join(args.out, "phase4.json"), "w") as f:
+        json.dump({"fitted": fitted, "mape": mapes,
+                   "campaign_mape_pct": report.mape,
+                   "heldout_mape_pct": heldout.mape, "picks": pick_rows,
+                   "power": smi("name,power.limit")}, f, indent=1)
     launches = dict(K.LAUNCHES)
-    # phases 3-4 run bf16 and int8, every launch on wgmma; phase 3 also f32,
-    # every launch on the CUDA cores
-    print(f"main-path launches: {launches} (int8: {int8_launches}, f32: "
-          f"{f32_launches}), by route {dict(K.ROUTES)}")
-    for name_, n_ in launches.items():
-        check(n_ - int8_launches[name_] - f32_launches[name_] > 0
-              and int8_launches[name_] > 0 and f32_launches[name_] > 0,
-              f"{name_} was never launched in bf16, int8 or f32 on the main "
-              f"path")
+    print(f"main-path launches: {launches}, by dtype "
+          f"{ {t: v['launches'] for t, v in main_path.items()} }, by route "
+          f"{dict(K.ROUTES)}")
+    for tag, v in main_path.items():
+        for name_, n_ in v["launches"].items():
+            check(n_ > 0, f"{name_} was never launched in {tag} on the main "
+                          f"path")
 
     # -- phase 5 ---------------------------------------------------------
     phase(5, "timing at the Qwen2-1.5B shapes (CUDA events)")
-    gemm_shapes = [(name, pl.problem.m, pl.problem.n, pl.problem.k,
-                    (pl.selection.bm, pl.selection.bn, pl.selection.bk))
-                   for name, pl in zip(names, plans)]
+    # each dtype at the planner's tiles and at the TPU model's old picks
+    # (int8 and f32 also at 64x128x128, as the kernel table has them)
+    gemm_shapes = main_path["bf16"]["shapes"]
+    int8_shapes = main_path["int8"]["shapes"]
+    f32_shapes = main_path["f32"]["shapes"]
+
+    def at(tile, rows_):
+        return [(n_, m_, nn_, k_, tile) for n_, m_, nn_, k_, _ in rows_]
     before = snapshot(K)
     parent = []
     if args.parent:
@@ -2373,23 +2539,34 @@ def main(argv=None) -> int:
         again = gemm_timings(K, gemm_shapes, dev, quiet=True)
         parent.append(tree_run(args.parent, "gemm", args.out, gemm_shapes))
         compare_with_parent(rows, again, parent)
+    # (the plain versions' times do not depend on the tile: taken once)
+    old_rows = gemm_timings(K, at(OLD_PICKS["bf16"], gemm_shapes), dev,
+                            plain=False)
     stage_rows = stage_timings(K, gemm_shapes, dev)
-    # int8 (wgmma_s8.cuh) at bf16's tile and at the int8 planner's, beside
-    # torch._int_mm; the 19 Table-2 int8 cells phase 4 runs; with
-    # --parent both in turns with the parent's tree (and the f32 route)
-    int8_sets = {"x".join(map(str, sh[0][4])): sh
-                 for sh in (gemm_shapes, int8_shapes)}
+    # int8 (wgmma_s8.cuh) beside torch._int_mm; the 19 Table-2 int8 cells
+    # phase 4 runs; with --parent both in turns with the parent's tree (and
+    # the f32 route)
+    int8_sets = {"planner": int8_shapes,
+                 "x".join(map(str, OLD_PICKS["int8"])):
+                     at(OLD_PICKS["int8"], int8_shapes),
+                 "64x128x128": at((64, 128, 128), int8_shapes)}
     table2_cells = [(r.m, r.n, r.k, (d.selection.bm, d.selection.bn,
                                      d.selection.bk))
                     for r, d in zip(TABLE2, gemm.plan_many(
                         [GemmShape(r.m, r.n, r.k, dtype="int8")
                          for r in TABLE2], backend="cuda", machine="h100"))]
-    # f32 at bf16's tile and at the f32 planner's (32x64x128)
-    f32_sets = {"x".join(map(str, sh[0][4])): sh
-                for sh in (gemm_shapes, f32_shapes)}
-    turn_shapes = {"qwen": int8_sets, "table2": table2_cells,
-                   "f32": f32_sets}
-    int8_rows = {t: gemm_timings(K, sh, dev, tag="int8")
+    f32_sets = {"planner": f32_shapes,
+                "x".join(map(str, OLD_PICKS["f32"])):
+                    at(OLD_PICKS["f32"], f32_shapes),
+                "64x128x128": at((64, 128, 128), f32_shapes)}
+    # the turns take the planner's tiles and the old picks
+    turn_shapes = {"qwen": {t: v for t, v in int8_sets.items()
+                            if t != "64x128x128"},
+                   "table2": table2_cells,
+                   "f32": {t: v for t, v in f32_sets.items()
+                           if t != "64x128x128"}}
+    int8_rows = {t: gemm_timings(K, sh, dev, tag="int8",
+                                 plain=t == "planner")
                  for t, sh in int8_sets.items()}
     table2_rows = table2_timings(K, table2_cells, dev)
     for r in table2_rows:
@@ -2399,17 +2576,15 @@ def main(argv=None) -> int:
     print(f"Table-2 int8 over {len(table2_rows)} cells: "
           f"{sum(r['ms'] for r in table2_rows):.4f} ms")
     int8_stage_rows = {t: stage_timings(K, sh, dev, tag="int8")
-                       for t, sh in int8_sets.items()}
+                       for t, sh in int8_sets.items() if t == "planner"}
     transpose_rows = transpose_timings(K, gemm_shapes, dev)
     all_on_wgmma(K, "phase 5", before)
-    # the f32 route (tile_gemm.cuh) at the same shapes, on bf16's tile and
-    # the f32 planner's, beside torch.matmul (TF32 off)
+    # the f32 route (tile_gemm.cuh) beside torch.matmul (TF32 off)
     before = snapshot(K)
-    core_rows = {t: gemm_timings(K, sh, dev, tag="f32")
+    core_rows = {t: gemm_timings(K, sh, dev, tag="f32",
+                                 plain=t == "planner")
                  for t, sh in f32_sets.items()}
-    n_core = sum(K.LAUNCHES.values()) - before[0]
-    check(K.ROUTES["cuda_cores"] - before[1]["cuda_cores"] == n_core > 0,
-          "an f32 GEMM launch left the CUDA-core route")
+    route_check(K, "phase 5 f32", "f32", before)
     int8_turns = []
     if args.parent:
         int8_turns = [tree_run(t, "gemm_int8", args.out, turn_shapes)
@@ -2441,29 +2616,18 @@ def main(argv=None) -> int:
         compare_flash(flash_turns)
 
     csrc = "src/repro_torch/kernels/csrc"
-    int8_tile = "x".join(map(str, int8_shapes[0][4]))
-    kernels = [kernel_entry(kname, f"{csrc}/wgmma_gemm.cuh",
-                            f"src/repro/kernels/gemm.py:{line}",
-                            launches[kname] - int8_launches[kname]
-                            - f32_launches[kname],
-                            max_err[kname],
-                            [r for r in rows if r["kernel"] == kname])
-               for kname, line in (("gemm_k_inner", 56), ("gemm_k_outer", 89))]
-    kernels += [kernel_entry(f"{kname}_int8", f"{csrc}/wgmma_s8.cuh",
-                             f"src/repro/kernels/gemm.py:{line}",
-                             int8_launches[kname], int8_err[kname],
-                             [r for r in int8_rows[int8_tile]
-                              if r["kernel"] == kname])
-                for kname, line in (("gemm_k_inner", 56),
-                                    ("gemm_k_outer", 89))]
-    f32_tile = "x".join(map(str, f32_shapes[0][4]))
-    kernels += [kernel_entry(f"{kname}_f32", f"{csrc}/tile_gemm.cuh",
-                             f"src/repro/kernels/gemm.py:{line}",
-                             f32_launches[kname], f32_err[kname],
-                             [r for r in core_rows[f32_tile]
-                              if r["kernel"] == kname])
-                for kname, line in (("gemm_k_inner", 56),
-                                    ("gemm_k_outer", 89))]
+    kernels = []
+    for tag, suffix, source, timed in (
+            ("bf16", "", "wgmma_gemm.cuh", rows),
+            ("int8", "_int8", "wgmma_s8.cuh", int8_rows["planner"]),
+            ("f32", "_f32", "tile_gemm.cuh", core_rows["planner"])):
+        kernels += [kernel_entry(f"{kname}{suffix}", f"{csrc}/{source}",
+                                 f"src/repro/kernels/gemm.py:{line}",
+                                 main_path[tag]["launches"][kname],
+                                 main_path[tag]["err"][kname],
+                                 [r for r in timed if r["kernel"] == kname])
+                    for kname, line in (("gemm_k_inner", 56),
+                                        ("gemm_k_outer", 89))]
     kernels.append(kernel_entry(
         "grouped_gemm", f"{csrc}/grouped_gemm.cu",
         "src/repro/kernels/grouped_gemm.py:37", served["grouped_gemm"],
@@ -2482,7 +2646,8 @@ def main(argv=None) -> int:
         f32_row[0]["max_abs_err"], f32_row))
     with open(os.path.join(args.out, "timings.json"), "w") as f:
         json.dump({"device": card, "power": smi("name,power.limit"),
-                   "rows": rows, "stage_rows": stage_rows,
+                   "rows": rows, "old_tile_rows": old_rows,
+                   "stage_rows": stage_rows,
                    "parent_rows": parent, "grouped_rows": grouped_rows,
                    "grouped_f32_rows": grouped_tags["f32"],
                    "parent_grouped_rows": grouped_parent,
@@ -2497,10 +2662,11 @@ def main(argv=None) -> int:
                    "int8_turns": int8_turns,
                    "int8_stage_rows": int8_stage_rows,
                    "transpose_rows": transpose_rows,
-                   "int8_main_path_launches": int8_launches}, f, indent=1)
-    print(f"\n(GEMM times are sums over the five Qwen2-1.5B GEMMs, bf16 "
-          f"at its planner tile, int8 at {int8_tile}, f32 at {f32_tile}; "
-          f"grouped "
+                   "main_path": main_path}, f, indent=1)
+    print(f"\n(GEMM times are sums over the five Qwen2-1.5B GEMMs at the "
+          f"planner's tiles, by dtype "
+          f"{ {t: [r[4] for r in v['shapes']] for t, v in main_path.items()} }"
+          f"; grouped "
           f"times over the four bf16 shapes of the served run, flash "
           f"attention and RMSNorm times over the bf16 shapes phase 9 "
           f"recorded from the model; grouped and RMSNorm times are device "

@@ -8,8 +8,11 @@ Public surface:
   tpu_model  — tile-grid cost model (HBM/VMEM/MXU, ±overlap)
   autotune   — TileTuner: analytical tile selection + manifest
   mobilenet  — the paper's Table-2 workload
+  calibrate  — the paper's §3.2 host micro-experiments
+  hopper_model — the H100 tile cost model the ``cuda`` backend plans on
 
-(``roofline`` and ``calibrate`` of the JAX package are not ported yet.)
+(``roofline`` of the JAX package is not ported yet: it reads compiled XLA
+artifacts and belongs with the dry-run launchers.)
 
 NOTE: consumers should plan GEMMs through the unified façade
 ``repro_torch.gemm.plan(...)`` rather than calling ``best_microkernel`` / ``tune``

@@ -23,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Mapping
 
+from repro_torch.core.hopper_model import HopperCost
 from repro_torch.core.precision import PrecisionConfig
 from repro_torch.core.simulator import CostBreakdown
 from repro_torch.core.tpu_model import DTYPE_BYTES, GemmShape, TpuCost
@@ -140,10 +141,11 @@ class VariantChoice:
 class GemmPlan:
     """A frozen predict→choose decision for one GEMM problem.
 
-    ``selection`` is backend-specific: a :class:`TileConfig` for the
-    TPU-model backends (``analytic-tpu`` and ``cuda``), a :class:`VariantChoice` for the GAP8 simulator,
-    ``None`` for the reference backend.  ``cost`` is the backend's predicted
-    :class:`TpuCost` / :class:`CostBreakdown`.  ``provenance`` records how
+    ``selection`` is backend-specific: a :class:`TileConfig` for the tile
+    backends (``analytic-tpu`` and ``cuda``), a :class:`VariantChoice` for
+    the GAP8 simulator, ``None`` for the reference backend.  ``cost`` is
+    the backend's predicted :class:`TpuCost` / :class:`HopperCost` /
+    :class:`CostBreakdown`.  ``provenance`` records how
     the selection was made (search / cache / manifest / explicit override).
     """
 
@@ -151,10 +153,10 @@ class GemmPlan:
     backend: str
     machine: str
     selection: Any
-    cost: TpuCost | CostBreakdown | None
+    cost: TpuCost | HopperCost | CostBreakdown | None
     provenance: Mapping[str, Any] = dataclasses.field(default_factory=dict)
 
-    def estimate(self) -> TpuCost | CostBreakdown:
+    def estimate(self) -> TpuCost | HopperCost | CostBreakdown:
         """The predicted cost object this plan was chosen by."""
         if self.cost is None:
             raise ValueError(f"plan via {self.backend!r} carries no estimate")
@@ -162,7 +164,10 @@ class GemmPlan:
 
     @property
     def predicted_seconds(self) -> float:
-        """Scalar predicted execution time (backend's headline estimate)."""
+        """Scalar predicted execution time (backend's headline estimate):
+        the overlapped or summed TPU time, the GAP8 simulator's sum, and
+        for ``cuda`` plans the Hopper model's sum of terms, the function
+        its calibration fits."""
         c = self.estimate()
         if isinstance(c, TpuCost):
             return c.total(bool(self.provenance.get("overlap", True)))
@@ -226,8 +231,10 @@ class GemmPlan:
 
         Composition semantics mirror :attr:`predicted_seconds`:
 
-        * GAP8-simulator plans (:class:`CostBreakdown`) and no-overlap
-          TPU plans compose by plain sum (paper §3.1), so the term
+        * GAP8-simulator plans (:class:`CostBreakdown`), no-overlap
+          TPU plans and ``cuda`` plans (:class:`HopperCost`: compute, HBM,
+          L2, the host call and the launches) compose by plain sum (paper
+          §3.1), so the term
           ``fraction`` values sum to 1 and ``seconds`` sum to
           ``estimate().total`` exactly (``composition: "sum"``).
         * Overlapped TPU plans are bound by the slowest resource plus
@@ -238,7 +245,25 @@ class GemmPlan:
         """
         c = self.estimate()
         terms: list[dict] = []
-        if isinstance(c, TpuCost):
+        if isinstance(c, HopperCost):
+            flops = self.problem.flops
+            terms = [
+                {"name": "compute", "kind": "compute", "level": c.route,
+                 "seconds": c.t_compute, "bytes": None,
+                 "rate": flops / c.t_compute if c.t_compute else None},
+                {"name": "stream_hbm", "kind": "traffic", "level": "HBM",
+                 "seconds": c.t_hbm, "bytes": c.hbm_bytes,
+                 "rate": c.hbm_bytes / c.t_hbm if c.t_hbm else None},
+                {"name": "stream_l2", "kind": "traffic", "level": "L2",
+                 "seconds": c.t_l2, "bytes": c.l2_bytes,
+                 "rate": c.l2_bytes / c.t_l2 if c.t_l2 else None},
+                {"name": "host_call", "kind": "per_call", "level": "host",
+                 "seconds": c.t_call, "bytes": None, "rate": None},
+                {"name": "launches", "kind": "per_call", "level": "host",
+                 "seconds": c.t_launch, "bytes": None, "rate": None},
+            ]
+            composition = "sum"
+        elif isinstance(c, TpuCost):
             overlap = bool(self.provenance.get("overlap", True))
             flops = self.problem.flops
             hbm_rate = c.hbm_bytes / c.t_hbm if c.t_hbm else None

@@ -5,8 +5,9 @@
   only.
 * ``analytic-tpu``   — TileTuner's search over ``(bm, bn, bk, grid-order)``
   candidates on the tile cost model.  Predicts only.
-* ``cuda``           — plans exactly like ``analytic-tpu`` and executes the
-  plan with the hand-written CUDA kernels (``kernels/csrc/gemm.cu``): the
+* ``cuda``           — searches the tiles the hand-written CUDA kernels take
+  (``kernels/csrc/gemm.cu``) on the Hopper tile model
+  (``core/hopper_model.py``) and executes the plan with those kernels: the
   plan's ``(bm, bn, bk)`` is the kernel's thread-block tile and its grid
   order picks k-inner or k-outer.  CUDA tensors launch the kernels; CPU
   tensors run their plain PyTorch versions.  There is no silent fallback:
@@ -22,6 +23,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import hopper_model
 from repro_torch.core.autotune import tune_batch
 from repro_torch.core.hardware import MachineSpec
 from repro_torch.core.simulator import (
@@ -160,10 +162,14 @@ class AnalyticTpuBackend(Backend):
         )
 
 
-class CudaBackend(AnalyticTpuBackend):
-    """analytic-tpu planning + CUDA kernel execution (the full paper loop).
+class CudaBackend(Backend):
+    """The Hopper tile model's search + CUDA kernel execution (the full
+    paper loop on the card).
 
-    The kernels mask ragged edges themselves (out-of-range loads read zero,
+    Plans price every lattice tile the kernels take, in both loop orders,
+    with ``core/hopper_model.py`` and pick the cheapest; a machine without
+    the model's constants (an L2 level, per-call costs) raises.  The
+    kernels mask ragged edges themselves (out-of-range loads read zero,
     out-of-range stores are skipped), so any ``(m, n, k)`` runs on the
     plan's tile as-is: no padded copies, no slicing.  Zero K-padding is
     exact, so the result is the function ``PallasBackend.execute`` computes
@@ -173,6 +179,49 @@ class CudaBackend(AnalyticTpuBackend):
     name = "cuda"
     executable = True
     default_machine = "h100"
+    default_dtype = "bf16"
+
+    def make_plan(self, problem: GemmProblem, machine: MachineSpec,
+                  policy: str, options: Mapping) -> GemmPlan:
+        return self.make_plans([problem], machine, policy, options)[0]
+
+    def make_plans(self, problems: Sequence[GemmProblem],
+                   machine: MachineSpec, policy: str,
+                   options: Mapping) -> list[GemmPlan]:
+        unknown = set(options) - {"tile"}
+        if unknown:
+            raise ValueError(f"the cuda backend takes tile= only, not "
+                             f"{sorted(unknown)}")
+        tile = options.get("tile")
+        if tile is not None:
+            return [self.plan_from_tile(p, machine, policy, tile,
+                                        source="explicit")
+                    for p in problems]
+        costs = hopper_model.tune_batch([p.as_shape() for p in problems],
+                                        machine)
+        return [self._plan(p, machine, policy, c, "search")
+                for p, c in zip(problems, costs)]
+
+    def _plan(self, problem, machine, policy, cost, source) -> GemmPlan:
+        return GemmPlan(
+            problem=problem, backend=self.name, machine=machine.name,
+            selection=cost.tile, cost=cost,
+            provenance={"source": source, "method": "hopper_tile_model",
+                        "policy": policy})
+
+    def plan_from_tile(self, problem: GemmProblem, machine: MachineSpec,
+                       policy: str, tile: TileConfig, *,
+                       source: str = "manifest") -> GemmPlan | None:
+        """The plan of an explicit tile; a persisted tile the kernels do
+        not take (a manifest written by another model) is no plan, and
+        the planner searches instead."""
+        try:
+            cost = hopper_model.estimate(problem.as_shape(), tile, machine)
+        except ValueError:
+            if source == "manifest":
+                return None
+            raise
+        return self._plan(problem, machine, policy, cost, source)
 
     def execute(self, plan: GemmPlan, a, b, c=None):
         from repro_torch.kernels import gemm as gemm_kernel

@@ -38,9 +38,10 @@ def plan(problem, *, backend: str = "analytic-tpu", machine=None,
             a fresh search.  A manifest warmed via :func:`warm_cache`
             satisfies tile-backend plans without searching.
         **options: backend-specific.  ``analytic-gap8``: ``variant=``,
-            ``micro_kernel=`` pin the search; ``analytic-tpu`` /
-            ``cuda``: ``overlap=`` picks the composition rule, ``tile=``
-            bypasses the search with an explicit TileConfig.
+            ``micro_kernel=`` pin the search; ``analytic-tpu``:
+            ``overlap=`` picks the composition rule; ``analytic-tpu`` and
+            ``cuda``: ``tile=`` bypasses the search with an explicit
+            TileConfig.
 
     Returns:
         A frozen :class:`GemmPlan` carrying the chosen selection, the

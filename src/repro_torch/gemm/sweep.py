@@ -26,6 +26,7 @@ from typing import Any, Iterable, Sequence
 from repro_torch import obs
 from repro_torch.core.precision import PrecisionConfig
 from repro_torch.core.simulator import CostBreakdown
+from repro_torch.core.hopper_model import HopperCost
 from repro_torch.core.tpu_model import TpuCost
 from repro_torch.gemm.api import GemmPlan, GemmProblem
 from repro_torch.gemm.planner import plan_cache_stats, plan_many
@@ -58,12 +59,16 @@ class SweepRow:
 
     def breakdown(self) -> dict[str, float]:
         """Per-component predicted seconds (grouped like the paper's
-        figures for the GAP8 simulator; compute/HBM/VMEM for the TPU)."""
+        figures for the GAP8 simulator; compute/HBM/VMEM for the TPU;
+        compute/HBM/L2/host for the Hopper model)."""
         c = self.plan.cost
         if isinstance(c, CostBreakdown):
             return c.grouped()
         if isinstance(c, TpuCost):
             return {"compute": c.t_compute, "hbm": c.t_hbm, "vmem": c.t_vmem}
+        if isinstance(c, HopperCost):
+            return {"compute": c.t_compute, "hbm": c.t_hbm, "l2": c.t_l2,
+                    "host": c.t_call + c.t_launch}
         return {}
 
     def as_dict(self) -> dict:

@@ -497,9 +497,11 @@ inline int gemm_tile_groups(const float* A, const float* B, const float* Cin,
   const dim3 grid(static_cast<unsigned>(gm * gn), 1,
                   static_cast<unsigned>(groups));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-// the planner's tiles (f32: 32x64, 64x32 and 8x128; 64x128 and 128x128
-// where a caller asks for them; 32x128 the served grouped GEMM's), extents
-// fixed at compile time
+// the planner's f32 tiles (the Hopper tile model's: 128x128 for the
+// Qwen2-1.5B GEMMs, the rest for Table-2 and decode logits), the TPU
+// model's earlier picks (32x64, 64x32, 8x128; 64x128 where a caller asks
+// for it) and the served grouped GEMM's 32x128, extents fixed at compile
+// time
 #define REPRO_TILE_FIXED(BM_, BN_, KS_)                                      \
   if (bm == BM_ && bn == BN_ && cfg.ks == KS_)                               \
     return launch_tile<reg_tile(BM_, BN_).rm, reg_tile(BM_, BN_).rn, KS_,   \
@@ -507,6 +509,10 @@ inline int gemm_tile_groups(const float* A, const float* B, const float* Cin,
   REPRO_TILE_FIXED(64, 128, 32) REPRO_TILE_FIXED(128, 128, 32)
   REPRO_TILE_FIXED(32, 64, 32) REPRO_TILE_FIXED(64, 32, 32)
   REPRO_TILE_FIXED(8, 128, 32) REPRO_TILE_FIXED(32, 128, 32)
+  REPRO_TILE_FIXED(8, 64, 32) REPRO_TILE_FIXED(16, 8, 32)
+  REPRO_TILE_FIXED(16, 16, 32) REPRO_TILE_FIXED(32, 16, 32)
+  REPRO_TILE_FIXED(32, 32, 32) REPRO_TILE_FIXED(32, 512, 32)
+  REPRO_TILE_FIXED(64, 64, 32) REPRO_TILE_FIXED(2048, 8, 8)
 #undef REPRO_TILE_FIXED
 // every register tile reg_tile gives a tile launch_config takes, extents
 // read at run time

@@ -32,9 +32,10 @@
 // The design.
 //   * Math: wgmma.mma_async m64nNk16, bf16 x bf16 -> f32 in registers.  One
 //     consumer warpgroup (128 threads) per 64 x N unit of the tile, N = NW
-//     = min(max(bn, 64), 256); a tile of more units than two warpgroups hold
-//     (bm > 128, or bn > 256 with bm > 64) runs them in rounds, each round
-//     streaming K again.  bm < 64 still issues m64: accumulator rows >= bm
+//     = min(max(bn, 64), 256); a tile of more units than its warpgroups
+//     hold (two of N <= 128, one of N = 256, whose 128 accumulators a
+//     thread would otherwise spill: bm > 128, or bn >= 256 with bm > 64)
+//     runs them in rounds, each round streaming K again.  bm < 64 still issues m64: accumulator rows >= bm
 //     are never stored, and the rows they read stay inside the block's
 //     shared memory (an over-read pad follows the stages).
 //   * Operands as TMA lays them out: A (M, K) row-major is K-major, B (K, N)
@@ -990,7 +991,8 @@ int launch_tiles(const CUtensorMap* m, const void* Cin, void* Cout, int M,
   auto* cout = static_cast<__nv_bfloat16*>(Cout);
   const int nw = bn <= 64 ? 64 : (bn >= 256 ? 256 : bn);
   const int units = (g.bmp + 63) / 64 * ((bn < 64 ? 64 : bn) / nw);
-  const int w = units < 2 ? 1 : 2;
+  // two warpgroups of N = 256 would spill (kernels/gemm.py:wgmma_config)
+  const int w = units < 2 || nw == 256 ? 1 : 2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(gm * gn), 1,
                   static_cast<unsigned>(experts));
@@ -1003,7 +1005,7 @@ int launch_tiles(const CUtensorMap* m, const void* Cin, void* Cout, int M,
                                     pairs, grid, smem, s);
   REPRO_WGMMA_CASE(64, 1) REPRO_WGMMA_CASE(64, 2)
   REPRO_WGMMA_CASE(128, 1) REPRO_WGMMA_CASE(128, 2)
-  REPRO_WGMMA_CASE(256, 1) REPRO_WGMMA_CASE(256, 2)
+  REPRO_WGMMA_CASE(256, 1)
 #undef REPRO_WGMMA_CASE
   return cudaErrorInvalidValue;
 }

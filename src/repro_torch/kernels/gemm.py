@@ -64,6 +64,13 @@ MAX_SMEM_BYTES = 232448
 MAX_THREADS = 256
 #: accumulators one thread of the CUDA-core kernel keeps, at most
 MAX_REGISTER_TILE = 64
+#: registers ptxas gives a thread of the CUDA-core kernel's compile-time
+#: instantiations (254-255; ``chip_smoke.py`` phase 1 prints them): what
+#: bounds an SM's resident blocks besides :func:`launch_config`'s shared
+#: memory and threads
+CORE_REGISTERS = 255
+#: an H100 SM's register file (32-bit registers)
+SM_REGISTERS = 65536
 #: floats after each row of A's sub-slab in a CUDA-core stage (sub-slabs
 #: of 4 k or more; shallower rows are packed)
 A_ROW_PAD = 4
@@ -275,7 +282,10 @@ def wgmma_config(tile: TileConfig, *, k_outer: bool = False) -> WgmmaConfig:
     bnp = max(bn, WGMMA_BOX_COLS)
     nw = min(bnp, 256)
     units = -(-max(bm, 8) // 64) * (bnp // nw)
-    consumers = 1 if units < 2 else 2
+    # two warpgroups of 256 columns would each hold 128 accumulators under
+    # ptxas's 168 registers a thread of a two-warpgroup block and spill
+    # (1,820 bytes), so N = 256 runs one warpgroup, in rounds
+    consumers = 1 if units < 2 or nw == 256 else 2
     return WgmmaConfig(nw, consumers, -(-units // consumers), ks, stages,
                        stage, _wgmma_smem(stage, rest, stages),
                        consumers * 128 + 32)
@@ -293,6 +303,8 @@ BLOCK_RESERVED_SMEM = 1024
 #: threads and blocks an H100 SM holds at once
 SM_THREADS = 2048
 SM_BLOCKS = 32
+#: SMs of an H100 SXM
+SMS = 132
 
 
 def _s8_stage(bm: int, bn: int, ks: int, c_tile: bool) -> tuple[int, int]:

@@ -79,7 +79,7 @@ WGMMA_MAX_STAGES = 3
 #: an H100 SM's shared memory, and what the system keeps of it per block
 SM_SMEM_BYTES = K.SM_SMEM_BYTES
 BLOCK_RESERVED_SMEM = K.BLOCK_RESERVED_SMEM
-SMS = 132
+SMS = K.SMS
 
 
 def reset_launch_counts() -> None:
@@ -137,7 +137,7 @@ def grouped_config(tile: TileConfig) -> K.WgmmaConfig:
     bnp = max(bn, K.WGMMA_BOX_COLS)
     nw = min(bnp, 256)
     units = -(-max(bm, 8) // 64) * (bnp // nw)
-    consumers = 1 if units < 2 else 2
+    consumers = 1 if units < 2 or nw == 256 else 2     # as wgmma_config
     return K.WgmmaConfig(nw, consumers, -(-units // consumers), bk, stages,
                          stage, K._wgmma_smem(stage, rest, stages),
                          consumers * 128 + 32)

@@ -20,7 +20,7 @@ vectorized least-squares solve on the batched simulators, emitting a
 registered, manifest-persisted spec with fit provenance.
 
 Every zoo manifest is schema-checked when the registry loads it; the
-command line (``python -m repro.machines``) is not ported yet.
+command line is ``python -m repro_torch.machines validate|list|show|calibrate``.
 """
 from repro_torch.machines.spec import (
     CANONICAL_ROLES,

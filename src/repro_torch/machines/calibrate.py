@@ -3,9 +3,9 @@
 The paper builds a machine from a handful of micro-experiments; this module
 closes the loop so a calibrated spec feeds the planner instead of vanishing:
 
-1. **measure** — GEMM wall times come from ``repro_torch.measure``
-   campaigns (the host micro-experiments of ``repro.core.calibrate`` are
-   not ported yet).
+1. **measure** — :meth:`Calibrator.measure_host` runs the paper's §3.2
+   host micro-experiments (``repro_torch.core.calibrate``); GEMM wall times
+   come from ``repro_torch.measure`` campaigns.
 2. **fit** — :meth:`Calibrator.fit` refines a spec against measured GEMM
    wall times.  The simulators are *linear in the inverse rates*: a GEMM's
    predicted time is ``sum_r bytes_r / rate_r + flops / arith``, so fitting
@@ -51,6 +51,10 @@ def _traced_fit(fn):
 
 _RATE = "rate:"
 _ARITH = "arith:"
+#: design columns of per-event costs (Hopper model): ``call:<dtype>`` a
+#: wrapper call's host cost, ``call:launch`` one enqueued device operation;
+#: the solution is seconds per event, landing in ``call_costs``
+_CALL = "call:"
 #: design column of the opt-in per-block constant-overhead term
 #: (``overhead_per_block=True``): coefficient = micro-kernel invocation
 #: count, solution = seconds per innermost dispatch.
@@ -155,9 +159,11 @@ class Calibrator:
     ``template`` (name or spec) supplies the geometry — levels, capacities,
     register file — and any rates the fit does not exercise.  ``model``
     picks the cost model the design matrix replays: ``"blis"`` (the paper's
-    variant simulator; default for int8-style scratchpad machines) or
+    variant simulator; default for int8-style scratchpad machines),
     ``"pallas"`` (the TPU tile model; default when the template declares a
-    ``bf16`` rate).
+    ``bf16`` rate) or ``"hopper"`` (the H100 tile model the ``cuda``
+    backend plans on, ``core/hopper_model.py``: one column per rate, per
+    dtype's arithmetic and per per-call cost).
     """
 
     def __init__(self, template, *, model: str | None = None,
@@ -167,9 +173,9 @@ class Calibrator:
         self.template = _registry.resolve(template)
         if model is None:
             model = "pallas" if "bf16" in self.template.arith_rate else "blis"
-        if model not in ("blis", "pallas"):
+        if model not in ("blis", "pallas", "hopper"):
             raise ValueError(f"unknown cost model {model!r}; "
-                             f"use 'blis' or 'pallas'")
+                             f"use 'blis', 'pallas' or 'hopper'")
         self.model = model
         self.policy = policy
         if model == "blis":
@@ -237,9 +243,9 @@ class Calibrator:
         seconds per innermost dispatch — loop bookkeeping the pure rate
         model attributes (wrongly) to traffic on small blocks.
 
-        ``tiles`` (pallas model) gives each sample's executed
+        ``tiles`` (pallas and hopper models) gives each sample's executed
         :class:`TileConfig`; by default every sample is priced on the tile
-        TileTuner picks for it on the template.
+        the model's search picks for it on the template.
         """
         probs = self._coerce_problems(problems)
         if self.model == "blis":
@@ -253,6 +259,8 @@ class Calibrator:
         if overhead_per_block:
             raise ValueError("overhead_per_block only applies to the blis "
                              "model")
+        if self.model == "hopper":
+            return self._design_hopper_batch(probs, tiles)
         return self._design_pallas_batch(probs, tiles)
 
     @staticmethod
@@ -390,6 +398,46 @@ class Calibrator:
         names = list(cols_map)
         return np.stack([cols_map[c] for c in names], axis=1), names
 
+    def _hopper_columns(self, probs, flops, hbm, l2, calls, launches):
+        """The Hopper model's design columns from its cost terms (arrays
+        over the samples): rates first, then each dtype's arithmetic, each
+        dtype's call cost and the launch cost."""
+        mach = self.template
+        dts = sorted({p.dtype for p in probs})
+        cols: dict[str, Any] = {
+            f"{_RATE}{mach.level('M')}->{mach.level('L2')}": hbm,
+            f"{_RATE}{mach.level('L2')}->{mach.level('L1')}": l2,
+        }
+        sel = {dt: np.array([p.dtype == dt for p in probs], np.float64)
+               for dt in dts}
+        for dt in dts:
+            cols[f"{_ARITH}{dt}"] = sel[dt] * flops
+        for dt in dts:
+            cols[f"{_CALL}{dt}"] = sel[dt] * calls
+        cols[f"{_CALL}launch"] = launches
+        return cols
+
+    def _design_hopper_batch(self, probs, tiles=None):
+        from repro_torch.core import hopper_model
+
+        self._check_mixed(probs, per_mk_arith=False, model="hopper")
+        shapes = [p.as_shape() for p in probs]
+        if tiles is None:
+            tiles = [c.tile for c in hopper_model.tune_batch(
+                shapes, self.template)]
+        elif len(tiles) != len(probs):
+            raise ValueError(f"{len(probs)} problems vs {len(tiles)} tiles")
+        c = hopper_model.estimate_batch(
+            shapes, hopper_model.TileArrays.of(tiles, [p.dtype
+                                                       for p in probs]),
+            self.template)
+        f64 = np.float64
+        cols_map = self._hopper_columns(
+            probs, c.flops, c.hbm_bytes, c.l2_bytes,
+            c.calls.astype(f64), c.launches.astype(f64))
+        names = list(cols_map)
+        return np.stack([cols_map[n] for n in names], axis=1), names
+
     def design_matrix_scalar(self, problems,
                              micro_kernels=None, *,
                              per_mk_arith: bool = False,
@@ -433,6 +481,16 @@ class Calibrator:
         elif overhead_per_block:
             raise ValueError("overhead_per_block only applies to the blis "
                              "model")
+        elif self.model == "hopper":
+            from repro_torch.core import hopper_model
+            for p in probs:
+                shape = p.as_shape()
+                tile = hopper_model.tune_batch([shape], mach)[0].tile
+                c = hopper_model.estimate(shape, tile, mach)
+                terms = (np.array([float(v)]) for v in (
+                    c.flops, c.hbm_bytes, c.l2_bytes, c.calls, c.launches))
+                rows_acc.append({key: float(v[0]) for key, v in
+                                 self._hopper_columns([p], *terms).items()})
         else:
             from repro_torch.core.autotune import tune_batch
             from repro_torch.core.tpu_model import estimate
@@ -453,14 +511,24 @@ class Calibrator:
             for key in row:
                 if key == OVERHEAD_COL:     # always the last column, as in
                     continue                # the batched builder
-                if key.startswith(_ARITH):
+                if key.startswith((_ARITH, _CALL)):
                     if key not in arith_keys:
                         arith_keys.append(key)
                 else:
                     cols_map.setdefault(key, [])
         # shared arith columns are sorted by tag in the batched builder;
         # per-mk columns keep first-seen sample order there too.
-        for key in (arith_keys if per_mk_arith else sorted(arith_keys)):
+        # (hopper: each dtype's arithmetic, each dtype's call, the launch)
+        if self.model == "hopper":
+            arith_keys = [*sorted(k for k in arith_keys
+                                  if k.startswith(_ARITH)),
+                          *sorted(k for k in arith_keys
+                                  if k.startswith(_CALL)
+                                  and k != f"{_CALL}launch"),
+                          f"{_CALL}launch"]
+        elif not per_mk_arith:
+            arith_keys = sorted(arith_keys)
+        for key in arith_keys:
             cols_map.setdefault(key, [])
         if overhead_per_block:
             cols_map.setdefault(OVERHEAD_COL, [])
@@ -476,6 +544,9 @@ class Calibrator:
         keeps charging under ``on_nonpositive="drop"``)."""
         if col == OVERHEAD_COL:
             return FREE_RATE        # templates charge no per-block overhead
+        if col.startswith(_CALL):   # seconds per event: its inverse
+            cost = self.template.call_costs.get(col[len(_CALL):], 0.0)
+            return 1.0 / cost if cost > 0.0 else FREE_RATE
         if col.startswith(_RATE):
             o, _, d = col[len(_RATE):].partition("->")
             return self.template.transfer_rates[(o, d)]
@@ -701,6 +772,7 @@ class Calibrator:
         arith_mk = {dt: dict(tab)
                     for dt, tab in self.template.arith_per_mk.items()}
         rates_mixed = dict(self.template.rates_mixed)
+        call_costs = dict(self.template.call_costs)
 
         def assign(col: str, rate: float) -> None:
             if col == OVERHEAD_COL:
@@ -724,10 +796,16 @@ class Calibrator:
                     arith_mk.pop(dt, None)
 
         for i, xi in zip(keep, x):
-            assign(columns[i], 1.0 / xi)
+            if columns[i].startswith(_CALL):    # seconds, not a rate
+                call_costs[columns[i][len(_CALL):]] = float(xi)
+            else:
+                assign(columns[i], 1.0 / xi)
         if on_nonpositive == "free":
             for col in report.dropped:
-                assign(col, FREE_RATE)
+                if col.startswith(_CALL):
+                    call_costs[col[len(_CALL):]] = 0.0
+                else:
+                    assign(col, FREE_RATE)
         prov: dict[str, Any] = {"base": self.template.name,
                                 "fit": report.as_provenance()}
         prov["fit"]["template_geometry"] = \
@@ -742,16 +820,71 @@ class Calibrator:
                 "model": "blis", "variant": self.variant.value,
                 "micro_kernels": mks, "policy": self.policy}
         else:
-            prov["fit"]["cost_model"] = {"model": "pallas"}
+            prov["fit"]["cost_model"] = {"model": self.model}
         if extra_provenance:
             prov.update(extra_provenance)
         spec = dataclasses.replace(
             self.template, name=name or self.template.name,
             transfer_rates=rates, arith_rate=arith, arith_per_mk=arith_mk,
-            rates_mixed=rates_mixed, provenance=prov)
+            rates_mixed=rates_mixed, call_costs=call_costs, provenance=prov)
         spec.validate()
         if register:
             _registry.register(spec, overwrite=True, source="calibrated")
         if manifest_dir:
             spec.to_manifest(os.path.join(manifest_dir, f"{spec.name}.json"))
         return spec, report
+
+    # -- the paper's micro-experiments ---------------------------------------
+
+    @classmethod
+    def measure_host(cls, name: str = "host-cpu", *, date: str | None = None,
+                     register: bool = False,
+                     manifest_dir: str | None = None) -> MachineSpec:
+        """Run the paper's §3.2 micro-experiments on this host and assemble
+        a seed :class:`MachineSpec` (the redesigned ``calibrate_host``).
+
+        The spec keeps the host-cpu template's geometry; the measured
+        packing / copy / arithmetic rates replace the placeholder rates,
+        with calibration provenance attached.
+        """
+        from repro_torch.core.calibrate import (
+            measure_arith_rate,
+            measure_copy_rate,
+            measure_packing_rate,
+        )
+
+        pack4 = measure_packing_rate(4)
+        copy = measure_copy_rate()
+        arith = measure_arith_rate()
+        template = _registry.get("host-cpu")
+        spec = dataclasses.replace(
+            template,
+            name=name,
+            # fresh measured rates supersede any per-mk table the template
+            # carried — keeping it would shadow the new arith_rate.
+            arith_per_mk={},
+            transfer_rates={
+                ("M", "M"): pack4,
+                ("M", "L2"): pack4,
+                ("L2", "M"): pack4,
+                ("M", "L1"): copy,
+                ("M", "R"): copy,
+                ("L1", "R"): copy * 4,
+                ("L2", "R"): copy * 2,
+            },
+            arith_rate={"int8": arith, "f32": arith},
+            provenance={
+                "base": template.name,
+                "calibration": {
+                    "method": "micro-experiments (paper 3.2)",
+                    "date": date,
+                    "measured": {"pack_r4_Bps": pack4, "copy_Bps": copy,
+                                 "arith_ops": arith},
+                },
+            })
+        spec.validate()
+        if register:
+            _registry.register(spec, overwrite=True, source="calibrated")
+        if manifest_dir:
+            spec.to_manifest(os.path.join(manifest_dir, f"{spec.name}.json"))
+        return spec

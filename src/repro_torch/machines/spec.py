@@ -108,6 +108,13 @@ class MachineSpec:
     # uniform ``arith_rate`` entry of the compute (narrower-operand) dtype —
     # see :meth:`arith_rate_mixed`.
     rates_mixed: Mapping[str, float] = dataclasses.field(default_factory=dict)
+    # fixed costs, in seconds, that a machine charges per event rather than
+    # per byte or op (manifest section "call_costs"): a dtype tag keys the
+    # host cost of one GEMM wrapper call in that dtype, "launch" one device
+    # operation the wrapper enqueues.  The Hopper tile model
+    # (core/hopper_model.py) prices them; the rate models ignore them, and
+    # so does the JAX package's reader of the same manifest.
+    call_costs: Mapping[str, float] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         if not self.levels:
@@ -315,6 +322,15 @@ class MachineSpec:
                     and rate > 0):
                 raise err(f"{self.name}: rates_mixed[{key}] must be a "
                           f"positive finite number, got {rate!r}")
+        for key, cost in self.call_costs.items():
+            if key != "launch" and key not in KNOWN_DTYPES:
+                raise err(f"{self.name}: unknown call_costs key {key!r} "
+                          f"(a dtype tag or 'launch')")
+            if not (isinstance(cost, (int, float)) and math.isfinite(cost)
+                    and cost >= 0):
+                raise err(f"{self.name}: call_costs[{key}] must be a "
+                          f"non-negative finite number of seconds, got "
+                          f"{cost!r}")
         for tag, table in self.arith_per_mk.items():
             if tag not in self.arith_rate:
                 raise err(f"{self.name}: arith_per_mk dtype {tag!r} has no "
@@ -369,6 +385,8 @@ class MachineSpec:
         if self.rates_mixed:
             d["rates_mixed"] = {k: float(v)
                                 for k, v in self.rates_mixed.items()}
+        if self.call_costs:
+            d["call_costs"] = {k: float(v) for k, v in self.call_costs.items()}
         if self.level_aliases:
             d["level_aliases"] = dict(self.level_aliases)
         if self.deployment_level or self.memory_reserved_fraction:
@@ -411,6 +429,8 @@ class MachineSpec:
                 rates_mixed={k: float(v)
                              for k, v in
                              dict(d.get("rates_mixed") or {}).items()},
+                call_costs={k: float(v) for k, v in
+                            dict(d.get("call_costs") or {}).items()},
                 reference_chunk=int(d.get("reference_chunk", 4)),
                 elem_bytes=int(d.get("elem_bytes", 1)),
                 num_vector_registers=int(d.get("num_vector_registers", 32)),

@@ -211,9 +211,11 @@ def fit_from_store(store: SampleStore | str, template, *,
     what gets minimised; pass ``"absolute"`` for the plain solve.
     Returns ``(spec, FitReport)``.
 
-    Samples of tile plans (the ``cuda`` harness: a tile, no micro-kernel)
-    are fitted with the Calibrator's tile model (``"pallas"``) on the tile
-    each sample recorded; a store mixing the two kinds raises.
+    Samples of tile plans (a tile, no micro-kernel) are fitted on the tile
+    each sample recorded: the ``cuda`` backend's with the Hopper tile model
+    it plans with (``model="hopper"``), so the validated prediction is the
+    fitted one; other tile backends' with the TPU tile model
+    (``"pallas"``).  A store mixing kinds raises.
 
     ``overhead_per_block=True`` additionally fits a constant cost per
     innermost micro-kernel dispatch (recorded in fit provenance, not in the
@@ -252,11 +254,18 @@ def fit_from_store(store: SampleStore | str, template, *,
             f"{store.path}: the store mixes BLIS-model and tile-model "
             f"samples for {spec.name!r}; fit one cost model at a time")
     if tiled:
-        # tile plans (cuda harness): the tile cost model, priced on each
-        # sample's recorded tile so pinned k-outer samples stay k-outer.
+        # tile plans, priced on each sample's recorded tile so pinned
+        # k-outer samples stay k-outer: the cuda backend's on the Hopper
+        # tile model it plans with, the others' on the TPU tile model.
         from repro_torch.measure.validate import parse_tile
         samples = tiled
-        cal = Calibrator(spec, model="pallas")
+        models = sorted({"hopper" if s.backend == "cuda" else "pallas"
+                         for s in samples})
+        if len(models) > 1:
+            raise ValueError(
+                f"{store.path}: the store mixes cuda and other tile-model "
+                f"samples for {spec.name!r}; fit one cost model at a time")
+        cal = Calibrator(spec, model=models[0])
         selection = {"tiles": [parse_tile(s.tile) for s in samples]}
     elif not samples:
         raise ValueError(

@@ -97,6 +97,27 @@ def test_kernels_match_plain_versions(dt, tile, m, n, k):
         assert bool(((got_o.float() - want_o.float()).abs() <= tol).all())
 
 
+@pytest.mark.parametrize("tile", [(128, 256, 128), (128, 256, 64),
+                                  (256, 256, 64)])
+def test_bf16_n256_tiles_run_one_warpgroup_in_rounds(tile):
+    """bf16 tiles of N = 256 with bm > 64 run one consumer warpgroup in
+    rounds (two would spill), each round streaming K again; both orders
+    match their plain versions at a ragged shape."""
+    assert K.wgmma_config(TileConfig(*tile)).consumers == 1
+    ta, tb = _operands(300, 520, 390, "bf16", sum(tile))
+    c0 = torch.zeros((300, 520), dtype=torch.bfloat16, device="cuda")
+    got_i = K.gemm_k_inner(ta, tb, tile=TileConfig(*tile))
+    got_o = K.gemm_k_outer(ta, tb, c0,
+                           tile=TileConfig(*tile, GridOrder.K_OUTER))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_i.float(),
+                               K.gemm_k_inner_plain(ta, tb).float(),
+                               rtol=2e-2, atol=2e-2)
+    tol = -(-390 // tile[2]) * _streamed_ulp(ta, tb, c0, tile[2])
+    want_o = K.gemm_k_outer_plain(ta, tb, c0, bk=tile[2])
+    assert bool(((got_o.float() - want_o.float()).abs() <= tol).all())
+
+
 def test_k_outer_streaming_costs_precision_in_bf16():
     ta, tb = _operands(128, 256, 512, "bf16", 3)
     exact = ta.double() @ tb.double()
@@ -137,9 +158,13 @@ def test_wrapper_rejects_c_in_another_dtype_on_the_card():
 # f32 GEMM on the CUDA cores (csrc/tile_gemm.cuh): rtol 1e-5 / atol 1e-4
 # ---------------------------------------------------------------------------
 
-#: the f32 tiles the planner picks (tests/test_torch_gemm_f32.py holds the
-#: planner to this list) and phase 5's 64x128x128
-F32_TILES = [(8, 128, 128), (32, 64, 128), (64, 32, 128), (64, 128, 128)]
+#: the f32 tiles the planner picks and its earlier picks
+#: (tests/test_torch_gemm_f32.py holds the planner to these lists) and
+#: phase 5's 64x128x128
+F32_TILES = [(8, 128, 128), (32, 64, 128), (64, 32, 128), (64, 128, 128),
+             (8, 64, 128), (16, 8, 128), (16, 16, 128), (32, 16, 128),
+             (32, 32, 128), (32, 512, 128), (64, 64, 128), (128, 128, 128),
+             (2048, 8, 128)]
 
 
 def _f32_both_orders(ta, tb, c, tile):

@@ -35,9 +35,15 @@ from repro_torch.core.tpu_model import GemmShape, GridOrder, TileConfig
 from repro_torch.kernels import build
 from repro_torch.kernels import gemm as K
 
-#: the int8 tiles the planner picks on cuda for h100: Table-2's four and
-#: 128x128x128 for every Qwen2-1.5B GEMM at tokens=4096
-PLANNED_INT8 = [(32, 256, 128), (64, 128, 128), (128, 128, 128),
+#: the int8 tiles the planner (the Hopper tile model) picks on cuda for
+#: h100: Table-2's and 128x256x128 for every Qwen2-1.5B GEMM at
+#: tokens=4096
+PLANNED_INT8 = [(32, 128, 512), (64, 64, 512), (64, 128, 256),
+                (64, 256, 128), (128, 64, 256), (128, 128, 128),
+                (128, 256, 128)]
+#: the TPU model's earlier int8 picks (phase 5 of chip_smoke.py still times
+#: 128x128x128 and 64x128x128)
+EARLIER_INT8 = [(32, 256, 128), (64, 128, 128), (128, 128, 128),
                 (128, 64, 128)]
 
 
@@ -66,19 +72,22 @@ def test_the_planner_picks_the_tiles_listed_here():
 #: blocks an SM than two stages leave (233,472 bytes an SM, 1,024 of them
 #: reserved per block)
 K_INNER_STAGES = {(32, 256, 128): 2, (64, 128, 128): 3, (128, 128, 128): 5,
-                  (128, 64, 128): 3}
+                  (128, 64, 128): 3, (64, 64, 512): 3, (64, 128, 256): 4,
+                  (64, 256, 128): 4, (128, 64, 256): 4, (128, 256, 128): 2,
+                  (32, 128, 512): 2}
 
 
 @pytest.mark.parametrize("k_outer", [False, True])
-@pytest.mark.parametrize("tile", PLANNED_INT8)
+@pytest.mark.parametrize("tile", EARLIER_INT8 + [
+    t for t in PLANNED_INT8 if t not in EARLIER_INT8])
 def test_int8_config_is_the_written_out_layout(tile, k_outer):
-    """A stage is one 128-k band of A (max(bm, 8) rows) and of B transposed
-    (max(bn, 64) rows), 128 bytes a row; after the stages (each with a full
-    and an empty 8-byte mbarrier) come the int32 C tile and its mbarrier.
-    A k-outer pass (bk = 128) is one slab, so one stage."""
+    """A stage is bk / 128 bands 128 k wide of A (max(bm, 8) rows) and of B
+    transposed (max(bn, 64) rows), 128 bytes a row; after the stages (each
+    with a full and an empty 8-byte mbarrier) come the int32 C tile and its
+    mbarrier.  A k-outer pass (one bk slab) is one slab, so one stage."""
     bm, bn, bk = tile
     cfg = K.int8_config(TileConfig(*tile), k_outer=k_outer)
-    stage = (max(bm, 8) + max(bn, 64)) * 128
+    stage = bk // 128 * (max(bm, 8) + max(bn, 64)) * 128
     stages = 1 if k_outer else K_INNER_STAGES[tile]
     assert (cfg.ks, cfg.stage_bytes, cfg.stages) == (bk, stage, stages)
     assert cfg.smem_bytes == stages * (stage + 16) + bm * bn * 4 + 8

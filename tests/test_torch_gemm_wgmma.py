@@ -58,12 +58,13 @@ def _planned_tile(m, n, k):
 
 @pytest.mark.parametrize("m,n,k", PLANNED)
 def test_route_takes_every_planner_tile(m, n, k):
-    """Every bf16 tile the planner picks that ``launch_config`` takes runs
-    on the tensor-core route too, in both loop orders, and fits the
-    232,448 bytes of shared memory a Hopper block may claim."""
+    """Every bf16 tile the planner picks (on the Hopper tile model, which
+    searches the tiles ``check_tile`` takes) runs on the tensor-core route,
+    in both loop orders, and fits the 232,448 bytes of shared memory a
+    Hopper block may claim."""
     t = _planned_tile(m, n, k)
     tile = TileConfig(t.bm, t.bn, t.bk)
-    K.launch_config(tile, "bf16")
+    assert K.check_tile(tile, "bf16") == K.wgmma_config(tile)
     for k_outer in (False, True):
         cfg = K.wgmma_config(tile, k_outer=k_outer)
         assert cfg.smem_bytes <= K.MAX_SMEM_BYTES

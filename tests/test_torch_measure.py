@@ -82,9 +82,12 @@ def test_store_written_by_reference_is_fitted_by_port(tmp_path):
 
 
 def test_tile_model_fit_recovers_rates_from_tile_samples(tmp_path):
-    """Samples of the ``cuda`` backend carry a tile, not a micro-kernel;
-    ``fit_from_store`` fits them with the tile cost model on their recorded
-    tiles (k-inner and k-outer), recovering the rates that made them."""
+    """Samples of a tile backend carry a tile, not a micro-kernel;
+    ``fit_from_store`` fits ``analytic-tpu`` samples with the TPU tile
+    model on their recorded tiles (k-inner and k-outer), recovering the
+    rates that made them.  (``cuda`` samples are fitted with the Hopper
+    model: ``tests/test_torch_hopper_model.py``.)  The cuda backend runs
+    the same tiles pinned."""
     from repro_torch.core.tpu_model import GridOrder, TileConfig
     from repro_torch.measure.harness import TimingResult
 
@@ -95,8 +98,9 @@ def test_tile_model_fit_recovers_rates_from_tile_samples(tmp_path):
               (64, 4096, 256), (2048, 128, 1024), (128, 128, 8192)]
     tiles = [TileConfig(64, 128, 128), TileConfig(128, 64, 256,
                                                   GridOrder.K_OUTER)]
-    plans = [gemm.plan(s, backend="cuda", machine="h100", dtype="bf16",
-                       tile=t, cache=False) for s in shapes for t in tiles]
+    plans = [gemm.plan(s, backend="analytic-tpu", machine="h100",
+                       dtype="bf16", tile=t, cache=False)
+             for s in shapes for t in tiles]
     cal = Calibrator(truth, model="pallas")
     A, cols = cal.design_matrix([p.problem for p in plans],
                                 tiles=[p.selection for p in plans])
@@ -116,6 +120,12 @@ def test_tile_model_fit_recovers_rates_from_tile_samples(tmp_path):
         truth.arith_rate["bf16"], rel=1e-6)
     assert spec.provenance["fit"]["cost_model"] == {"model": "pallas"}
     assert spec.provenance["base"] == "h100"
+    for t in tiles:
+        p = gemm.plan(shapes[0], backend="cuda", machine="h100",
+                      dtype="f32", tile=t, cache=False)
+        a, b = torch.randn(256, 1024), torch.randn(1024, 512)
+        torch.testing.assert_close(p.execute(a, b), a.double().mm(
+            b.double()).float(), rtol=1e-4, atol=1e-3)
 
 
 def test_tile_design_matrix_matches_reference_when_tiles_are_searched():

@@ -75,11 +75,12 @@ def test_chip_smoke_imports_only_the_port():
 
 
 def test_smoke_grid_loop_matches_reference(tmp_path):
-    """plan (cuda vs pallas on h100) → execute (CPU vs interpret) →
-    simulated measure → fit (tile model) → validate, both packages."""
+    """plan (analytic-tpu vs pallas on h100) → execute (cuda at the same
+    tile on the CPU vs interpret) → simulated measure → fit (tile model) →
+    validate, both packages."""
     jh100 = JMachineSpec.from_manifest(H100_JSON)
     probs = measure.grid_problems("smoke", "f32")
-    tplans = gemm.plan_many(probs, backend="cuda", machine="h100",
+    tplans = gemm.plan_many(probs, backend="analytic-tpu", machine="h100",
                             cache=False)
     jplans = jgemm.plan_many(jmeasure.grid_problems("smoke", "f32"),
                              backend="pallas", machine=jh100, cache=False)
@@ -89,7 +90,9 @@ def test_smoke_grid_loop_matches_reference(tmp_path):
         p = tp.problem
         a = rng.normal(size=(p.m, p.k)).astype(np.float32)
         b = rng.normal(size=(p.k, p.n)).astype(np.float32)
-        got = tp.execute(*operands_from_numpy(a, b, device="cpu"))
+        pinned = gemm.plan(p, backend="cuda", machine="h100",
+                           tile=tp.selection, cache=False)
+        got = pinned.execute(*operands_from_numpy(a, b, device="cpu"))
         want = jp.execute(jnp.array(a), jnp.array(b), interpret=True)
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=1e-5, atol=1e-4)
@@ -99,7 +102,8 @@ def test_smoke_grid_loop_matches_reference(tmp_path):
     jtruth = jh100.scaled(arith=0.02, bw=0.5, name="h100-smoke-truth")
     tstore, jstore = str(tmp_path / "t.jsonl"), str(tmp_path / "j.jsonl")
     tres = measure.run_campaign("smoke", machine="h100", harness="simulated",
-                                truth=truth, backend="cuda", store=tstore)
+                                truth=truth, backend="analytic-tpu",
+                                store=tstore)
     jres = jmeasure.run_campaign("smoke", machine=jh100, harness="simulated",
                                  truth=jtruth, backend="pallas", store=jstore)
     assert [s.seconds for s in tres.samples] == \
@@ -121,7 +125,7 @@ def test_qwen2_smoke_config_gemms_match_pallas():
                                 tokens=64)
     jshapes = jmodel_gemm_shapes(jget_config("qwen2-1.5b", smoke=True),
                                  tokens=64)
-    tplans = gemm.plan_many(tshapes, backend="cuda", machine="h100")
+    tplans = gemm.plan_many(tshapes, backend="analytic-tpu", machine="h100")
     jplans = jgemm.plan_many(jshapes, backend="pallas",
                              machine=JMachineSpec.from_manifest(H100_JSON))
     rng = np.random.default_rng(1)
@@ -131,7 +135,8 @@ def test_qwen2_smoke_config_gemms_match_pallas():
         a = rng.normal(size=(p.m, p.k)).astype(np.float32)
         b = rng.normal(size=(p.k, p.n)).astype(np.float32)
         ta, tb = operands_from_numpy(a, b, device="cpu", dtype="bf16")
-        got = tp.execute(ta, tb)
+        got = gemm.plan(p, backend="cuda", machine="h100", tile=tp.selection,
+                        cache=False).execute(ta, tb)
         want = jp.execute(jnp.array(a, jnp.bfloat16),
                           jnp.array(b, jnp.bfloat16), interpret=True)
         assert got.dtype == torch.bfloat16
