@@ -6,10 +6,11 @@
 Run from the root of a checkout, on a machine with one sm_90 card and the
 CUDA toolkit.  It imports only ``repro_torch`` (from ``src/``), never JAX or
 the JAX package, and raises on the first failed check, so any failure exits
-non-zero.  It drives three paths of the port: the paper's GEMM loop
-(phases 3-4), serving granite-moe-3b-a800m at full width (phase 7), and
-the attention and norm entry points on that model's activations (phase
-9).  Phases:
+non-zero.  It drives four paths of the port: the paper's GEMM loop
+(phases 3-4), serving granite-moe-3b-a800m at full width (phase 7), the
+attention and norm entry points on that model's activations (phase 9),
+and serving zamba2-1.2b at full width (phase 11), beside the other model
+families (phase 12) and the deployment report (phase 13).  Phases:
 
 1. build   — compile every source of ``src/repro_torch/kernels/csrc/`` for
              sm_90a (one nvcc per library, all in parallel); print build
@@ -71,7 +72,13 @@ the attention and norm entry points on that model's activations (phase
              fitted rate and per-call cost beside the manifest's, the MAPE
              by dtype and loop order (campaign and held out) and, per
              Qwen2-1.5B GEMM and dtype, the planner's tile's time over the
-             fastest tile timed.
+             fastest tile timed.  Then step 5: the fit is registered
+             (``h100-fit``), the 15 Qwen2-1.5B GEMM x dtype cells are
+             re-planned on it, and each refit pick phase 4 has not timed
+             is held against its plain version and timed (into
+             ``h100_refit.jsonl``, out of the fit); per cell the data
+             sheet's pick and the refit's, each over the fastest tile
+             timed (target <= 1.10).
 5. timing  — each kernel at the Qwen2-1.5B shapes with CUDA events, beside
              its plain version, ``torch.matmul`` and its roofline bound
              (TFLOP/s and share of the bound; for k-outer also the C-stream
@@ -173,6 +180,45 @@ the attention and norm entry points on that model's activations (phase
              16, 32) in both trees, each in a fresh process: parent,
              change, change, parent.
 
+11. zamba2 — ``serve_demo`` serves phase 7's traffic (8 requests, 12 new
+             tokens, max_batch 4, max_len 256, bf16) with zamba2-1.2b at
+             full width (38 layers: 32 Mamba2 and 6 sites of one shared
+             attention+MLP block, d_model 2048, random weights from a
+             seeded generator on the card): every request finishes with
+             in-vocabulary tokens, every prefill runs at its exact length,
+             ``gemm_k_inner`` (the shared MLP, the logits) is launched on
+             the wgmma route and every GEMM shape x tile the run launched
+             is held against its plain version; the footprint model's
+             decode-state bytes must equal the engine's caches' bytes on
+             the card, and its weights and total bytes are printed beside
+             the model's, the compute copy's and
+             ``torch.cuda.max_memory_allocated``.  Two requests are
+             replayed through a per-request ``decode_step`` loop; in bf16
+             their distance is printed beside a one-ulp probe (one
+             embedding row scaled by 1 + 2^-8 moves the logits as far:
+             38 random layers amplify any rounding), and the same traffic
+             served in f32 (GEMMs on the CUDA cores) must agree with its
+             replay within 1e-3 relative L2.  Then a profiled drain (the
+             device's busy share).
+12. families — decode == prefill at full width in f32 for zamba2-1.2b,
+             xlstm-125m, paligemma-3b (256 patches before 16 tokens) and
+             musicgen-medium (16 frames): a prefill of all but the last
+             position and one ``decode_step`` against the last position
+             of the whole prefill, ``tests/test_models.py``'s bounds
+             (attention archs rtol = atol = 2e-2; recurrent archs max
+             |err| under 0.06 of max |logit|); the bf16 error printed
+             beside it (no bound), and the host ms of xlstm-125m's sLSTM
+             steps inside its prefill; every GEMM shape x tile the phase
+             ran held against its plain version.
+13. deploy  — ``plan_deployment`` for all ten archs on ``cuda`` /
+             ``h100``, bf16 and int8, batches 1-16, max_len 4096: the
+             ranked table per arch; kimi-k2-1t must be rejected on one
+             card for its weights (footprint and budget printed); zamba2's
+             predicted decode tok/s at batch 4 beside phase 11's measured
+             figure (no bound: the served step is bound by the host);
+             zamba2 and qwen2-1.5b also priced on ``h100-measured`` (the
+             zoo's fitted manifest) and ``h100-fit`` (phase 4's).
+
 With tied embeddings and random weights, the token's own embedding
 dominates the last hidden state, so greedy decoding echoes the input token
 whatever the layers compute; tokens alone would not catch a serving bug.
@@ -184,9 +230,9 @@ Launch counters are zeroed just before each path and read just after it:
 phases 3-4 must launch both GEMM kernels in bf16, in int8 and in f32 (the
 int8 and f32 launches are counted apart, by the counters' growth over
 their runs),
-phase 7 the grouped kernel and
-at least one GEMM kernel, phases 9 and 10 (each) the flash attention and
-RMSNorm kernels.  The line before the last is the
+phase 7 the grouped kernel and at least one GEMM kernel, phases 9 and 10
+(each) the flash attention and RMSNorm kernels, phase 11 ``gemm_k_inner``
+on the wgmma route.  The line before the last is the
 ``{"kernels": [...]}`` record (the GEMM kernels three times, each timed at
 its dtype's planner tiles: bf16 from ``wgmma_gemm.cuh``, int8,
 ``*_int8``, from ``wgmma_s8.cuh``, and f32, ``*_f32``, from
@@ -249,8 +295,12 @@ def check(cond, msg):
         raise CheckFailed(msg)
 
 
+T_START = time.perf_counter()
+
+
 def phase(n, title):
-    print(f"\n== phase {n}: {title}", flush=True)
+    print(f"\n== phase {n}: {title} ({time.perf_counter() - T_START:.1f} s "
+          f"into the run)", flush=True)
 
 
 def smi(query):
@@ -516,6 +566,62 @@ def pinned_sample(gemm, measure, harness, spec, problem, tile, grid, path):
         meta={"grid": grid})
     measure.SampleStore(path).append(s)
     return s
+
+
+def refit_picks(gemm, measure, harness, K, h100, names, qshapes, pick_rows,
+                checked, dev, path, tag):
+    """Phase 4's step 5 in ``tag``: re-plan the five Qwen2-1.5B GEMMs on
+    the registered fit (``h100-fit``); a pick phase 4 has not timed is held
+    against its plain version (phase 2's shapes) and timed like the others
+    (into the store at ``path``, out of the fit).  Returns per GEMM the
+    data-sheet pick and the refit's, each over the fastest tile timed."""
+    from repro_torch.gemm.api import GemmProblem
+
+    out = []
+    times = {(r["dtype"], r["gemm"]): dict(zip(r["tiles"], r["seconds"]))
+             for r in pick_rows}
+    for name, (m, n, k) in zip(names, qshapes):
+        p = GemmProblem(m, n, k, dtype=tag)
+        sheet = gemm.plan(p, backend="cuda", machine="h100").selection
+        refit = gemm.plan(p, backend="cuda", machine="h100-fit").selection
+        timed = times[(tag, name)]
+        if str(refit) not in timed:
+            if (refit.bm, refit.bn, refit.bk) not in checked[tag]:
+                hold_tile(K, refit, tag, dev)
+            timed[str(refit)] = pinned_sample(
+                gemm, measure, harness, h100, p, refit, "qwen2-1.5b-refit",
+                path).seconds
+        fastest = min(timed.values())
+        out.append({"dtype": tag, "gemm": name, "sheet": str(sheet),
+                    "refit": str(refit), "timed": timed,
+                    "sheet_ratio": timed[str(sheet)] / fastest,
+                    "refit_ratio": timed[str(refit)] / fastest})
+    return out
+
+
+def hold_tile(K, tile, tag, dev):
+    """A tile phase 2 did not check, against the plain versions on phase
+    2's shapes, both loop orders."""
+    import torch
+    from repro_torch.core.tpu_model import GridOrder, TileConfig
+
+    ti = TileConfig(tile.bm, tile.bn, tile.bk, GridOrder.K_INNER)
+    to = TileConfig(tile.bm, tile.bn, tile.bk, GridOrder.K_OUTER)
+    for j, (m, n, k) in enumerate([(512, 512, 512), (300, 520, 390)]):
+        a, b = seeded(m, n, k, tag, 400 + j, dev)
+        if tag == "f32":
+            b *= k ** -0.5
+        c0 = torch.zeros((m, n), dtype=K.out_dtype(a.dtype), device=dev)
+        where = f" at {ti.bm}x{ti.bn}x{ti.bk} (a refit pick), {m}x{n}x{k}"
+        compare("gemm_k_inner", tag, K.gemm_k_inner(a, b, tile=ti),
+                K.gemm_k_inner_plain(a, b), where=where)
+        compare("gemm_k_outer", tag, K.gemm_k_outer(a, b, c0, tile=to),
+                K.gemm_k_outer_plain(a, b, c0, bk=tile.bk),
+                passes=-(-k // tile.bk), where=where,
+                **(k_outer_bounds(a, b, c0, tile.bk) if tag == "bf16"
+                   else {}))
+    print(f"refit pick {tile} ({tag}): not among phase 2's tiles; both "
+          f"orders match their plain versions")
 
 
 def route_check(K, label, tag, since):
@@ -1439,11 +1545,12 @@ def served_steps():
     return step_times(out)
 
 
-def replay_served(eng, kept):
+def replay_served(eng, kept, rtol=BF16_LOGITS_RTOL):
     """Phase 7's logits check: each request in ``REPLAYED`` goes through a
     per-request ``decode_step`` loop at batch 1, with the served run's
     weights, fed the tokens it was served; its logits must agree with the
-    ones the served run computed, to ``BF16_LOGITS_RTOL``."""
+    ones the served run computed, to ``rtol`` relative L2 (None: printed,
+    not held), and lie further from another request's."""
     reqs = {r.rid: r for r in eng.finished}
     errs, gaps, want = {}, [], {}
     for rid in REPLAYED:
@@ -1461,15 +1568,19 @@ def replay_served(eng, kept):
     worst = max(max(e) for e in errs.values())
     print(f"requests {list(REPLAYED)} replayed at batch 1 on the served "
           f"tokens: logits within {worst:.4g} relative L2 of the served "
-          f"run's at every step (tolerance {BF16_LOGITS_RTOL}); request {a} "
+          f"run's at every step (tolerance {rtol}); request {a} "
           f"against request {b}: {mixed:.4g}; smallest top-1 logit gap "
           f"{min(gaps):.4g}")
-    check(worst <= BF16_LOGITS_RTOL,
-          f"served logits differ from the replay by {worst:.4g} relative L2 "
-          f"(per step: {errs})")
-    check(mixed > 10 * BF16_LOGITS_RTOL,
-          f"two requests' logits differ by only {mixed:.4g}: the check "
-          f"cannot tell them apart")
+    if rtol is not None:
+        check(worst <= rtol,
+              f"served logits differ from the replay by {worst:.4g} "
+              f"relative L2 (per step: {errs})")
+        check(mixed > 10 * rtol,
+              f"two requests' logits differ by only {mixed:.4g}: the check "
+              f"cannot tell them apart")
+    check(mixed > worst, f"served logits lie {worst:.4g} from their own "
+                         f"replay, no nearer than another request's "
+                         f"({mixed:.4g})")
     return {"requests": list(REPLAYED), "rel_l2_max": worst,
             "rel_l2_per_step": errs, "other_request_rel_l2": mixed,
             "min_top1_gap": min(gaps)}
@@ -1540,8 +1651,9 @@ def profile_serving(cfg, quiet=False):
             print(f"  {label}: {r['device_ms']:.4f} ms over {r['count']} "
                   f"calls, {r['device_ms'] / r['count']:.4f} ms per call  "
                   f"{r['name'][:60]}")
-    print(f"  grouped kernel: {grouped_ms:.3f} ms of {busy:.3f} ms device "
-          f"time ({100 * res['grouped_share']:.1f}%)")
+    if cfg.n_experts:
+        print(f"  grouped kernel: {grouped_ms:.3f} ms of {busy:.3f} ms "
+              f"device time ({100 * res['grouped_share']:.1f}%)")
     return res
 
 
@@ -2116,6 +2228,489 @@ def flash_f32_phase1(FA, entries):
           f"{spills}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 11-13: the model families, and the deployment report on the card
+# ---------------------------------------------------------------------------
+
+#: phase 11's served run: zamba2-1.2b at full width with phase 7's traffic
+ZAMBA_RUN = dict(SERVED_RUN, arch="zamba2-1.2b")
+#: phase 12: the families held to decode == prefill at full width, and the
+#: positions S of the longer prefill (paligemma-3b: its 256 patches, then
+#: S tokens; musicgen-medium: S frames)
+FAMILY_ARCHS = ("zamba2-1.2b", "xlstm-125m", "paligemma-3b",
+                "musicgen-medium")
+FAMILY_S = 16
+#: phase 11 in f32: relative L2 allowed between served and replayed logits
+#: (the bucketless prefill and the batch of 4 against one-token decode at
+#: batch 1; f32 sums in other orders)
+F32_LOGITS_RTOL = 1e-3
+#: phase 12's bounds, ``tests/test_models.py``'s: attention archs rtol =
+#: atol = 2e-2 per logit; recurrent archs max |err| over max |logit|
+ATTN_DECODE_TOL = 2e-2
+RECURRENT_DECODE_TOL = 0.06
+#: phase 13's grid: every arch on one card
+DEPLOY_GRID = dict(dtypes=("bf16", "int8"), batches=(1, 2, 4, 8, 16),
+                   max_len=4096, backend="cuda")
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_bytes(tree, skip=()):
+    """Bytes of a tree's tensors, each storage once, leaving out the
+    storages of the tensors in ``skip``."""
+    seen = {t.data_ptr() for t in skip}
+    total = 0
+    for t in tree_leaves(tree):
+        if t.data_ptr() not in seen:
+            seen.add(t.data_ptr())
+            total += t.numel() * t.element_size()
+    return total
+
+
+def record_gemms(K):
+    """Wraps ``K.gemm`` (what the ``cuda`` backend's ``execute`` calls) to
+    record every (m, n, k, tile, dtype tag) it runs.  Returns (the set,
+    a function that restores ``K.gemm``)."""
+    seen = set()
+    inner = K.gemm
+
+    def gemm(a, b, c=None, *, tile):
+        seen.add((a.shape[0], b.shape[1], a.shape[1], tile,
+                  K._tag(a.dtype)))
+        return inner(a, b, c, tile=tile)
+
+    def restore():
+        K.gemm = inner
+
+    K.gemm = gemm
+    return seen, restore
+
+
+def hold_gemms(K, shapes, dev, label):
+    """Each GEMM a path ran, at its (m, n, k) and tile, against its plain
+    version on seeded operands (B at a weight's init scale, as the models
+    hold it).  Returns the largest error per dtype."""
+    import torch
+    from repro_torch.core.tpu_model import GridOrder
+
+    err = {}
+    for i, (m, n, k, tile, tag) in enumerate(sorted(
+            shapes, key=lambda s: (s[4], s[0], s[1], s[2], str(s[3])))):
+        a, b = seeded(m, n, k, tag, 3000 + i, dev)
+        b *= k ** -0.5
+        where = f" at {tile}, {m}x{n}x{k} ({label})"
+        if tile.order is GridOrder.K_OUTER:
+            c0 = torch.zeros((m, n), dtype=K.out_dtype(a.dtype), device=dev)
+            e = compare("gemm_k_outer", tag,
+                        K.gemm_k_outer(a, b, c0, tile=tile),
+                        K.gemm_k_outer_plain(a, b, c0, bk=tile.bk),
+                        passes=-(-k // tile.bk), where=where,
+                        **(k_outer_bounds(a, b, c0, tile.bk)
+                           if tag == "bf16" else {}))
+        else:
+            e = compare("gemm_k_inner", tag, K.gemm_k_inner(a, b, tile=tile),
+                        K.gemm_k_inner_plain(a, b), where=where)
+        err[tag] = max(err.get(tag, 0.0), e)
+        del a, b
+    torch.cuda.empty_cache()
+    print(f"{label}: the {len(shapes)} GEMM shape x tile pairs it ran match "
+          f"their plain versions (max |err| by dtype {err}; bf16 rtol = "
+          f"atol = 2e-2, f32 rtol 1e-5 / atol 1e-4)")
+    return err
+
+
+def zamba_phase(K, G, dev):
+    """Phase 11: serve zamba2-1.2b at full width through the port's entry
+    point, phase 7's traffic; returns the run's numbers."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.serving.footprint import footprint
+
+    phase(11, "serving zamba2-1.2b at full width on the card")
+    cfg = get_config("zamba2-1.2b")
+    kinds = cfg.block_counts()
+    print(f"{cfg.name}: {cfg.n_layers} layers ({kinds['mamba2']} Mamba2, "
+          f"{kinds['shared_attn']} sites of one shared attention+MLP "
+          f"block), d_model {cfg.d_model}, d_inner {cfg.d_inner}, "
+          f"{cfg.ssm_heads} SSM heads of {cfg.ssm_head_dim}, state "
+          f"{cfg.ssm_state}, {cfg.n_heads} attention heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (padded "
+          f"{cfg.padded_vocab}); compute {cfg.compute_dtype}")
+    held_ = {}
+
+    class Recording(serve_mod.ServingEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            held_["engine"] = self
+            held_["logits"] = record_logits(self, REPLAYED)
+
+    gemms, restore = record_gemms(K)
+    engine_cls = serve_mod.ServingEngine
+    serve_mod.ServingEngine = Recording
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    G.reset_launch_counts()
+    try:
+        out = serve_mod.serve_demo(**ZAMBA_RUN)
+        launches = {**K.LAUNCHES, **G.LAUNCHES}
+        routes = dict(K.ROUTES)
+    finally:
+        serve_mod.ServingEngine = engine_cls
+        restore()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"serving-path launches: {launches}, GEMM routes {routes}")
+    all_on_wgmma(K, "phase 11's served run")
+    check(launches["gemm_k_inner"] > 0 and routes["wgmma"] > 0,
+          "gemm_k_inner was never launched on the wgmma route on the "
+          "served zamba2 path")
+    check(out["requests"] == 8, f"{out['requests']} of 8 requests finished")
+    for rid, toks in out["generated"].items():
+        check(len(toks) == 12 and all(0 <= t < cfg.vocab_size
+                                      for t in toks),
+              f"request {rid}: {toks} is not 12 in-vocabulary tokens")
+    eng = held_["engine"]
+    admits = [e for e in eng.trace_events if e["type"] == "admit"]
+    check(all(e["bucket"] == e["prefix_len"] for e in admits),
+          "a recurrent prefill ran at a bucket, not its exact length")
+    res = {**step_times(out), **launches, "gemm_routes": routes,
+           "gemm_shapes": sorted((m, n, k, str(t), tag)
+                                 for m, n, k, t, tag in gemms)}
+    print(f"{res['tokens']} tokens in {res['seconds']:.3f} s: "
+          f"{res['tokens_per_s']:.2f} tok/s; {res['steps']} steps "
+          f"({res['decode_steps']} without admissions: "
+          f"{res['decode_step_ms']:.3f} ms each; all steps "
+          f"{res['step_ms_all']:.3f} ms); {out['prefills']} prefills at "
+          f"their exact lengths {sorted(e['bucket'] for e in admits)}")
+    # the footprint model's bytes against the engine's tensors on the card
+    fp = footprint(cfg, batch=eng.max_batch, max_len=eng.max_len,
+                   dtype="bf16")
+    cache_bytes = tree_bytes(eng.caches)
+    values = eng.lm.values()
+    value_bytes = tree_bytes(values)
+    compute_bytes = tree_bytes(eng.params)
+    copy_bytes = tree_bytes(eng.params, skip=tree_leaves(values))
+    n_params = sum(t.numel() for t in tree_leaves(values))
+    print(f"footprint (bf16, batch {eng.max_batch}, max_len "
+          f"{eng.max_len}): decode state {fp.kv_cache_bytes:,} B, the "
+          f"engine's caches on the card {cache_bytes:,} B")
+    check(fp.kv_cache_bytes == cache_bytes,
+          f"footprint decode-state bytes {fp.kv_cache_bytes} != the caches' "
+          f"{cache_bytes}")
+    print(f"footprint weights_bytes {fp.weights_bytes:,} B "
+          f"(config.param_count() {cfg.param_count():,} x 2 B); the model's "
+          f"{n_params:,} parameters (lm.values(), {cfg.param_dtype}) "
+          f"{value_bytes:,} B; the compute copy {compute_bytes:,} B, of "
+          f"which {copy_bytes:,} B new (matrices in bf16; f32 vectors "
+          f"shared)")
+    print(f"footprint total_bytes {fp.total_bytes:,} B; "
+          f"torch.cuda.max_memory_allocated {peak:,} B over the served run")
+    res["footprint"] = {**fp.as_dict(), "cache_bytes_on_card": cache_bytes,
+                        "param_count": n_params, "values_bytes": value_bytes,
+                        "compute_bytes": compute_bytes,
+                        "compute_copy_new_bytes": copy_bytes,
+                        "max_memory_allocated": peak}
+    # bf16 through 38 random layers amplifies any one-ulp difference (the
+    # probe below): the served bf16 logits are printed beside the probe,
+    # and the served path is held in f32
+    res["replay"] = replay_served(eng, held_["logits"], rtol=None)
+    res["probe"] = perturbation_probe(eng, held_["logits"])
+    res["gemm_err"] = hold_gemms(K, gemms, dev, "phase 11's served run")
+    del eng, values
+    held_.clear()
+    torch.cuda.empty_cache()
+    res["f32"] = served_f32(cfg, K, dev)
+    res["profile"] = profile_serving(cfg)
+    torch.cuda.empty_cache()
+    return res
+
+
+def perturbation_probe(eng, kept, steps=4):
+    """How far one bf16 ulp moves the served model's logits: request
+    ``REPLAYED[0]`` replayed twice at batch 1, the second time with its
+    first token's embedding row scaled by (1 + 2^-8); relative L2 per
+    step, beside the served run's distance from its replay."""
+    r = {q.rid: q for q in eng.finished}[REPLAYED[0]]
+    _, base = replay(eng.lm, eng.params, r.prompt, steps, eng.max_len,
+                     forced=r.generated)
+    params = dict(eng.params, embed=dict(eng.params["embed"]))
+    table = params["embed"]["table"].clone()
+    table[r.prompt[0]] *= 1 + 2 ** -8
+    params["embed"]["table"] = table
+    _, moved = replay(eng.lm, params, r.prompt, steps, eng.max_len,
+                      forced=r.generated)
+    probe = [rel_l2(a, b) for a, b in zip(moved, base)]
+    served = [rel_l2(g, w) for g, w in zip(kept[r.rid], base)]
+    print(f"one-ulp probe (request {r.rid}, its first token's embedding "
+          f"scaled by 1 + 2^-8, replayed at batch 1): logits move "
+          + ", ".join(f"{e:.4g}" for e in probe)
+          + " relative L2 over the first steps; the served run lies "
+          + ", ".join(f"{e:.4g}" for e in served) + " from the replay")
+    return {"request": r.rid, "probe_rel_l2": probe,
+            "served_rel_l2": served}
+
+
+def served_f32(cfg, K, dev):
+    """Phase 11 in f32: the same traffic at full width through a fresh
+    engine (f32 compute and KV cache, the GEMMs on the CUDA cores); the
+    replayed requests' logits within ``F32_LOGITS_RTOL`` relative L2."""
+    import numpy as np
+    import torch
+    from repro_torch.models.model import LM
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    f32 = dataclasses.replace(cfg, compute_dtype="float32",
+                              kv_cache_dtype="float32")
+    lm = LM(f32, device=dev)
+    eng = ServingEngine(lm, lm.init(torch.Generator(dev).manual_seed(
+        ZAMBA_RUN["seed"])), max_batch=ZAMBA_RUN["max_batch"],
+        max_len=ZAMBA_RUN["max_len"])
+    kept = record_logits(eng, REPLAYED)
+    rng = np.random.default_rng(ZAMBA_RUN["seed"])
+    for i in range(ZAMBA_RUN["n_requests"]):
+        prompt = rng.integers(0, f32.vocab_size,
+                              size=int(rng.integers(3, 12))).tolist()
+        eng.submit(Request(rid=i, prompt=prompt,
+                           max_new_tokens=ZAMBA_RUN["max_new"]))
+    before = snapshot(K)
+    gemms, restore = record_gemms(K)
+    try:
+        eng.run_until_drained()
+    finally:
+        restore()
+    route_check(K, "phase 11's f32 served run", "f32", before)
+    print("f32, the same traffic:", end=" ")
+    out = replay_served(eng, kept, rtol=F32_LOGITS_RTOL)
+    del eng, lm, kept
+    torch.cuda.empty_cache()
+    out["gemm_err"] = hold_gemms(K, gemms, dev, "phase 11's f32 served run")
+    return out
+
+
+def family_batch(cfg, s, dev, seed):
+    """A prefill batch of ``s`` positions at batch 1: tokens; the vision
+    stub's patches before them; the audio stub's frames instead."""
+    import torch
+    g = torch.Generator(dev).manual_seed(seed)
+    if cfg.frontend == "audio_stub":
+        return {"frames": torch.randn((1, s, cfg.d_model), generator=g,
+                                      device=dev)}
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (1, s), generator=g,
+                                   device=dev)}
+    if cfg.frontend == "vision_stub":
+        out["patches"] = torch.randn((1, cfg.num_prefix_tokens, cfg.d_model),
+                                     generator=g, device=dev)
+    return out
+
+
+def copy_prefix(caches, pref):
+    """A prefill's caches copied into the front of decode caches."""
+    if isinstance(caches, dict):
+        for key in caches:
+            copy_prefix(caches[key], pref[key])
+    elif isinstance(caches, list):
+        for c, p in zip(caches, pref, strict=True):
+            copy_prefix(c, p)
+    else:
+        caches[tuple(slice(0, n) for n in pref.shape)] = \
+            pref.to(caches.dtype)
+
+
+def decode_vs_prefill(lm, params, batch, before_full=None):
+    """The last position's logits of a prefill of all but the last
+    position followed by one ``decode_step``, and of a prefill of every
+    position (timed on the host clock, ``before_full()`` called just
+    before it).  Returns (decoded, prefilled, prefill ms), f32."""
+    import torch
+    key = "frames" if "frames" in batch else "tokens"
+    prefix = batch["patches"].shape[1] if "patches" in batch else 0
+    s = batch[key].shape[1]
+    _, pref = lm.prefill(params, dict(batch, **{key: batch[key][:, :-1]}))
+    caches = lm.init_cache(1, prefix + s + 4)
+    copy_prefix(caches, pref)
+    got, _ = lm.decode_step(params, caches, batch[key][:, -1:],
+                            prefix + s - 1)
+    del pref, caches
+    if before_full is not None:
+        before_full()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full, _ = lm.prefill(params, batch)
+    torch.cuda.synchronize()
+    return got.float(), full.float(), 1e3 * (time.perf_counter() - t0)
+
+
+def families_phase(K, dev):
+    """Phase 12: decode == prefill at full width in f32 for the four
+    families, the bf16 error beside it (no bound), the sLSTM prefill's host
+    time; then every GEMM shape the phase ran against its plain version."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import xlstm
+
+    phase(12, "decode == prefill at full width, f32 (bf16 beside it)")
+    slstm = {"ms": 0.0, "calls": 0, "steps": 0}
+    apply_slstm = xlstm.apply_slstm
+
+    def timed_slstm(params, x, cfg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = apply_slstm(params, x, cfg)
+        torch.cuda.synchronize()
+        slstm["ms"] += 1e3 * (time.perf_counter() - t0)
+        slstm["calls"] += 1
+        slstm["steps"] += x.shape[1]
+        return out
+
+    gemms, restore = record_gemms(K)
+    xlstm.apply_slstm = timed_slstm
+    rows = {}
+    try:
+        for i, arch in enumerate(FAMILY_ARCHS):
+            cfg = get_config(arch)
+            f32 = dataclasses.replace(cfg, compute_dtype="float32",
+                                      kv_cache_dtype="float32")
+            lm = model_mod.LM(f32, device=dev)
+            values = lm.init(torch.Generator(dev).manual_seed(20 + i))
+            batch = family_batch(cfg, FAMILY_S, dev, 30 + i)
+            recurrent = any(k in ("mamba2", "mlstm", "slstm")
+                            for k in cfg.block_pattern)
+            row = {"recurrent": recurrent,
+                   "positions": FAMILY_S + cfg.num_prefix_tokens}
+            for tag, c in (("f32", f32), ("bf16", cfg)):
+                run = lm if tag == "f32" else model_mod.LM(c, device=dev)
+                got, want, ms = decode_vs_prefill(
+                    run, run.compute_params(values), batch,
+                    before_full=lambda: slstm.update(ms=0.0, calls=0,
+                                                     steps=0))
+                diff = (got - want).abs()
+                scale = float(want.abs().max())
+                row[tag] = {"max_abs_err": float(diff.max()),
+                            "max_abs_logit": scale,
+                            "rel_err": float(diff.max()) / scale,
+                            "outside_2e-2": int((diff > ATTN_DECODE_TOL * (
+                                1 + want.abs())).sum()),
+                            "prefill_ms": ms}
+                if arch == "xlstm-125m":
+                    row[tag]["slstm"] = dict(slstm)
+                del got, want, diff
+            e = row["f32"]
+            if recurrent:
+                ok = e["rel_err"] < RECURRENT_DECODE_TOL
+                bound = (f"max |err| / max |logit| {e['rel_err']:.4g} "
+                         f"(bound {RECURRENT_DECODE_TOL})")
+            else:
+                ok = e["outside_2e-2"] == 0
+                bound = (f"max |err| {e['max_abs_err']:.4g}, "
+                         f"{e['outside_2e-2']} logits outside rtol = atol = "
+                         f"{ATTN_DECODE_TOL}")
+            b16 = row["bf16"]
+            print(f"{arch} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+                  f"{row['positions']} positions): f32 {bound}; bf16 max "
+                  f"|err| {b16['max_abs_err']:.4g} of max |logit| "
+                  f"{b16['max_abs_logit']:.4g} ({b16['rel_err']:.4g}; no "
+                  f"bound); prefill {e['prefill_ms']:.1f} ms f32, "
+                  f"{b16['prefill_ms']:.1f} ms bf16 (host clock)")
+            if arch == "xlstm-125m":
+                for tag in ("f32", "bf16"):
+                    s_ = row[tag]["slstm"]
+                    print(f"  sLSTM in the {tag} prefill: {s_['calls']} "
+                          f"blocks x {s_['steps'] // max(s_['calls'], 1)} "
+                          f"steps, {s_['ms']:.1f} ms host of the "
+                          f"{row[tag]['prefill_ms']:.1f} ms prefill "
+                          f"({s_['ms'] / max(s_['steps'], 1):.3f} ms a step)")
+            check(ok, f"{arch}: decode != prefill at full width in f32: "
+                      f"{bound}")
+            rows[arch] = row
+            del lm, run, values, batch
+            torch.cuda.empty_cache()
+    finally:
+        xlstm.apply_slstm = apply_slstm
+        restore()
+    rows["gemm_err"] = hold_gemms(K, gemms, dev, "phase 12")
+    return rows
+
+
+def deployment_phase(zamba):
+    """Phase 13: ``plan_deployment`` for every arch on the card (``cuda``,
+    ``h100``), bf16 and int8, batches 1-16, max_len 4096; kimi-k2-1t must
+    be rejected for its memory; zamba2's predicted decode tok/s at batch 4
+    beside phase 11's measured; zamba2 and qwen2-1.5b also priced on the
+    fitted manifests (``h100-measured`` from the zoo, ``h100-fit`` from
+    phase 4)."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.machines import list_machines
+    from repro_torch.serving.report import REJECT_WEIGHTS, plan_deployment
+
+    phase(13, "the deployment report on the card (cuda, h100)")
+    gib = 1024.0 ** 3
+    out = {}
+    for arch in ARCH_IDS:
+        rep = plan_deployment(get_config(arch), machines="h100",
+                              **DEPLOY_GRID)
+        print(f"{arch} (max_len {rep.max_len}, native "
+              f"{rep.native_dtype}):")
+        print("  " + rep.table().replace("\n", "\n  "))
+        out[arch] = rep.to_json()
+        if arch == "kimi-k2-1t-a32b":
+            check(not rep.options and rep.rejected and all(
+                r.reason == REJECT_WEIGHTS for r in rep.rejected),
+                f"{arch} was not rejected on one card for its weights")
+            r = rep.rejected[0]
+            print(f"  rejected on one card: footprint {r.footprint_bytes:,} "
+                  f"B ({r.footprint_bytes / gib:.1f} GiB) against the "
+                  f"card's budget {r.budget_bytes:,} B "
+                  f"({r.budget_bytes / gib:.1f} GiB; 80 GB less 5 % "
+                  f"reserved): {r.reason}")
+        else:
+            check(bool(rep.options), f"{arch} has no feasible cell on h100")
+    zrep = plan_deployment(get_config("zamba2-1.2b"), machines="h100",
+                           **DEPLOY_GRID)
+    pred = [o for o in zrep.options if o.batch == 4 and o.dtype == "bf16"]
+    measured = zamba["tokens_per_s"]
+    step_rate = 4e3 / zamba["decode_step_ms"]
+    print(f"zamba2-1.2b bf16 at batch 4: predicted "
+          f"{pred[0].tokens_per_second:.1f} tok/s ({1e3 * pred[0].seconds_per_step:.4f} ms a decode step, "
+          f"GEMMs only); phase 11 measured {measured:.2f} tok/s end to end, "
+          f"{step_rate:.2f} tok/s over its decode steps "
+          f"({zamba['decode_step_ms']:.3f} ms a step; no bound: the served "
+          f"step is bound by the host)")
+    out["zamba2_batch4"] = {"predicted_tok_s": pred[0].tokens_per_second,
+                            "predicted_step_s": pred[0].seconds_per_step,
+                            "measured_tok_s": measured,
+                            "measured_decode_tok_s": step_rate}
+    fitted = [m for m in ("h100-measured", "h100-fit")
+              if m in list_machines()]
+    out["fitted"] = {}
+    for arch in ("zamba2-1.2b", "qwen2-1.5b"):
+        rep = plan_deployment(get_config(arch), machines=["h100"] + fitted,
+                              **DEPLOY_GRID)
+        best = rep.per_machine_best()
+        at4 = {o.machine: o.tokens_per_second for o in rep.options
+               if o.batch == 4 and o.dtype == "bf16"}
+        print(f"{arch} on the data sheet and the fitted manifests: bf16 "
+              f"batch 4 predicted "
+              + ", ".join(f"{m} {v:.1f} tok/s" for m, v in sorted(
+                  at4.items()))
+              + "; best cell per machine "
+              + ", ".join(f"{m}: {o.dtype} batch {o.batch} "
+                          f"{o.tokens_per_second:.1f} tok/s"
+                          for m, o in best.items()))
+        out["fitted"][arch] = {"batch4_bf16_tok_s": at4,
+                               "best": {m: o.as_dict()
+                                        for m, o in best.items()}}
+    check("h100-fit" in fitted, "phase 4's fit was not registered")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, max_err, rows):
     """One entry of the kernels line: times summed over ``rows``."""
     t_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
@@ -2471,7 +3066,7 @@ def main(argv=None) -> int:
     # every column must solve positive: the fit keeps them all
     spec, rep = measure.fit_from_store(
         store, "h100", name="h100-fit", date=time.strftime("%Y-%m-%d"),
-        on_nonpositive="raise", manifest_dir=args.out)
+        on_nonpositive="raise", manifest_dir=args.out, register=True)
     check(not rep.dropped, f"the fit dropped {rep.dropped}")
     print(f"fit (Hopper tile model, on_nonpositive='raise'): {rep.samples} "
           f"samples, residual RMS {rep.residual_rms_s:.4g} s, in-sample "
@@ -2506,10 +3101,40 @@ def main(argv=None) -> int:
               + ", ".join(f"{t} {sec * 1e3:.4f} ms"
                           for t, sec in zip(r["tiles"], r["seconds"]))
               + f": picked / fastest {r['ratio']:.3f}")
+    # step 5: the registered fit feeds the next plan
+    refit_store = os.path.join(args.out, "h100_refit.jsonl")
+    if os.path.exists(refit_store):
+        os.remove(refit_store)
+    refit_rows = []
+    for tag in main_path:
+        counts = dict(K.LAUNCHES)
+        before = snapshot(K)
+        refit = refit_picks(gemm, measure, harness, K, h100, names,
+                            qshapes, pick_rows, checked_tiles, dev,
+                            refit_store, tag)
+        if sum(K.LAUNCHES.values()) > before[0]:   # a pick not yet timed
+            route_check(K, f"phase 4's {tag} refit picks", tag, before)
+        for kname in K.LAUNCHES:
+            main_path[tag]["launches"][kname] += \
+                K.LAUNCHES[kname] - counts[kname]
+        refit_rows += refit
+    print("re-planned on the registered fit (h100-fit): each pick's "
+          "harness time over the fastest tile timed (target <= 1.10):")
+    for r in refit_rows:
+        print(f"  {r['dtype']:<5}{r['gemm']:<8}data sheet {r['sheet']} "
+              f"{r['sheet_ratio']:.3f}, refit {r['refit']} "
+              f"{r['refit_ratio']:.3f}"
+              + ("" if r["sheet"] != r["refit"] else " (same tile)"))
+    worst = max(r["refit_ratio"] for r in refit_rows)
+    moved = sum(r["sheet"] != r["refit"] for r in refit_rows)
+    print(f"refit picks: {moved} of {len(refit_rows)} differ from the data "
+          f"sheet's; worst picked / fastest {worst:.3f} (target <= 1.10: "
+          f"{'met' if worst <= 1.10 else 'missed'})")
     with open(os.path.join(args.out, "phase4.json"), "w") as f:
         json.dump({"fitted": fitted, "mape": mapes,
                    "campaign_mape_pct": report.mape,
                    "heldout_mape_pct": heldout.mape, "picks": pick_rows,
+                   "refit_picks": refit_rows,
                    "power": smi("name,power.limit")}, f, indent=1)
     launches = dict(K.LAUNCHES)
     print(f"main-path launches: {launches}, by dtype "
@@ -2614,6 +3239,9 @@ def main(argv=None) -> int:
         flash_turns = [tree_run(t, "flash", args.out)
                        for t in (args.parent, HERE, HERE, args.parent)]
         compare_flash(flash_turns)
+    zamba = zamba_phase(K, G, dev)
+    families = families_phase(K, dev)
+    deployment = deployment_phase(zamba)
 
     csrc = "src/repro_torch/kernels/csrc"
     kernels = []
@@ -2662,7 +3290,9 @@ def main(argv=None) -> int:
                    "int8_turns": int8_turns,
                    "int8_stage_rows": int8_stage_rows,
                    "transpose_rows": transpose_rows,
-                   "main_path": main_path}, f, indent=1)
+                   "main_path": main_path, "zamba": zamba,
+                   "families": families, "deployment": deployment},
+                  f, indent=1)
     print(f"\n(GEMM times are sums over the five Qwen2-1.5B GEMMs at the "
           f"planner's tiles, by dtype "
           f"{ {t: [r[4] for r in v['shapes']] for t, v in main_path.items()} }"

@@ -90,7 +90,9 @@ def load_jax_params(lm, values) -> dict:
     package's parameter values, as ``split_params(LM(cfg, HOST_MESH).init
     (key))[0]`` gives them with numpy leaves.
 
-    The stacked period axis is unstacked onto the port's list of periods.
+    The stacked period axis is unstacked onto the port's list of periods;
+    every other leaf (zamba2's tied ``shared`` block, the frontends'
+    ``frontend.proj``) is copied once, into the one tensor the port keeps.
     Raises ValueError on a missing key, an extra key or a shape mismatch.
     bf16 leaves travel as float32 and are cast to the parameter's dtype.
     An ``lm`` without parameters is initialised first (from a fixed seed)

@@ -6,10 +6,10 @@
         --arch granite-moe-3b-a800m --requests 4 --max-new 6
 
 The counterpart of ``repro.launch.serve``.  Like it, the CLI serves the
-config's smoke reduction; ``serve_demo(..., smoke=False)`` serves the full
-width.  It runs on the card (``--device cuda``, the default) and exits 2
-when there is none; ``--device cpu`` runs the kernels' plain versions on
-the host.  The flags of modules not ported yet (``--autoconfigure``,
+config's smoke reduction of any of the ten archs (``--arch``);
+``serve_demo(..., smoke=False)`` serves the full width.  It runs on the
+card (``--device cuda``, the default) and exits 2 when there is none;
+``--device cpu`` runs the kernels' plain versions on the host.  The flags of modules not ported yet (``--autoconfigure``,
 ``--machine``, ``--no-memory``, ``--ckpt-dir``, ``--precision``,
 ``--slo-p99``, ``--rate``, ``--faults``) are refused with a message.
 """
@@ -33,11 +33,11 @@ from repro_torch.serving.resilience import retry_with_backoff
 
 #: flag -> the module it waits for
 NOT_PORTED = {
-    "--autoconfigure": "serving/report.py and simulate/",
-    "--machine": "serving/report.py (--autoconfigure)",
-    "--no-memory": "serving/footprint.py (--autoconfigure)",
+    "--autoconfigure": "ServingEngine.autoconfigure and simulate/",
+    "--machine": "ServingEngine.autoconfigure (--autoconfigure)",
+    "--no-memory": "ServingEngine.autoconfigure (--autoconfigure)",
     "--ckpt-dir": "checkpoint/manager.py",
-    "--precision": "serving/report.py (--autoconfigure)",
+    "--precision": "ServingEngine.autoconfigure (--autoconfigure)",
     "--slo-p99": "simulate/",
     "--rate": "simulate/",
     "--faults": "simulate/faults.py",

@@ -1,2 +1,3 @@
-"""Models of the port: the serving path of the ``attn`` and ``moe`` block
-kinds, counterparts of ``repro.models``."""
+"""Models of the port: the serving path of every block kind (``attn``,
+``moe``, ``mamba2``, ``mlstm``, ``slstm``, ``shared_attn``) and both
+frontend stubs, counterparts of ``repro.models``."""

@@ -1,12 +1,17 @@
 """Full language-model assembly: blocks -> layers -> prefill / decode.
 
-The counterpart of ``repro.models.model`` for the serving path of the
-block kinds ``attn`` and ``moe``.  Parameters keep the JAX package's tree
-(``embed``, ``final_norm``, ``frontend``, ``stack``, ``tail``) except that
-the period stack is a list of ``n_periods`` period dicts instead of leaves
-with a leading period axis: the port runs the layers in a Python loop, and
-``interop.load_jax_params`` maps the stacked axis onto the list.  Caches
-follow the same layout, so every cache leaf has its batch axis first.
+The counterpart of ``repro.models.model`` for the serving path, every
+block kind (``attn``, ``moe``, ``mamba2``, ``mlstm``, ``slstm``,
+``shared_attn``) and both frontend stubs.  Parameters keep the JAX
+package's tree (``embed``, ``final_norm``, ``frontend``, ``shared``,
+``stack``, ``tail``) except that the period stack is a list of
+``n_periods`` period dicts instead of leaves with a leading period axis:
+the port runs the layers in a Python loop, and ``interop.load_jax_params``
+maps the stacked axis onto the list.  Caches follow the same layout, so
+every cache leaf has its batch axis first.  zamba2's shared attention
+block lives once, in ``shared``, outside the stack: every
+``shared_attn`` site reads that one set of tensors (its KV cache is the
+site's own).
 
 Two JAX habits change on the card:
 
@@ -15,7 +20,8 @@ Two JAX habits change on the card:
   the compute copy once (plus the tied logits head as a row-major
   ``(D, Vp)`` matrix); ``prefill`` and ``decode_step`` accept either tree
   and cast a tree already in the compute dtype at no cost.
-* ``decode_step`` updates the caches in place (see ``attention.py``).
+* ``decode_step`` updates the caches in place (see ``attention.py``,
+  ``ssm.py`` and ``xlstm.py``).
 """
 from __future__ import annotations
 
@@ -27,28 +33,18 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.interop import require_device
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, moe
+from repro_torch.models import frontends, layers, moe, ssm, xlstm
 from repro_torch.models.common import (HOST_MESH, MeshInfo, ParamTree,
                                        cast_for_compute)
 
-_LATER = {
-    "mamba2": "the ssm family (ROADMAP queue 1 item 2)",
-    "mlstm": "the xlstm family (ROADMAP queue 1 item 2)",
-    "slstm": "the xlstm family (ROADMAP queue 1 item 2)",
-    "shared_attn": "the hybrid (zamba2) family (ROADMAP queue 1 item 2)",
-}
-
-
-def _not_ported(what: str, when: str):
-    return NotImplementedError(
-        f"{what} is not ported yet; it comes with {when}")
+#: the block kinds ``LM`` builds
+KINDS = ("attn", "moe", "mamba2", "mlstm", "slstm", "shared_attn")
 
 
 def _check_kind(kind: str) -> None:
-    if kind in _LATER:
-        raise _not_ported(f"block kind {kind!r}", _LATER[kind])
-    if kind not in ("attn", "moe"):
-        raise ValueError(kind)
+    if kind not in KINDS:
+        raise ValueError(f"unknown block kind {kind!r}; the models build "
+                         f"{KINDS}")
 
 
 # ---------------------------------------------------------------------------
@@ -78,8 +74,17 @@ def factor_pattern(pattern: tuple) -> tuple[tuple, int, tuple]:
 
 def _init_block(gen, kind: str, cfg, mesh, dtype, device):
     _check_kind(kind)
-    p = {"norm1": layers.init_norm(cfg, mesh, dtype, device),
-         "attn": attn.init_attention(gen, cfg, mesh, dtype, device)}
+    p = {"norm1": layers.init_norm(cfg, mesh, dtype, device)}
+    if kind == "mamba2":
+        p["mamba"] = ssm.init_mamba2(gen, cfg, mesh, dtype, device)
+        return p
+    if kind == "mlstm":
+        p["mlstm"] = xlstm.init_mlstm(gen, cfg, mesh, dtype, device)
+        return p
+    if kind == "slstm":
+        p["slstm"] = xlstm.init_slstm(gen, cfg, mesh, dtype, device)
+        return p
+    p["attn"] = attn.init_attention(gen, cfg, mesh, dtype, device)
     if kind == "moe":
         p["norm2"] = layers.init_norm(cfg, mesh, dtype, device)
         p["moe"] = moe.init_moe(gen, cfg, mesh, dtype, device)
@@ -101,17 +106,26 @@ def _ffn(params, kind: str, x, cfg, mesh):
     return x, 0.0
 
 
-def _apply_block(params, kind: str, x, cfg, mesh):
+def _apply_block(params, kind: str, x, cfg, mesh, *, prefix_len: int = 0):
     """Prefill forward; returns (x, aux_loss, cache_out)."""
     _check_kind(kind)
     h = layers.apply_norm(params["norm1"], x, cfg)
+    if kind == "mamba2":
+        y, h_last, conv_tail = ssm.apply_mamba2(params["mamba"], h, cfg)
+        return x + y, 0.0, {"h": h_last, "conv": conv_tail}
+    if kind == "mlstm":
+        y, h_last, conv_tail = xlstm.apply_mlstm(params["mlstm"], h, cfg)
+        return x + y, 0.0, {"h": h_last, "conv": conv_tail}
+    if kind == "slstm":
+        y, (hs, cs, ns) = xlstm.apply_slstm(params["slstm"], h, cfg)
+        return x + y, 0.0, {"h": hs, "c": cs, "n": ns}
     b, s, _ = h.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = attn._project_qkv(params["attn"], h, cfg, positions)
     n_rep = q.shape[2] // k.shape[2]
     out = attn.blockwise_attention(
         q, attn._repeat_kv(k, n_rep), attn._repeat_kv(v, n_rep),
-        chunk=cfg.attn_chunk, causal=True)
+        chunk=cfg.attn_chunk, causal=True, prefix_len=prefix_len)
     x = x + torch.einsum("bshe,hed->bsd", out, params["attn"]["wo"])
     x, aux = _ffn(params, kind, x, cfg, mesh)
     return x, aux, {"k": k, "v": v}
@@ -120,10 +134,30 @@ def _apply_block(params, kind: str, x, cfg, mesh):
 def _decode_block(params, kind: str, cache, x, cfg, mesh, *, pos):
     _check_kind(kind)
     h = layers.apply_norm(params["norm1"], x, cfg)
+    if kind == "mamba2":
+        y, cache = ssm.decode_mamba2(params["mamba"], cache, h, cfg)
+        return x + y, cache
+    if kind == "mlstm":
+        y, cache = xlstm.decode_mlstm(params["mlstm"], cache, h, cfg)
+        return x + y, cache
+    if kind == "slstm":
+        y, cache = xlstm.decode_slstm(params["slstm"], cache, h, cfg)
+        return x + y, cache
     out, cache = attn.decode_attention(params["attn"], cache, h, cfg, mesh,
                                        pos=pos)
     x, _ = _ffn(params, kind, x + out, cfg, mesh)
     return x, cache
+
+
+def _init_block_cache(kind: str, cfg, mesh, batch: int, max_len: int, dtype,
+                      device):
+    if kind == "mamba2":
+        return ssm.init_mamba2_cache(cfg, mesh, batch, dtype, device)
+    if kind == "mlstm":
+        return xlstm.init_mlstm_cache(cfg, mesh, batch, dtype, device)
+    if kind == "slstm":
+        return xlstm.init_slstm_cache(cfg, mesh, batch, dtype, device)
+    return attn.init_kv_cache(cfg, mesh, batch, max_len, dtype, device)
 
 
 # ---------------------------------------------------------------------------
@@ -143,12 +177,8 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, mesh: MeshInfo = HOST_MESH, *,
                  device="cuda"):
         super().__init__()
-        if cfg.frontend != "none":
-            raise _not_ported(f"the {cfg.frontend} frontend",
-                              "the frontends (ROADMAP queue 1 item 2)")
-        if cfg.shared_block:
-            raise _not_ported("the shared attention block",
-                              _LATER["shared_attn"])
+        if cfg.frontend not in ("none", "audio_stub", "vision_stub"):
+            raise ValueError(f"unknown frontend {cfg.frontend!r}")
         for kind in cfg.block_pattern:
             _check_kind(kind)
         self.cfg = cfg
@@ -160,6 +190,9 @@ class LM(nn.Module):
     def compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.cfg.compute_dtype)
 
+    def _tied(self, kind: str) -> bool:
+        return kind == "shared_attn" and self.cfg.shared_block
+
     # -- init ---------------------------------------------------------------
     def init(self, generator: torch.Generator) -> dict:
         cfg, mesh, dev = self.cfg, self.mesh, self.device
@@ -168,15 +201,21 @@ class LM(nn.Module):
         p: dict[str, Any] = {
             "embed": layers.init_embedding(generator, cfg, mesh, dtype, dev),
             "final_norm": layers.init_norm(cfg, mesh, dtype, dev),
-            "frontend": {},
-            "stack": [{f"b{j}_{kind}": _init_block(generator, kind, cfg,
-                                                   mesh, dtype, dev)
-                       for j, kind in enumerate(period)}
-                      for _ in range(k)],
-            "tail": {f"t{j}_{kind}": _init_block(generator, kind, cfg, mesh,
-                                                 dtype, dev)
-                     for j, kind in enumerate(tail)},
+            "frontend": frontends.init_frontend(generator, cfg, mesh, dtype,
+                                                dev),
         }
+        if cfg.shared_block:
+            # one set of tied weights for every shared_attn site
+            p["shared"] = _init_block(generator, "attn", cfg, mesh, dtype,
+                                      dev)
+        p["stack"] = [{f"b{j}_{kind}": _init_block(generator, kind, cfg,
+                                                   mesh, dtype, dev)
+                       for j, kind in enumerate(period)
+                       if not self._tied(kind)}
+                      for _ in range(k)]
+        p["tail"] = {f"t{j}_{kind}": _init_block(generator, kind, cfg, mesh,
+                                                 dtype, dev)
+                     for j, kind in enumerate(tail)}
         self.params = ParamTree(p)
         return self.values()
 
@@ -202,29 +241,52 @@ class LM(nn.Module):
 
     # -- shared helpers -------------------------------------------------------
     def _layout(self):
-        """(kind, key path) of every layer, in order; the path indexes the
-        parameter tree and the cache tree alike."""
+        """(kind, parameter path, cache path) of every layer, in order.  A
+        tied ``shared_attn`` site reads the ``shared`` block; its cache is
+        the site's own."""
         period, k, tail = factor_pattern(self.cfg.block_pattern)
         for i in range(k):
             for j, kind in enumerate(period):
-                yield kind, ("stack", i, f"b{j}_{kind}")
+                path = ("stack", i, f"b{j}_{kind}")
+                yield kind, (("shared",) if self._tied(kind) else path), path
         for j, kind in enumerate(tail):
-            yield kind, ("tail", f"t{j}_{kind}")
+            path = ("tail", f"t{j}_{kind}")
+            yield kind, path, path
 
-    def _embed_inputs(self, params, batch) -> torch.Tensor:
-        x = layers.embed_tokens(params["embed"], batch["tokens"], self.cfg)
-        return x.to(self.compute_dtype)
+    def _embed_inputs(self, params, batch) -> tuple[torch.Tensor, int]:
+        """Returns (x (B, S, D) in the compute dtype, prefix_len): vision
+        patches form a bidirectional prefix before the tokens, audio frames
+        replace them."""
+        cfg = self.cfg
+        parts = []
+        prefix_len = 0
+        if cfg.frontend == "vision_stub":
+            patches = frontends.apply_frontend(params["frontend"],
+                                               batch["patches"], cfg)
+            parts.append(patches)
+            prefix_len = patches.shape[1]
+        if cfg.frontend == "audio_stub":
+            parts.append(frontends.apply_frontend(params["frontend"],
+                                                  batch["frames"], cfg))
+        if "tokens" in batch:
+            parts.append(layers.embed_tokens(params["embed"],
+                                             batch["tokens"], cfg))
+        x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        return x.to(self.compute_dtype), prefix_len
 
     # -- serving: prefill -------------------------------------------------------
     def prefill(self, params, batch):
-        """Full-sequence forward; returns (last_logits, caches)."""
+        """Full-sequence forward; returns (last_logits, caches).  ``batch``
+        holds ``tokens`` (B, S), and for the frontends ``patches``
+        (B, P, D) before them or ``frames`` (B, S, D) instead of them."""
         cfg, mesh = self.cfg, self.mesh
         params = self.compute_params(params)
-        x = self._embed_inputs(params, batch)
+        x, prefix_len = self._embed_inputs(params, batch)
         caches = self._empty_tree()
-        for kind, path in self._layout():
-            x, _, cache = _apply_block(_get(params, path), kind, x, cfg, mesh)
-            _put(caches, path, cache)
+        for kind, ppath, cpath in self._layout():
+            x, _, cache = _apply_block(_get(params, ppath), kind, x, cfg,
+                                       mesh, prefix_len=prefix_len)
+            _put(caches, cpath, cache)
         x = layers.apply_norm(params["final_norm"], x, cfg)
         logits = layers.logits_head(params["embed"], x[:, -1:], cfg)
         return logits[:, 0], caches
@@ -235,22 +297,30 @@ class LM(nn.Module):
         return {"stack": [{} for _ in range(k)], "tail": {}}
 
     def init_cache(self, batch: int, max_len: int) -> dict:
+        """Decode state of ``batch`` slots: a KV cache of ``max_len``
+        positions per attention layer (each ``shared_attn`` site its own),
+        the f32 recurrent state and conv tail per recurrent layer."""
         caches = self._empty_tree()
-        for _, path in self._layout():
-            _put(caches, path, attn.init_kv_cache(
-                self.cfg, self.mesh, batch, max_len, self.compute_dtype,
-                self.device))
+        for kind, _, path in self._layout():
+            _put(caches, path, _init_block_cache(
+                kind, self.cfg, self.mesh, batch, max_len,
+                self.compute_dtype, self.device))
         return caches
 
     def decode_step(self, params, caches, token, pos):
-        """token: (B, 1) int; pos: a scalar or a (B,) per-slot vector.
-        Returns (logits (B, Vp), caches), the caches updated in place."""
+        """token: (B, 1) int, or (B, 1, D) frame embeddings for the audio
+        frontend; pos: a scalar or a (B,) per-slot vector.  Returns
+        (logits (B, Vp), caches), the caches updated in place."""
         cfg, mesh = self.cfg, self.mesh
         params = self.compute_params(params)
-        x = self._embed_inputs(params, {"tokens": token})
-        for kind, path in self._layout():
-            x, _ = _decode_block(_get(params, path), kind, _get(caches, path),
-                                 x, cfg, mesh, pos=pos)
+        if token.ndim == 3:  # audio frames pass through the frontend
+            x = frontends.apply_frontend(params["frontend"], token, cfg)
+        else:
+            x = layers.embed_tokens(params["embed"], token, cfg)
+        x = x.to(self.compute_dtype)
+        for kind, ppath, cpath in self._layout():
+            x, _ = _decode_block(_get(params, ppath), kind,
+                                 _get(caches, cpath), x, cfg, mesh, pos=pos)
         x = layers.apply_norm(params["final_norm"], x, cfg)
         logits = layers.logits_head(params["embed"], x, cfg)
         return logits[:, 0], caches

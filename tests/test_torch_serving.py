@@ -34,13 +34,11 @@ from repro.serving.engine import Request as JRequest
 from repro.serving.engine import ServingEngine as JServingEngine
 from repro_torch import gemm
 from repro_torch.configs import get_config
-from repro_torch.configs.base import ModelConfig
 from repro_torch.interop import load_jax_params
 from repro_torch.kernels import grouped_gemm as G
-from repro_torch.kernels.gemm import launch_config
+from repro_torch.kernels.gemm import check_tile, launch_config
 from repro_torch.launch import serve
 from repro_torch.models import attention as attn
-from repro_torch.models import model as model_mod
 from repro_torch.models.common import HOST_MESH
 from repro_torch.models.model import LM
 from repro_torch.models.moe import _capacity
@@ -217,14 +215,6 @@ def test_compute_copy_is_made_once():
         params["stack"][1]["b0_moe"]["moe"]["w_up"]
 
 
-def test_unported_block_kinds_name_their_roadmap_item():
-    cfg = ModelConfig(name="hybrid", family="hybrid", n_layers=2, d_model=32,
-                      n_heads=2, n_kv_heads=2, d_ff=64, vocab_size=64,
-                      ssm_state=8, block_pattern=("mamba2", "attn"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(cfg, device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # The engine
 # ---------------------------------------------------------------------------
@@ -339,7 +329,10 @@ def test_serve_module_exits_non_zero_without_a_card():
 
 def test_full_width_granite_shapes_have_tiles_the_kernels_take():
     """The card's kernels refuse tiles they were not built for; the shapes
-    that serving granite at full width gives them must all be accepted."""
+    that serving granite at full width gives them must all be accepted, and
+    so must the ``gemm.matmul`` shapes of the model families at full width
+    (zamba2's shared MLP and every family's logits; recurrent archs
+    prefill at every exact length, the vision prefix adds its patches)."""
     cfg = get_config("granite-moe-3b-a800m")
     for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         for m in (1, 2, 3, 4):                  # logits: prefill + decode
@@ -350,6 +343,23 @@ def test_full_width_granite_shapes_have_tiles_the_kernels_take():
         caps |= {_capacity(s, cfg) for s in PREFILL_BUCKETS if s <= 256}
         for c in sorted(caps):
             G.check_tile(G.grouped_tile(c, dt), dt)
+    for arch in ("zamba2-1.2b", "xlstm-125m", "paligemma-3b",
+                 "musicgen-medium"):
+        fam = get_config(arch)
+        shapes = {(fam.padded_vocab, fam.d_model)}      # logits
+        if fam.d_ff:                                    # the (shared) MLP
+            shapes |= {(fam.d_ff, fam.d_model), (fam.d_model, fam.d_ff)}
+        ms = set(range(1, 17)) | {32, 64, 127, 128, 255, 256}
+        if fam.frontend == "vision_stub":
+            ms |= {fam.num_prefix_tokens + m for m in (1, 12, 256)}
+        for tag in ("bf16", "f32"):
+            for m in sorted(ms):
+                for n, k in sorted(shapes):
+                    t = gemm.plan((m, n, k), backend="cuda",
+                                  dtype=tag).selection
+                    launch_config(t, tag)
+                    if tag == "bf16":
+                        check_tile(t, tag)
 
 
 def _queue_one_items():
@@ -373,23 +383,16 @@ def _cited(message):
 
 def _refusals():
     """The port's not-ported refusals and the ROADMAP topic each names."""
-    out = [(kind, "model families") for kind in sorted(model_mod._LATER)]
-    return out + [("frontend", "model families"), ("mesh", "Multi-device")]
+    return [("mesh", "Multi-device")]
 
 
 @pytest.mark.parametrize("what,topic", _refusals())
 def test_not_ported_refusals_cite_the_roadmap_item_that_holds_them(what,
                                                                    topic):
     """A refusal names the ROADMAP queue-1 item that will port the module
-    (the items were renumbered once, and the messages followed)."""
+    (the items were renumbered, and the messages followed)."""
     from repro_torch.models.common import MeshInfo
 
-    cfg = get_config("granite-moe-3b-a800m", smoke=True)
     with pytest.raises(NotImplementedError) as err:
-        if what == "mesh":
-            MeshInfo(data=2)
-        elif what == "frontend":
-            LM(dataclasses.replace(cfg, frontend="vision"), device="cpu")
-        else:
-            model_mod._check_kind(what)
+        MeshInfo(data=2)
     assert topic in _queue_one_items()[_cited(str(err.value))]
