@@ -6,10 +6,11 @@
 Run from the root of a checkout, on a machine with one sm_90 card and the
 CUDA toolkit.  It imports only ``repro_torch`` (from ``src/``), never JAX or
 the JAX package, and raises on the first failed check, so any failure exits
-non-zero.  It drives four paths of the port: the paper's GEMM loop
+non-zero.  It drives five paths of the port: the paper's GEMM loop
 (phases 3-4), serving granite-moe-3b-a800m at full width (phase 7), the
 attention and norm entry points on that model's activations (phase 9),
-and serving zamba2-1.2b at full width (phase 11), beside the other model
+serving zamba2-1.2b at full width (phase 11), and Qwen2-1.5B
+autoconfigured, served and replayed (phase 14), beside the other model
 families (phase 12) and the deployment report (phase 13).  Phases:
 
 1. build   — compile every source of ``src/repro_torch/kernels/csrc/`` for
@@ -218,6 +219,31 @@ families (phase 12) and the deployment report (phase 13).  Phases:
              figure (no bound: the served step is bound by the host);
              zamba2 and qwen2-1.5b also priced on ``h100-measured`` (the
              zoo's fitted manifest) and ``h100-fit`` (phase 4's).
+14. autoconf — ``serve_demo(..., autoconfigure=True)`` configures
+             Qwen2-1.5B at full width (28 layers, d_model 1536, 12 heads /
+             2 KV heads of 128, d_ff 8960, vocab 151,936, tied embeddings;
+             random weights from a seeded generator on the card) with
+             ``ServingEngine.autoconfigure`` on ``cuda`` /
+             ``h100-measured`` (bf16 and int8, batches 1-16, max_len 256)
+             under an SLO (p99 <= 0.35 s, Poisson traffic at 5 requests/s,
+             16-token prompts, 12 new tokens): the pick, its simulated p99
+             and goodput and every rejected cell are printed, and the pick
+             must be a bf16 cell of ``h100-measured``.  It then serves
+             phase 7's traffic on the configured engine: every request
+             finishes with in-vocabulary tokens, every GEMM launch takes
+             the wgmma route, every GEMM shape x tile the run launched is
+             held against its plain version, two requests replayed through
+             a per-request ``decode_step`` loop agree with the served
+             logits within 0.1 relative L2 in bf16 (phase 7's bound; the
+             one-ulp probe printed beside it).  The engine's trace
+             (``autoconf_trace.json`` under ``--out``) is replayed through
+             ``repro_torch.simulate.replay``: with the measured step
+             durations the completion order, step count and sheds must
+             match and every request's latency lie within 2 % (MAPE under
+             2 %); priced by ``ServiceModel.from_plans`` on the same
+             manifest, order and steps must match and the MAPE is printed
+             with no bound (the model prices one layer's GEMMs and the
+             logits; the served step is bound by the host).
 
 With tied embeddings and random weights, the token's own embedding
 dominates the last hidden state, so greedy decoding echoes the input token
@@ -231,8 +257,8 @@ phases 3-4 must launch both GEMM kernels in bf16, in int8 and in f32 (the
 int8 and f32 launches are counted apart, by the counters' growth over
 their runs),
 phase 7 the grouped kernel and at least one GEMM kernel, phases 9 and 10
-(each) the flash attention and RMSNorm kernels, phase 11 ``gemm_k_inner``
-on the wgmma route.  The line before the last is the
+(each) the flash attention and RMSNorm kernels, phases 11 and 14
+``gemm_k_inner`` on the wgmma route.  The line before the last is the
 ``{"kernels": [...]}`` record (the GEMM kernels three times, each timed at
 its dtype's planner tiles: bf16 from ``wgmma_gemm.cuh``, int8,
 ``*_int8``, from ``wgmma_s8.cuh``, and f32, ``*_f32``, from
@@ -2711,6 +2737,153 @@ def deployment_phase(zamba):
     return out
 
 
+#: phase 14: Qwen2-1.5B autoconfigured on the card's fitted manifest,
+#: served with phase 7's traffic, and its trace replayed
+AUTOCONF_RUN = dict(arch="qwen2-1.5b", smoke=False, n_requests=8,
+                    max_new=12, max_len=256, seed=0, device="cuda",
+                    autoconfigure=True, machine="h100-measured",
+                    backend="cuda")
+AUTOCONF_SLO_P99 = 0.35
+AUTOCONF_TRAFFIC = dict(rate=5, prompt_len=16, decode_len=12, seed=0)
+#: the measured replay's bounds, ``tests/test_simulate.py``'s: every
+#: request's latency within 2 % and the MAPE under 2 %
+REPLAY_APE = 0.02
+REPLAY_MAPE_PCT = 2.0
+
+
+def autoconf_phase(K, dev, out_dir):
+    """Phase 14: autoconfigure Qwen2-1.5B at full width on ``cuda`` /
+    ``h100-measured`` under an SLO, serve it through the port's entry
+    point, hold its logits and GEMMs, and replay its trace through the
+    simulator (measured and model-priced steps)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.simulate import SLO, PoissonTraffic, ServiceModel
+    from repro_torch.simulate import replay as sim_replay
+
+    phase(14, "Qwen2-1.5B autoconfigured on h100-measured, served, "
+              "its trace replayed")
+    cfg = get_config("qwen2-1.5b")
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (padded "
+          f"{cfg.padded_vocab}), tied embeddings {cfg.tie_embeddings}; "
+          f"compute {cfg.compute_dtype}")
+    held_ = {}
+
+    class Recording(serve_mod.ServingEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            held_["engine"] = self
+            held_["logits"] = record_logits(self, REPLAYED)
+
+    gemms, restore = record_gemms(K)
+    engine_cls = serve_mod.ServingEngine
+    serve_mod.ServingEngine = Recording
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    try:
+        out = serve_mod.serve_demo(
+            **AUTOCONF_RUN, slo=SLO(p99_latency_s=AUTOCONF_SLO_P99),
+            traffic=PoissonTraffic(**AUTOCONF_TRAFFIC))
+        launches = dict(K.LAUNCHES)
+        routes = dict(K.ROUTES)
+    finally:
+        serve_mod.ServingEngine = engine_cls
+        restore()
+    peak = torch.cuda.max_memory_allocated()
+    eng = held_["engine"]
+    ac = eng.autoconfig
+    sim = ac["slo"]["sim"]
+    print(f"the pick: max_batch {ac['max_batch']}, dtype {ac['dtype']}, "
+          f"machine {ac['machine']} ({ac['backend']}), predicted "
+          f"{ac['predicted_tokens_per_second']:.1f} tok/s; simulated p99 "
+          f"{sim['latency']['p99']:.6g} s, goodput {sim['goodput_tps']:.6g} "
+          f"tok/s (SLO p99 <= {AUTOCONF_SLO_P99} s, "
+          f"{ac['slo']['traffic']})")
+    rejected = ac["rejected"] + ac["slo"]["rejected"]
+    for r in rejected:
+        print(f"  rejected: {r['machine']} {r['dtype']} batch {r['batch']}: "
+              f"{r['reason']}")
+    if not rejected:
+        print(f"  rejected: none of the {len(ac['grid'])} cells")
+    check(ac["machine"] == "h100-measured" and ac["backend"] == "cuda"
+          and ac["dtype"] == ac["native_dtype"] == "bf16",
+          f"autoconfigure picked {ac['machine']} {ac['dtype']} on "
+          f"{ac['backend']}, not a bf16 cell of h100-measured on cuda")
+    check(eng.max_batch == ac["max_batch"], "the engine's max_batch is not "
+                                            "the autoconfigured pick")
+    print(f"serving-path launches: {launches}, GEMM routes {routes}")
+    all_on_wgmma(K, "phase 14's served run")
+    check(launches["gemm_k_inner"] > 0 and routes["wgmma"] > 0,
+          "gemm_k_inner was never launched on the wgmma route on the "
+          "served Qwen2-1.5B path")
+    check(out["requests"] == 8, f"{out['requests']} of 8 requests finished")
+    for rid, toks in out["generated"].items():
+        check(len(toks) == 12 and all(0 <= t < cfg.vocab_size
+                                      for t in toks),
+              f"request {rid}: {toks} is not 12 in-vocabulary tokens")
+    res = {**step_times(out), **launches, "gemm_routes": routes,
+           "autoconfig": ac, "max_memory_allocated": peak,
+           "gemm_shapes": sorted((m, n, k, str(t), tag)
+                                 for m, n, k, t, tag in gemms)}
+    print(f"{res['tokens']} tokens in {res['seconds']:.3f} s: "
+          f"{res['tokens_per_s']:.2f} tok/s; {res['steps']} steps "
+          f"({res['decode_steps']} without admissions: "
+          f"{res['decode_step_ms']:.3f} ms each; all steps "
+          f"{res['step_ms_all']:.3f} ms); {out['prefills']} prefills; "
+          f"torch.cuda.max_memory_allocated {peak:,} B")
+
+    trace = eng.trace_json()
+    with open(os.path.join(out_dir, "autoconf_trace.json"), "w") as f:
+        json.dump(trace, f, indent=1, sort_keys=True)
+    measured = sim_replay(trace)
+    print(measured.table())
+    res["replay_measured"] = measured.to_json()
+    check(measured.order_match and measured.steps_match
+          and measured.shed_match,
+          f"measured replay: order {measured.order_match}, steps "
+          f"{measured.steps_real}/{measured.steps_sim}, shed "
+          f"{measured.shed_match}")
+    check(len(measured.rows) == 8, f"measured replay kept "
+                                   f"{len(measured.rows)} of 8 requests")
+    worst = measured.worst
+    check(worst.ape < REPLAY_APE,
+          f"measured replay: request {worst.rid}'s latency is "
+          f"{100 * worst.ape:.3f} % off (bound {100 * REPLAY_APE:g} %)")
+    check(measured.mape < REPLAY_MAPE_PCT,
+          f"measured replay MAPE {measured.mape:.4f} % (bound "
+          f"{REPLAY_MAPE_PCT} %)")
+    svc = ServiceModel.from_plans(cfg, batch=ac["max_batch"],
+                                  machine="h100-measured", backend="cuda",
+                                  max_len=AUTOCONF_RUN["max_len"])
+    model = sim_replay(trace, svc)
+    print(model.table(limit=2))
+    res["replay_model"] = model.to_json()
+    res["service_model"] = {"decode_step_s": svc.decode_step_s,
+                            "prefill_s": dict(svc.prefill_s)}
+    check(model.order_match and model.steps_match,
+          f"model replay: order {model.order_match}, steps "
+          f"{model.steps_real}/{model.steps_sim}")
+    print(f"replay MAPE: measured {measured.mape:.6g} % (worst request "
+          f"{worst.rid}, {100 * worst.ape:.4g} %), model {model.mape:.6g} "
+          f"% (no bound); the model prices a decode step at "
+          f"{1e3 * svc.decode_step_s:.6g} ms (one layer's GEMMs and the "
+          f"logits on the Hopper tile model) against "
+          f"{res['decode_step_ms']:.6g} ms measured, a prefill at "
+          + ", ".join(f"{1e3 * v:.4g} ms (bucket {b})"
+                      for b, v in sorted(svc.prefill_s.items())))
+    res["replay"] = replay_served(eng, held_["logits"])
+    res["probe"] = perturbation_probe(eng, held_["logits"])
+    res["gemm_err"] = hold_gemms(K, gemms, dev, "phase 14's served run")
+    del eng
+    held_.clear()
+    torch.cuda.empty_cache()
+    return res
+
+
 def kernel_entry(name, source, replaces, launches, max_err, rows):
     """One entry of the kernels line: times summed over ``rows``."""
     t_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
@@ -3242,6 +3415,7 @@ def main(argv=None) -> int:
     zamba = zamba_phase(K, G, dev)
     families = families_phase(K, dev)
     deployment = deployment_phase(zamba)
+    autoconf = autoconf_phase(K, dev, args.out)
 
     csrc = "src/repro_torch/kernels/csrc"
     kernels = []
@@ -3291,7 +3465,8 @@ def main(argv=None) -> int:
                    "int8_stage_rows": int8_stage_rows,
                    "transpose_rows": transpose_rows,
                    "main_path": main_path, "zamba": zamba,
-                   "families": families, "deployment": deployment},
+                   "families": families, "deployment": deployment,
+                   "autoconf": autoconf},
                   f, indent=1)
     print(f"\n(GEMM times are sums over the five Qwen2-1.5B GEMMs at the "
           f"planner's tiles, by dtype "

@@ -105,7 +105,7 @@ class MeshInfo:
         if self.data != 1 or self.model != 1:
             raise NotImplementedError(
                 "the port runs on one device; meshes come with the "
-                "multi-device queue (ROADMAP queue 1 item 4)")
+                "multi-device queue (ROADMAP queue 1 item 3)")
 
     def shard_if(self, size: int):
         return None

@@ -15,7 +15,8 @@ planning.
   :class:`QueueFullError` + :func:`retry_with_backoff` backpressure, and
   the :class:`DegradationRung` ladder.
 
-``ServingEngine.autoconfigure`` is not ported yet (ROADMAP queue 1).  The
+``ServingEngine.autoconfigure`` ranks the report's cells (and, with an SLO,
+simulates them with ``repro_torch.simulate``) to configure an engine.  The
 engine and the report load lazily, so the config-only modules stay light.
 """
 import importlib

@@ -4,8 +4,8 @@ A copy of ``repro.serving.buckets``.  The serving engine prefills prompts
 at bucketed lengths (in the JAX package so the jit cache stays small; the
 port keeps the same lengths so both engines run the same shapes, capacity
 and routing of pad tokens included), and the discrete-event simulator
-(``repro.simulate``, not ported yet) charges prefill cost at the same
-bucket lengths.
+(``repro_torch.simulate``) charges prefill cost at the same bucket
+lengths.
 """
 from __future__ import annotations
 

@@ -18,7 +18,11 @@ The frozen decode GEMM plans behind ``perf_report()`` and the shedding
 decisions are planned on the ``cuda`` backend, so they are priced on the
 ``h100`` manifest, whose rates are data-sheet placeholders until a
 calibration campaign on the card replaces them; ``perf_report()["machine"]``
-says so.  ``autoconfigure`` (deployment planning) is not ported yet.
+says so.  ``autoconfigure`` picks the operating point from a deployment
+report instead (``repro_torch.serving.report.plan_deployment``, and with an
+SLO the serving simulator, ``repro_torch.simulate``) and freezes the picked
+cell's plans; like the JAX package it plans on ``analytic-tpu`` unless the
+caller names a backend (``backend="cuda"`` prices the card).
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ from repro_torch.serving.resilience import (SHED_DEADLINE_EXPIRED,
                                             DegradationRung, QueueFullError,
                                             coerce_ladder)
 
-#: the event-trace format ``repro.simulate.replay`` consumes
+#: the event-trace format ``repro_torch.simulate.replay`` consumes
 TRACE_SCHEMA = "repro.serving/trace-v1"
 
 
@@ -194,11 +198,16 @@ class ServingEngine:
         # pool size): the paper's predict-before-run loop applied to serving,
         # surfaced through perf_report().  Planned lazily on first access;
         # plan_model_gemms is a bulk operation (one batched lattice
-        # evaluation over the deduped decode shapes).
+        # evaluation over the deduped decode shapes).  autoconfigure()
+        # installs its chosen cell's plans instead.
         self._gemm_plans: list | None = None
+        # populated by autoconfigure(): the chosen operating point and the
+        # full ranked DeploymentReport it was selected from.
+        self.autoconfig: dict | None = None
+        self.deployment_report = None
         # event trace (repro.serving/trace-v1): submits, admissions, steps
         # with wall durations, first tokens, finishes — what
-        # repro.simulate.replay re-enacts.  Cheap (a dict append per
+        # repro_torch.simulate.replay re-enacts.  Cheap (a dict append per
         # event), so always on.  The events live in the process
         # ``repro_torch.obs`` recorder tagged with this engine's identity;
         # ``trace_events`` / ``trace_json()`` are views over it.
@@ -224,6 +233,170 @@ class ServingEngine:
             self._gemm_plans = gemm_api.plan_model_gemms(
                 self.lm.cfg, tokens=self.max_batch, backend="cuda")
         return self._gemm_plans
+
+    @gemm_plans.setter
+    def gemm_plans(self, plans) -> None:
+        self._gemm_plans = list(plans)
+
+    @classmethod
+    def autoconfigure(cls, lm: LM, params, *, machine=None,
+                      dtypes=("bf16",), batches=(1, 2, 4, 8, 16),
+                      max_len: int = 512,
+                      backend: str = "analytic-tpu",
+                      memory: bool = True,
+                      kv_dtype: str | None = None,
+                      precisions=(),
+                      slo=None, traffic=None,
+                      robust: bool = False, faults=None,
+                      deadline_s: float | None = None,
+                      queue_limit: int | None = None,
+                      ladder=None,
+                      sim_policies=("greedy",),
+                      sim_requests: int = 200,
+                      sim_seed: int = 0) -> "ServingEngine":
+        """Pick ``max_batch``, the deployment machine and the frozen decode
+        plans by ranking the whole (machine x dtype x batch) serving grid.
+
+        Wraps :func:`repro_torch.serving.report.plan_deployment`: every
+        cell's memory footprint (weights + KV/recurrent state + activation
+        workspace, ``repro_torch.serving.footprint``) is checked against the
+        machine's deployment-level budget and infeasible cells are pruned
+        *before* the ``repro_torch.gemm.sweep`` plans them; among the
+        surviving cells, the one maximising predicted decode tokens/second
+        wins — ``max_batch`` is therefore the largest batch that both fits
+        memory and pays off in throughput, not the fastest-GEMM batch.
+
+        The dtype axis is an analytic what-if over the machine's rate
+        table; since the engine really computes in the model's configured
+        dtype, the operating point is chosen among that native dtype's
+        feasible cells — what-if dtypes inform the ranking only.  If no
+        native-dtype cell survives, the overall best feasible cell wins (an
+        explicit choice to configure against a foreign dtype).
+
+        Args:
+            lm / params: the model the engine will serve (on ``lm.device``).
+            machine: machines axis — a name, spec, glob (``"zoo/*"`` ranks
+                the whole registry), a list of any of those, or None for
+                the backend's default machine.
+            dtypes: serving-dtype what-if axis.
+            batches: candidate ``max_batch`` values.
+            max_len: per-slot cache length (bounds the KV footprint).
+            backend: planning backend for the decode-GEMM sweep
+                (``analytic-tpu``, the JAX package's default; ``cuda``
+                prices the card with the Hopper tile model).
+            memory: enforce the deployment-memory budget (default True);
+                False restores the throughput-only grid.
+            kv_dtype: KV-cache dtype override for the footprint model.
+            precisions: extra mixed-precision what-if cells
+                (:class:`~repro_torch.core.precision.PrecisionConfig` or key
+                strings like ``"int4xint8->int32"``), forwarded to
+                :func:`~repro_torch.serving.report.plan_deployment`.  Like
+                what-if dtypes they inform the ranking only — the frozen
+                operating point always comes from a plain-dtype cell.
+            slo: optional service-level objective (a
+                :class:`repro_torch.simulate.SLO`, kwargs dict, or bare p99
+                latency bound).  When given, the memory-feasible cells are
+                additionally run through the discrete-event simulator
+                (``repro_torch.simulate``) under ``traffic`` and the engine
+                is configured from the cell with the best *simulated*
+                goodput among those attaining the SLO.  SLO-failing cells
+                join ``deployment_report.rejected`` with machine-readable
+                ``slo_*`` reasons.
+            traffic: traffic scenario for SLO mode (a
+                ``repro_torch.simulate.Traffic``); None derives a Poisson
+                scenario from the report
+                (:func:`repro_torch.simulate.default_traffic`).
+            robust: perturbation-robust SLO mode (requires ``slo``): the
+                cells are simulated *under a fault scenario* — by default
+                the ``"throttle20"`` duty-cycled thermal throttle.  Cells
+                that only fail under the faults are rejected with
+                ``fault_``-prefixed reasons.
+            faults: the fault scenario for robust mode (a
+                ``repro_torch.simulate.FaultScenario``, registry name, or
+                dict); implies ``robust=True`` when given.
+            deadline_s / queue_limit / ladder: resilience knobs for the
+                *configured* engine; deadline and queue limit also apply
+                to the SLO-mode simulations so the pick accounts for
+                shedding.
+            sim_policies / sim_requests / sim_seed: SLO-mode simulation
+                knobs — admission policies to consider, stream length per
+                cell, and the default-traffic seed.
+
+        Returns:
+            A configured engine.  ``engine.deployment_report`` holds the
+            ranked :class:`~repro_torch.serving.report.DeploymentReport`;
+            ``engine.autoconfig`` keeps the flat JSON-friendly grid (one
+            entry per feasible cell, plus ``rejected`` cells with
+            machine-readable reasons) consumed by ``perf_report``.
+
+        Raises:
+            ValueError: when every (machine, dtype, batch) cell is memory-
+                infeasible (the error lists the per-cell rejection
+                reasons), or in SLO mode when no cell attains the SLO.
+        """
+        from repro_torch.serving.report import plan_deployment
+
+        report = plan_deployment(
+            lm.cfg, machines=machine, dtypes=dtypes, batches=batches,
+            max_len=max_len, backend=backend, memory=memory,
+            kv_dtype=kv_dtype, precisions=precisions)
+        if faults is not None:
+            robust = True
+        if robust and slo is None:
+            raise ValueError("autoconfigure(robust=True) needs an slo: "
+                             "robustness is defined as SLO attainment "
+                             "under perturbation")
+        selection = None
+        if slo is not None:
+            from repro_torch.machines import MachineSpec, expand_many
+            from repro_torch.simulate import evaluate_deployment
+
+            if robust and faults is None:
+                faults = "throttle20"
+            overrides = {e.name: e for e in expand_many(machine)
+                         if isinstance(e, MachineSpec)}
+            selection = evaluate_deployment(
+                lm.cfg, report, slo=slo, traffic=traffic,
+                policies=sim_policies, requests=sim_requests,
+                seed=sim_seed, machines=overrides, faults=faults,
+                deadline_s=deadline_s, queue_limit=queue_limit)
+            best = selection.option
+        else:
+            best = report.select()
+        eng = cls(lm, params, max_batch=best.batch, max_len=max_len,
+                  deadline_s=deadline_s, queue_limit=queue_limit,
+                  ladder=ladder)
+        eng.gemm_plans = [r.plan for r in best.rows]
+        eng.deployment_report = report
+        grid = [{
+            "max_batch": o.batch, "machine": o.machine, "dtype": o.dtype,
+            "predicted_gemm_seconds_per_step": o.seconds_per_step,
+            "predicted_tokens_per_second": o.tokens_per_second,
+            "footprint_bytes": o.footprint.total_bytes,
+            "memory_budget_bytes": o.budget_bytes,
+            "memory_headroom_bytes": o.headroom_bytes,
+        } for o in report.options]
+        eng.autoconfig = {
+            "max_batch": best.batch, "machine": best.machine,
+            "dtype": best.dtype, "native_dtype": report.native_dtype,
+            "backend": backend,
+            "predicted_tokens_per_second": best.tokens_per_second,
+            "footprint_bytes": best.footprint.total_bytes,
+            "memory_budget_bytes": best.budget_bytes,
+            "memory_headroom_bytes": best.headroom_bytes,
+            "grid": grid,
+            "rejected": [r.as_dict() for r in report.rejected],
+        }
+        if selection is not None:
+            eng.autoconfig["slo"] = {
+                "slo": selection.slo.as_dict(),
+                "policy": selection.policy,
+                "traffic": selection.traffic_name,
+                "faults": selection.faults,
+                "sim": selection.sim.summary(),
+                "rejected": [r.as_dict() for r in selection.rejections],
+            }
+        return eng
 
     def perf_report(self) -> dict:
         """Predicted per-decode-step GEMM cost from the frozen plans, plus
@@ -255,6 +428,8 @@ class ServingEngine:
         resilience = self._resilience_report()
         if resilience is not None:
             report["resilience"] = resilience
+        if self.autoconfig is not None:
+            report["autoconfig"] = self.autoconfig
         report["machine"] = self._machine_report()
         # online prediction-drift verdict (repro_torch.obs): every step
         # feeds measured wall time vs the frozen-plan estimate; ok/warn/stale
@@ -593,7 +768,7 @@ class ServingEngine:
         Raises:
             DrainTruncatedError: truncated and ``on_truncate="raise"`` —
                 a partial drain must not pass for a complete trace (see
-                ``repro.simulate.replay``).
+                ``repro_torch.simulate.replay``).
         """
         if on_truncate not in ("raise", "report"):
             raise ValueError(f"on_truncate must be 'raise' or 'report', "
@@ -619,7 +794,7 @@ class ServingEngine:
 
     def trace_json(self) -> dict:
         """The engine's event trace (``repro.serving/trace-v1``) — feed it
-        to :func:`repro.simulate.replay.replay` for sim-vs-real
+        to :func:`repro_torch.simulate.replay.replay` for sim-vs-real
         validation, or persist it next to a measurement campaign.
         ``predicted_step_s`` is the frozen-plan decode-step estimate the
         engine's shedding decisions price with; replay hands it to the

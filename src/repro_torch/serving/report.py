@@ -34,8 +34,7 @@ from repro_torch.serving.footprint import Footprint, footprint
 #: weights alone blow the budget (no batch can ever fit), the KV/state cache
 #: pushes past it (a smaller batch may fit), or the activation workspace
 #: tips the total over.  SLO-mode autoconfiguration appends further
-#: rejections with ``slo_*`` codes (the JAX package's
-#: ``simulate.autoconf``; not ported yet, ROADMAP queue 1) — cells
+#: rejections with ``slo_*`` codes (``repro_torch.simulate.autoconf``) — cells
 #: that fit memory but fail their simulated tail-latency/goodput targets.
 REJECT_WEIGHTS = "weights_exceed_budget"
 REJECT_KV_CACHE = "kv_cache_exceeds_budget"
@@ -137,7 +136,7 @@ class DeploymentReport:
     options: list[DeploymentOption]         # ranked, best first
     rejected: list[CellRejection]
     grid: dict = dataclasses.field(default_factory=dict)
-    # populated by SLO-mode autoconfiguration (not ported yet):
+    # populated by SLO-mode autoconfiguration (repro_torch.simulate.autoconf):
     # the traffic scenario, per-cell simulated results, and the selection
     slo: dict | None = None
 
