@@ -6,12 +6,13 @@
 Run from the root of a checkout, on a machine with one sm_90 card and the
 CUDA toolkit.  It imports only ``repro_torch`` (from ``src/``), never JAX or
 the JAX package, and raises on the first failed check, so any failure exits
-non-zero.  It drives five paths of the port: the paper's GEMM loop
+non-zero.  It drives six paths of the port: the paper's GEMM loop
 (phases 3-4), serving granite-moe-3b-a800m at full width (phase 7), the
 attention and norm entry points on that model's activations (phase 9),
-serving zamba2-1.2b at full width (phase 11), and Qwen2-1.5B
-autoconfigured, served and replayed (phase 14), beside the other model
-families (phase 12) and the deployment report (phase 13).  Phases:
+serving zamba2-1.2b at full width (phase 11), Qwen2-1.5B
+autoconfigured, served and replayed (phase 14) and Qwen2-1.5B trained
+at full width (phase 15), beside the other model families (phase 12) and
+the deployment report (phase 13).  Phases:
 
 1. build   — compile every source of ``src/repro_torch/kernels/csrc/`` for
              sm_90a (one nvcc per library, all in parallel); print build
@@ -244,6 +245,39 @@ families (phase 12) and the deployment report (phase 13).  Phases:
              manifest, order and steps must match and the MAPE is printed
              with no bound (the model prices one layer's GEMMs and the
              logits; the served step is bound by the host).
+15. train   — (a) ``launch.train.train`` trains Qwen2-1.5B at full width
+             (the widths above; f32 master weights and AdamW moments, bf16
+             compute, random weights from a seeded generator on the card)
+             for 4 steps of 4 x 256 tokens with a checkpoint every 2 steps
+             under ``--out``/ckpt: each step's loss, wall ms, tokens/s
+             and grad_norm, ``torch.cuda.max_memory_allocated``, the
+             watchdog and the GEMM launches by route, backward (the
+             products ``gemm/autograd.py``'s Functions run in their
+             ``backward``) and forward (block remat's recompute
+             included) are printed; it fails on a loss or grad_norm that
+             is not finite, a bf16 GEMM launch off wgmma, parameters that
+             step 1 (learning rate 0) moved or steps 2-4 did not, or a
+             checkpoint missing at step 2 or 4.  (b) ``serve_demo`` serves
+             the step-4 checkpoint (2 requests, 4 new tokens): the step
+             served must be 4 and every token in the vocabulary; the
+             checkpoints (37 GB) are then deleted.  (e) granite-moe-3b-
+             a800m at full width cut to 4 layers (phase 8's cut), bf16,
+             takes 2 steps of 4 x 256 tokens: every grouped launch,
+             forward and backward, on wgmma.  (c) every backward product
+             (kind, direction, shapes, dtype) that (a) and (e) ran is held
+             against its plain version on seeded operands.  (d) Qwen2-1.5B
+             at full width cut to 2 layers, f32 (the GEMMs on the CUDA
+             cores), one step of gradients at 2 x 64 tokens on the card
+             against the same step of the port on the CPU: 1e-4 relative
+             L2 a leaf.  (f) dA = dC·Bᵀ and dB = Aᵀ·dC of the five
+             Qwen2-1.5B GEMMs at 1,024 tokens (CUDA events, the planner's
+             tiles) beside their plain versions, ``torch.matmul`` on the
+             operands as stored, their bound and the transposed copy each
+             needs (none for the tied head's dA); granite's grouped dx and
+             dw at (e)'s shapes by CUDA-graph replay beside ``torch.bmm``;
+             then one step under ``torch.profiler`` (the card's busy share,
+             the wgmma GEMM's device ms against the rest) and AdamW's wall
+             ms in one step.
 
 With tied embeddings and random weights, the token's own embedding
 dominates the last hidden state, so greedy decoding echoes the input token
@@ -258,13 +292,17 @@ int8 and f32 launches are counted apart, by the counters' growth over
 their runs),
 phase 7 the grouped kernel and at least one GEMM kernel, phases 9 and 10
 (each) the flash attention and RMSNorm kernels, phases 11 and 14
-``gemm_k_inner`` on the wgmma route.  The line before the last is the
-``{"kernels": [...]}`` record (the GEMM kernels three times, each timed at
-its dtype's planner tiles: bf16 from ``wgmma_gemm.cuh``, int8,
-``*_int8``, from ``wgmma_s8.cuh``, and f32, ``*_f32``, from
-``tile_gemm.cuh``; flash attention twice: bf16 over the shapes
-phase 9 recorded, ``flash_attention_f32`` at phase 10's granite S = 4096
-causal f32 row with phase 10's f32 launches); the last line is
+``gemm_k_inner`` on the wgmma route, phase 15 ``gemm_k_inner`` forward
+and backward and (in (e)) the grouped kernel forward and backward.  The
+line before the last is the ``{"kernels": [...]}`` record (the GEMM
+kernels three times, each timed at its dtype's planner tiles: bf16 from
+``wgmma_gemm.cuh``, int8, ``*_int8``, from ``wgmma_s8.cuh``, and f32,
+``*_f32``, from ``tile_gemm.cuh``; flash attention twice: bf16 over the
+shapes phase 9 recorded, ``flash_attention_f32`` at phase 10's granite
+S = 4096 causal f32 row with phase 10's f32 launches; the backward
+products as ``gemm_k_inner_bwd``, phase 15 (a)'s backward launches and
+(f)'s dA and dB times summed, and ``grouped_gemm_bwd``, (e)'s backward
+launches and (f)'s grouped rows); the last line is
 ``{"ok": true, "device": {...}}``.  Samples, the fitted manifest and the
 per-shape timings and the serving profile are written under ``--out``
 (default ``build/chip_smoke``).  In the kernels line, ``ms``,
@@ -2884,6 +2922,538 @@ def autoconf_phase(K, dev, out_dir):
     return res
 
 
+#: phase 15: training on the card
+TRAIN_RUN = dict(smoke=False, steps=4, batch=4, seq=256, ckpt_every=2,
+                 device="cuda")
+#: (d): Qwen2-1.5B cut to 2 layers, f32, one step of gradients
+F32_STEP = dict(layers=2, batch=2, seq=64)
+F32_STEP_REL_L2 = 1e-4
+#: (e): granite-moe-3b-a800m cut to 4 layers (phase 8's cut), bf16
+MOE_TRAIN = dict(layers=4, batch=4, seq=256, steps=2)
+
+
+class Products:
+    """Records the backward products of ``gemm/autograd.py``'s two
+    Functions: each (kind, direction, A shape, B shape, dtype tag), and
+    the GEMM and grouped kernels' launches and routes those products make
+    (every other launch is a forward one, block remat's recompute
+    included: it runs inside a Function's ``forward``, even when the
+    backward pass triggers it).  ``install`` wraps, and ``restore``
+    unwraps, the Functions' ``forward`` and ``backward`` and the module's
+    ``product`` / ``grouped_product``."""
+
+    def __init__(self, K, G, GA):
+        self.K, self.G, self.GA = K, G, GA
+        self.seen = set()
+        self.backward = {"gemm_k_inner": 0, "gemm_k_outer": 0,
+                         "grouped_gemm": 0}
+        self.routes = {"gemm": {r: 0 for r in K.ROUTES},
+                       "grouped": {r: 0 for r in G.ROUTES}}
+        self.depth = 0               # inside a Function's forward
+        self.pending = []            # directions of the backward running
+
+    def _count(self, kind, fn, a, b, rest):
+        K, G = self.K, self.G
+        before = (dict(K.LAUNCHES), dict(K.ROUTES), dict(G.LAUNCHES),
+                  dict(G.ROUTES))
+        out = fn(a, b, *rest)
+        if kind == "gemm":
+            for kname in K.LAUNCHES:
+                self.backward[kname] += K.LAUNCHES[kname] - before[0][kname]
+            for r in K.ROUTES:
+                self.routes["gemm"][r] += K.ROUTES[r] - before[1][r]
+        else:
+            self.backward["grouped_gemm"] += (G.LAUNCHES["grouped_gemm"]
+                                              - before[2]["grouped_gemm"])
+            for r in G.ROUTES:
+                self.routes["grouped"][r] += G.ROUTES[r] - before[3][r]
+        return out
+
+    def install(self):
+        GA, rec = self.GA, self
+        self.orig = (GA.product, GA.grouped_product,
+                     GA.PlannedMatmul.forward, GA.PlannedMatmul.backward,
+                     GA.GroupedMatmul.forward, GA.GroupedMatmul.backward)
+        product, grouped, pm_fwd, pm_bwd, gm_fwd, gm_bwd = self.orig
+
+        def wrap_product(kind, fn):
+            def inner(a, b, *rest):
+                if rec.depth or not rec.pending:
+                    return fn(a, b, *rest)
+                rec.seen.add((kind, rec.pending.pop(0), tuple(a.shape),
+                              tuple(b.shape), rec.K._tag(a.dtype)))
+                return rec._count(kind, fn, a, b, rest)
+            return inner
+
+        def wrap_forward(fn):
+            def forward(ctx, *args):
+                rec.depth += 1
+                try:
+                    return fn(ctx, *args)
+                finally:
+                    rec.depth -= 1
+            return staticmethod(forward)
+
+        def wrap_backward(fn, names):
+            def backward(ctx, grad):
+                rec.pending = [n for n, want in zip(names,
+                                                    ctx.needs_input_grad)
+                               if want]
+                try:
+                    return fn(ctx, grad)
+                finally:
+                    rec.pending = []
+            return staticmethod(backward)
+
+        GA.product = wrap_product("gemm", product)
+        GA.grouped_product = wrap_product("grouped", grouped)
+        GA.PlannedMatmul.forward = wrap_forward(pm_fwd)
+        GA.PlannedMatmul.backward = wrap_backward(pm_bwd, ("dA", "dB"))
+        GA.GroupedMatmul.forward = wrap_forward(gm_fwd)
+        GA.GroupedMatmul.backward = wrap_backward(gm_bwd, ("dx", "dw"))
+        return self
+
+    def restore(self):
+        GA = self.GA
+        (GA.product, GA.grouped_product, pm_fwd, pm_bwd, gm_fwd,
+         gm_bwd) = self.orig
+        GA.PlannedMatmul.forward = staticmethod(pm_fwd)
+        GA.PlannedMatmul.backward = staticmethod(pm_bwd)
+        GA.GroupedMatmul.forward = staticmethod(gm_fwd)
+        GA.GroupedMatmul.backward = staticmethod(gm_bwd)
+
+
+def hold_products(K, G, seen, dev):
+    """Each backward product (kind, direction, shapes, dtype) recorded in
+    phase 15 against its plain version on seeded operands at those shapes
+    (the second operand at a weight's init scale), the GEMMs on the tile
+    the planner gives their shape.  Returns the largest error per kind."""
+    import torch
+    from repro_torch import gemm
+
+    err = {"gemm": 0.0, "grouped": 0.0}
+    for i, (kind, direction, sa, sb, tag) in enumerate(sorted(seen)):
+        dt = {"bf16": torch.bfloat16, "f32": torch.float32}[tag]
+        g = torch.Generator(dev).manual_seed(4000 + i)
+        a = torch.randn(sa, generator=g, device=dev).to(dt)
+        b = (torch.randn(sb, generator=g, device=dev)
+             * sb[-2] ** -0.5).to(dt)
+        where = f" ({direction} {sa} @ {sb})"
+        if kind == "gemm":
+            plan = gemm.plan((sa[0], sb[1], sa[1]), backend="cuda",
+                             dtype=tag)
+            e = compare("gemm_k_inner", tag, plan.execute(a, b),
+                        K.gemm_k_inner_plain(a, b),
+                        where=f" at {plan.selection},{where}")
+        else:
+            e = compare("grouped_gemm", tag, G.grouped_gemm(a, b),
+                        G.grouped_gemm_plain(a, b), where=where)
+        err[kind] = max(err[kind], e)
+        del a, b
+    torch.cuda.empty_cache()
+    print(f"phase 15: the {len(seen)} backward products (kind, direction, "
+          f"shapes, dtype) of (a) and (e) match their plain versions (max "
+          f"|err| {err}; bf16 rtol = atol = 2e-2, f32 rtol 1e-5 / atol "
+          f"1e-4)")
+    return err
+
+
+def backward_timings(K, G, dev, tokens=1024):
+    """dA = dC·Bᵀ and dB = Aᵀ·dC of the five Qwen2-1.5B GEMMs at
+    ``tokens`` rows (CUDA events, the planner's tiles, the transposed
+    operand already copied) beside the plain version, ``torch.matmul`` on
+    the operands as stored (cuBLAS reads the transpose in place), the
+    bound and the transposed copy alone (none for the tied head's dA);
+    then granite's grouped dx and dw at its training shapes beside
+    ``torch.bmm``."""
+    import torch
+    from repro_torch import gemm
+    from repro_torch.configs import get_config
+    from repro_torch.core.autotune import model_gemm_shapes
+
+    qwen = get_config("qwen2-1.5b")
+    names = ["qkv", "o", "gate_up", "down", "logits"]
+    rows = []
+    for i, (name, s_) in enumerate(zip(names, model_gemm_shapes(
+            qwen, tokens=tokens))):
+        m, n, k = s_.m, s_.n, s_.k
+        a, b = seeded(m, n, k, "bf16", 5000 + i, dev)
+        dc = torch.randn((m, n), device=dev, dtype=torch.bfloat16)
+        for direction, (x, y, copy_of, lib) in {
+                "dA": (dc, b.t().contiguous(),
+                       None if name == "logits" else b,
+                       lambda: torch.matmul(dc, b.t())),
+                "dB": (a.t().contiguous(), dc, a,
+                       lambda: torch.matmul(a.t(), dc))}.items():
+            mm, nn, kk = x.shape[0], y.shape[1], x.shape[1]
+            plan = gemm.plan((mm, nn, kk), backend="cuda", dtype="bf16")
+            ms = cuda_ms(lambda: plan.execute(x, y))
+            plain = cuda_ms(lambda: K.gemm_k_inner_plain(x, y))
+            lib_ms = cuda_ms(lib)
+            copy_ms = (cuda_ms(lambda: copy_of.t().contiguous())
+                       if copy_of is not None else 0.0)
+            bms, by = bound(mm, nn, kk, "bf16", False)
+            rows.append({"gemm": name, "direction": direction,
+                         "shape": [mm, nn, kk], "tile": str(plan.selection),
+                         "ms": ms, "plain_ms": plain, "library_ms": lib_ms,
+                         "copy_ms": copy_ms, "bound_ms": bms,
+                         "bound_by": by})
+            print(f"  {name:<8}{direction} {mm}x{nn}x{kk} at "
+                  f"{plan.selection}: {ms:.4f} ms ({100 * bms / ms:.1f}% of "
+                  f"the {bms:.4f} ms bound, {by}), plain {plain:.4f}, "
+                  f"torch.matmul {lib_ms:.4f}, transposed copy "
+                  f"{copy_ms:.4f} ms")
+        del a, b, dc
+    tot = {k: sum(r[k] for r in rows)
+           for k in ("ms", "plain_ms", "library_ms", "copy_ms", "bound_ms")}
+    print(f"GEMM backward, five Qwen2-1.5B GEMMs at {tokens} tokens, dA + "
+          f"dB: {tot['ms']:.4f} ms, transposed copies {tot['copy_ms']:.4f} "
+          f"ms, torch.matmul {tot['library_ms']:.4f}, plain "
+          f"{tot['plain_ms']:.4f}, bound {tot['bound_ms']:.4f} ms")
+    cfg = get_config("granite-moe-3b-a800m")
+    from repro_torch.models.moe import _capacity
+    e, c = cfg.n_experts, MOE_TRAIN["batch"] * _capacity(
+        MOE_TRAIN["seq"], cfg)
+    grows = []
+    for name, d, f in (("gate/up", cfg.d_model, cfg.moe_d_ff),
+                       ("down", cfg.moe_d_ff, cfg.d_model)):
+        g = torch.Generator(dev).manual_seed(6000 + d)
+        x = torch.randn((e, c, d), generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        w = (torch.randn((e, d, f), generator=g, device=dev) * d ** -0.5
+             ).to(torch.bfloat16)
+        dy = torch.randn((e, c, f), generator=g, device=dev,
+                         dtype=torch.bfloat16)
+        for direction, (p, q, copy_of, lib, shp) in {
+                "dx": (dy, w.transpose(1, 2).contiguous(), w,
+                       lambda: torch.bmm(dy, w.transpose(1, 2)),
+                       (e, c, f, d)),
+                "dw": (x.transpose(1, 2).contiguous(), dy, x,
+                       lambda: torch.bmm(x.transpose(1, 2), dy),
+                       (e, d, c, f))}.items():
+            ms = graph_ms(lambda: G.grouped_gemm(p, q))
+            plain = graph_ms(lambda: G.grouped_gemm_plain(p, q))
+            lib_ms = graph_ms(lib)
+            copy_ms = graph_ms(lambda: copy_of.transpose(1, 2).contiguous())
+            bms, by = grouped_bound(*shp, "bf16")
+            grows.append({"gemm": name, "direction": direction,
+                          "shape": list(shp), "ms": ms, "plain_ms": plain,
+                          "library_ms": lib_ms, "copy_ms": copy_ms,
+                          "bound_ms": bms, "bound_by": by})
+            print(f"  grouped {name:<8}{direction} {shp}: {ms:.4f} ms "
+                  f"device ({100 * bms / ms:.1f}% of the {bms:.4f} ms "
+                  f"bound, {by}), plain {plain:.4f}, torch.bmm "
+                  f"{lib_ms:.4f}, transposed copy {copy_ms:.4f} ms")
+    return rows, grows
+
+
+def profile_train_step(lm, tcfg, pcfg, batch):
+    """One training step under torch.profiler, after a warm-up step:
+    device time by kernel, the wgmma GEMM's and the grouped kernel's
+    share, the card's busy share of the step's wall time; then one step
+    with AdamW's own wall time read on the host (synchronised before and
+    after it)."""
+    import torch
+    from torch.autograd import DeviceType
+    from repro_torch.runtime import train_lib
+    from repro_torch.runtime.train_lib import (init_train_state,
+                                               make_train_step)
+
+    params, opt = init_train_state(
+        lm, tcfg, torch.Generator(lm.device).manual_seed(5), pcfg)
+    step = make_train_step(lm, tcfg, pcfg)
+    params, opt, _ = step(params, opt, batch)
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, _ = step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = [{"name": ev.key, "device_ms": ev.self_device_time_total / 1e3,
+             "count": ev.count}
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r["device_ms"])
+    busy = sum(r["device_ms"] for r in rows)
+    gemm_ms = sum(r["device_ms"] for r in rows if "wgmma_gemm" in r["name"])
+    grouped_ms = sum(r["device_ms"] for r in rows
+                     if "grouped_wgmma" in r["name"])
+    adamw = {}
+    inner = train_lib.adamw_update
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(*a, **kw)
+        adamw["enqueue_ms"] = 1e3 * (time.perf_counter() - t)
+        torch.cuda.synchronize()
+        adamw["ms"] = 1e3 * (time.perf_counter() - t)
+        return out
+
+    train_lib.adamw_update = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, _ = step(params, opt, batch)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        train_lib.adamw_update = inner
+    res = {"wall_ms": wall_ms, "device_busy_ms": busy,
+           "device_events": sum(r["count"] for r in rows),
+           "gemm_device_ms": gemm_ms, "grouped_device_ms": grouped_ms,
+           "top": rows[:20], "adamw_ms": adamw["ms"],
+           "adamw_enqueue_ms": adamw["enqueue_ms"], "timed_step_ms": step_ms}
+    print(f"one step under the profiler: wall {wall_ms:.1f} ms, device busy "
+          f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%), "
+          f"{res['device_events']} device events; wgmma GEMM {gemm_ms:.3f} "
+          f"ms, grouped {grouped_ms:.3f} ms, the rest "
+          f"{busy - gemm_ms - grouped_ms:.3f} ms")
+    for r in rows[:10]:
+        print(f"  {r['device_ms']:9.3f} ms {r['count']:6d}x  {r['name'][:90]}")
+    print(f"AdamW (one step, profiler off): {adamw['ms']:.1f} ms wall, "
+          f"{adamw['enqueue_ms']:.1f} ms to enqueue, of a "
+          f"{step_ms:.1f} ms step")
+    del params, opt
+    return res
+
+
+def training_phase(K, G, dev, out_dir):
+    """Phase 15: train Qwen2-1.5B at full width through the port's entry
+    point, serve its checkpoint, hold every backward product against its
+    plain version, one f32 step on the card against the CPU, granite's
+    grouped backward, the backward products timed and one step's split."""
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import (ParallelConfig, ShapeConfig,
+                                          TrainConfig)
+    from repro_torch.data import DataIterator, make_batch
+    from repro_torch.gemm import autograd as GA
+    from repro_torch.interop import _flatten
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.model import LM
+    from repro_torch.runtime.train_lib import (init_train_state,
+                                               make_train_step)
+
+    phase(15, "training on the card: Qwen2-1.5B at full width, its "
+              "checkpoint served, every backward product held")
+    cfg = get_config("qwen2-1.5b")
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (padded "
+          f"{cfg.padded_vocab}), tied {cfg.tie_embeddings}; params "
+          f"{cfg.param_dtype}, compute {cfg.compute_dtype}, moments "
+          f"{cfg.opt_state_dtype}")
+    print(smi("name,power.limit"))
+    ckpt = os.path.join(out_dir, "ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    res = {}
+
+    # -- (a) ---------------------------------------------------------------
+    fingerprints = []
+    real_make = train_mod.make_train_step
+
+    def make_fingerprinted(*a, **kw):
+        inner = real_make(*a, **kw)
+
+        def step(params, opt, batch):
+            if not fingerprints:
+                fingerprints.append(torch.stack([
+                    p.detach().float().sum() for p in tree_leaves(params)]))
+            out = inner(params, opt, batch)
+            fingerprints.append(torch.stack([
+                p.detach().float().sum() for p in tree_leaves(out[0])]))
+            return out
+        return step
+
+    rec = Products(K, G, GA).install()
+    train_mod.make_train_step = make_fingerprinted
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    G.reset_launch_counts()
+    GA.reset_copy_counts()
+    t0 = time.perf_counter()
+    try:
+        out = train_mod.train("qwen2-1.5b", ckpt_dir=ckpt, **TRAIN_RUN)
+        launches, routes = dict(K.LAUNCHES), dict(K.ROUTES)
+        copies = dict(GA.COPIES)
+    finally:
+        train_mod.make_train_step = real_make
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    del out["params"]
+    for h in out["history"]:
+        print(f"  step {h['step']}: loss {h['loss']:.4f}, {h['ms']:.1f} ms, "
+              f"{h['tokens_per_s']:.1f} tok/s, grad_norm "
+              f"{h['grad_norm']:.4f}, lr {h['lr']:.3g}")
+    bwd = dict(rec.backward)
+    fwd = sum(launches.values()) - bwd["gemm_k_inner"] - bwd["gemm_k_outer"]
+    print(f"train(): {len(out['history'])} steps in {train_s:.1f} s (two "
+          f"checkpoints included); torch.cuda.max_memory_allocated "
+          f"{peak:,} B; watchdog {out['watchdog']}")
+    print(f"GEMM launches {launches} by route {routes}: backward "
+          f"{bwd['gemm_k_inner'] + bwd['gemm_k_outer']} by route "
+          f"{rec.routes['gemm']}, forward (the recompute included) {fwd}; "
+          f"transposed copies {copies}")
+    for h in out["history"]:
+        check(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]),
+              f"step {h['step']}: loss {h['loss']}, grad_norm "
+              f"{h['grad_norm']} not finite")
+    all_on_wgmma(K, "phase 15 (a)'s bf16 training run")
+    check(bwd["gemm_k_inner"] > 0 and rec.routes["gemm"]["cuda_cores"] == 0,
+          f"backward GEMM launches {bwd} by route {rec.routes['gemm']}")
+    check(len(fingerprints) == 5, f"{len(fingerprints)} parameter "
+                                  f"fingerprints for 4 steps")
+    moved = [bool((fingerprints[i + 1] != fingerprints[i]).any())
+             for i in range(4)]
+    print(f"parameters moved by step: {moved} (step 1's learning rate is 0)")
+    check(not moved[0], "step 1 (learning rate 0) moved the parameters")
+    check(all(moved[1:]), f"the parameters did not move in steps 2-4: "
+                          f"{moved}")
+    steps = CheckpointManager(ckpt).all_steps()
+    check(steps == [2, 4], f"checkpoints at steps {steps}, not [2, 4]")
+    ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                     for r, _, fs in os.walk(ckpt) for f in fs)
+    print(f"checkpoints {steps}: {ckpt_bytes:,} B on disk")
+    res["train"] = {"history": out["history"], "seconds": train_s,
+                    "max_memory_allocated": peak, "launches": launches,
+                    "routes": routes, "backward": bwd,
+                    "backward_routes": rec.routes["gemm"],
+                    "copies": copies, "watchdog": out["watchdog"],
+                    "checkpoint_bytes": ckpt_bytes}
+    del out, fingerprints[:]
+    torch.cuda.empty_cache()
+
+    # -- (b) ---------------------------------------------------------------
+    served = serve_mod.serve_demo("qwen2-1.5b", smoke=False, ckpt_dir=ckpt,
+                                  n_requests=2, max_new=4, device="cuda")
+    check(served["ckpt_step"] == 4, f"served checkpoint step "
+                                    f"{served['ckpt_step']}, not 4")
+    for rid, toks in served["generated"].items():
+        check(len(toks) == 4 and all(0 <= t < cfg.vocab_size for t in toks),
+              f"request {rid}: {toks} is not 4 in-vocabulary tokens")
+    print(f"served the step-4 checkpoint: {served['generated']}")
+    res["served"] = {"generated": served["generated"],
+                     "ckpt_step": served["ckpt_step"]}
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # -- (e) ---------------------------------------------------------------
+    full = get_config("granite-moe-3b-a800m")
+    gcfg = dataclasses.replace(full, n_layers=MOE_TRAIN["layers"],
+                               block_pattern=("moe",) * MOE_TRAIN["layers"])
+    print(f"granite-moe-3b-a800m: depth cut {full.n_layers} -> "
+          f"{gcfg.n_layers} layers, {gcfg.n_experts} experts top-"
+          f"{gcfg.experts_per_token}, expert d_ff {gcfg.moe_d_ff}, "
+          f"{gcfg.compute_dtype}")
+    glm = LM(gcfg, device=dev)
+    tcfg = TrainConfig(lr=3e-3, warmup_steps=1, total_steps=10)
+    pcfg = ParallelConfig()
+    gshape = ShapeConfig("t", "train", MOE_TRAIN["seq"], MOE_TRAIN["batch"])
+    G.reset_launch_counts()
+    before = dict(rec.backward)
+    groutes_before = dict(rec.routes["grouped"])
+    params, opt = init_train_state(glm, tcfg,
+                                   torch.Generator(dev).manual_seed(2))
+    step = make_train_step(glm, tcfg, pcfg)
+    data = DataIterator(gcfg, gshape, seed=2)
+    glosses = []
+    for _ in range(MOE_TRAIN["steps"]):
+        params, opt, m = step(params, opt, {k: v.to(dev)
+                                            for k, v in next(data).items()})
+        glosses.append((float(m["loss"]), float(m["aux_loss"]),
+                        float(m["grad_norm"])))
+    torch.cuda.synchronize()
+    g_launch, g_routes = G.LAUNCHES["grouped_gemm"], dict(G.ROUTES)
+    g_bwd = rec.backward["grouped_gemm"] - before["grouped_gemm"]
+    g_bwd_routes = {r: rec.routes["grouped"][r] - groutes_before[r]
+                    for r in G.ROUTES}
+    print(f"granite 2 steps: (loss, aux, grad_norm) {glosses}; grouped "
+          f"launches {g_launch} by route {g_routes} (backward {g_bwd} by "
+          f"route {g_bwd_routes})")
+    check(all(math.isfinite(x) for t in glosses for x in t),
+          f"granite losses {glosses} not finite")
+    check(g_launch > 0 and g_routes == {"wgmma": g_launch, "cuda_cores": 0},
+          f"grouped launches {g_launch} by route {g_routes}: not every one "
+          f"on wgmma")
+    check(g_bwd > 0 and g_bwd_routes["cuda_cores"] == 0,
+          f"grouped backward launches {g_bwd} by route {g_bwd_routes}")
+    res["moe"] = {"losses": glosses, "grouped_launches": g_launch,
+                  "grouped_routes": g_routes, "grouped_backward": g_bwd}
+    del params, opt, step, glm
+    torch.cuda.empty_cache()
+    rec.restore()
+
+    # -- (c) ---------------------------------------------------------------
+    res["backward_err"] = hold_products(K, G, rec.seen, dev)
+    res["backward_products"] = sorted(rec.seen)
+
+    # -- (d) ---------------------------------------------------------------
+    fcfg = dataclasses.replace(cfg, n_layers=F32_STEP["layers"],
+                               block_pattern=cfg.block_pattern[
+                                   :F32_STEP["layers"]],
+                               compute_dtype="float32")
+    batch = make_batch(fcfg, ShapeConfig("t", "train", F32_STEP["seq"],
+                                         F32_STEP["batch"]), 0, seed=7)
+    card, host = LM(fcfg, device=dev), LM(fcfg, device="cpu")
+    card.init(torch.Generator(dev).manual_seed(7))
+    host.init(torch.Generator().manual_seed(7))
+    with torch.no_grad():
+        for p, q in zip(host.parameters(), card.parameters(), strict=True):
+            p.copy_(q)
+    before = snapshot(K)
+    grads = {}
+    for where, lm_ in (("cuda", card), ("cpu", host)):
+        values = lm_.train_mode().values()
+        loss, _ = lm_.loss_fn(values, {k: v.to(lm_.device)
+                                       for k, v in batch.items()})
+        leaves = _flatten(values)
+        grads[where] = (loss.item(), dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values())))))
+    route_check(K, "phase 15 (d)'s f32 step", "f32", before)
+    worst, worst_path = 0.0, None
+    for path, g in grads["cpu"][1].items():
+        rel = float((grads["cuda"][1][path].cpu() - g).norm() / g.norm())
+        if rel >= worst:
+            worst, worst_path = rel, path
+    print(f"f32 step, {fcfg.n_layers} layers at full width, batch "
+          f"{F32_STEP['batch']} x {F32_STEP['seq']}: loss card "
+          f"{grads['cuda'][0]:.7g}, CPU {grads['cpu'][0]:.7g}; worst "
+          f"gradient leaf {worst_path} at {worst:.3g} relative L2 (bound "
+          f"{F32_STEP_REL_L2:g})")
+    check(worst <= F32_STEP_REL_L2, f"f32 gradients: {worst_path} at "
+                                    f"{worst:.3g} relative L2 of the CPU's")
+    res["f32_step"] = {"loss_card": grads["cuda"][0],
+                       "loss_cpu": grads["cpu"][0], "worst_rel_l2": worst,
+                       "worst_leaf": str(worst_path)}
+    del grads, card, host
+    torch.cuda.empty_cache()
+
+    # -- (f) ---------------------------------------------------------------
+    print("(f) backward products at the planner's tiles (CUDA events; "
+          "grouped: device time by CUDA-graph replay):")
+    res["timing"], res["grouped_timing"] = backward_timings(K, G, dev)
+    lm = LM(cfg, device=dev)
+    tbatch = {k: v.to(dev) for k, v in make_batch(
+        cfg, ShapeConfig("t", "train", TRAIN_RUN["seq"], TRAIN_RUN["batch"]),
+        0).items()}
+    res["profile"] = profile_train_step(lm, TrainConfig(lr=3e-3,
+                                                        warmup_steps=1,
+                                                        total_steps=10),
+                                        ParallelConfig(), tbatch)
+    del lm, tbatch
+    torch.cuda.empty_cache()
+    print(smi("name,power.limit"))
+    return res
+
+
 def kernel_entry(name, source, replaces, launches, max_err, rows):
     """One entry of the kernels line: times summed over ``rows``."""
     t_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
@@ -3416,6 +3986,7 @@ def main(argv=None) -> int:
     families = families_phase(K, dev)
     deployment = deployment_phase(zamba)
     autoconf = autoconf_phase(K, dev, args.out)
+    training = training_phase(K, G, dev, args.out)
 
     csrc = "src/repro_torch/kernels/csrc"
     kernels = []
@@ -3446,6 +4017,16 @@ def main(argv=None) -> int:
         "flash_attention_f32", f"{csrc}/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:68", flash_f32_launches,
         f32_row[0]["max_abs_err"], f32_row))
+    kernels.append(kernel_entry(
+        "gemm_k_inner_bwd", f"{csrc}/wgmma_gemm.cuh",
+        "src/repro/kernels/gemm.py:56",
+        training["train"]["backward"]["gemm_k_inner"],
+        training["backward_err"]["gemm"], training["timing"]))
+    kernels.append(kernel_entry(
+        "grouped_gemm_bwd", f"{csrc}/grouped_gemm.cu",
+        "src/repro/kernels/grouped_gemm.py:37",
+        training["moe"]["grouped_backward"],
+        training["backward_err"]["grouped"], training["grouped_timing"]))
     with open(os.path.join(args.out, "timings.json"), "w") as f:
         json.dump({"device": card, "power": smi("name,power.limit"),
                    "rows": rows, "old_tile_rows": old_rows,
@@ -3466,7 +4047,7 @@ def main(argv=None) -> int:
                    "transpose_rows": transpose_rows,
                    "main_path": main_path, "zamba": zamba,
                    "families": families, "deployment": deployment,
-                   "autoconf": autoconf},
+                   "autoconf": autoconf, "training": training},
                   f, indent=1)
     print(f"\n(GEMM times are sums over the five Qwen2-1.5B GEMMs at the "
           f"planner's tiles, by dtype "

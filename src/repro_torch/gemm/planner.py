@@ -195,21 +195,28 @@ def default_execute_backend() -> str:
     return "cuda"
 
 
-def matmul(x, w, *, backend: str | None = None):
+def matmul(x, w, *, backend: str | None = None, w_t=None):
     """Planned matmul over arbitrary leading dims: ``(..., k) @ (k, n)``.
 
     Folds leading dims into M, plans on the executable backend (default
     :func:`default_execute_backend`) and executes the plan — the
     framework-wide route by which every dense layer inherits the paper's
-    analytic tile selection.
+    analytic tile selection.  Differentiable: when autograd records it,
+    the backward products run planned on the same backend
+    (``gemm/autograd.py``); ``w_t``, ``w.t()`` row-major if the caller
+    holds it, spares ``dX`` a transposed copy.
     """
+    from repro_torch.gemm import autograd
     lead = x.shape[:-1]
     a2 = x if x.ndim == 2 else x.reshape(-1, x.shape[-1])
     m, k = a2.shape
     n = w.shape[-1]
-    p = plan((m, n, k), backend=backend or default_execute_backend(),
-             dtype=dtype_tag(x.dtype))
-    out = p.execute(a2, w)
+    backend = backend or default_execute_backend()
+    if autograd.wanted(a2, w):
+        out = autograd.planned_matmul(a2, w, backend, w_t)
+    else:
+        out = plan((m, n, k), backend=backend,
+                   dtype=dtype_tag(x.dtype)).execute(a2, w)
     return out if x.ndim == 2 else out.reshape(*lead, n)
 
 
@@ -221,13 +228,18 @@ def grouped_matmul(x, w):
     capacity axis C: rows are independent, so one launch over
     ``(E, lead * C, D)`` computes what the JAX package's ``jax.vmap`` over
     the leading dims does, reading the expert weights once.
+    Differentiable: both backward products run on the grouped kernel
+    (``gemm/autograd.py``).
     """
+    from repro_torch.gemm import autograd
     from repro_torch.kernels import ops
+    run = (autograd.grouped_matmul if autograd.wanted(x, w)
+           else ops.grouped_gemm)
     if x.ndim == 3:
-        return ops.grouped_gemm(x, w)
+        return run(x, w)
     lead, (e, c, d) = x.shape[:-3], x.shape[-3:]
     x3 = x.reshape(-1, e, c, d).transpose(0, 1).reshape(e, -1, d)
-    out = ops.grouped_gemm(x3.contiguous(), w)
+    out = run(x3.contiguous(), w)
     out = out.reshape(e, -1, c, out.shape[-1]).transpose(0, 1)
     return out.reshape(*lead, e, c, out.shape[-1])
 

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models.common import tree_paths
+
 _DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
            "f32": torch.float32, "float32": torch.float32,
            "int8": torch.int8, "int32": torch.int32}
@@ -53,16 +55,9 @@ def operands_from_numpy(*arrays, device="cuda", dtype=None):
     return out[0] if len(out) == 1 else tuple(out)
 
 
-def _flatten(tree, prefix=()) -> dict:
+def _flatten(tree) -> dict:
     """{key path: leaf} of a nested dict (lists index by position)."""
-    items = (tree.items() if isinstance(tree, dict) else
-             enumerate(tree) if isinstance(tree, list) else None)
-    if items is None:
-        return {prefix: tree}
-    out = {}
-    for key, val in items:
-        out.update(_flatten(val, prefix + (key,)))
-    return out
+    return dict(tree_paths(tree))
 
 
 def _unstack(values) -> dict:
@@ -83,6 +78,25 @@ def _unstack(values) -> dict:
         else:
             out[path] = np.asarray(v)
     return out
+
+
+def checkpoint_source(key: str, files) -> tuple[str | None, int | None]:
+    """Where a checkpoint (its array names ``files``) holds the port's
+    ``key`` (``a/b/c``): ``(key, None)`` if it is there as is;
+    ``(stacked key, period)`` if it is a JAX package checkpoint, whose
+    layer periods are one leaf with a leading period axis
+    (``params/stack/b0_attn/...``, ``opt/m/stack/...``) where the port has
+    a list (``params/stack/<period>/b0_attn/...``); ``(None, None)`` if
+    neither."""
+    if key in files:
+        return key, None
+    segs = key.split("/")
+    for j in range(len(segs) - 1):
+        if segs[j] == "stack" and segs[j + 1].isdigit():
+            src = "/".join(segs[:j + 1] + segs[j + 2:])
+            if src in files:
+                return src, int(segs[j + 1])
+    return None, None
 
 
 def load_jax_params(lm, values) -> dict:

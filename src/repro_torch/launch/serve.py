@@ -16,8 +16,9 @@ card (``--device cuda``, the default) and exits 2 when there is none;
 ``--autoconfigure`` picks the engine's operating point from the deployment
 report (with ``--slo-p99``, by simulated SLO attainment); ``--backend``
 names the planner that prices it, ``analytic-tpu`` by default as in the
-JAX package, ``cuda`` for the card.  ``--ckpt-dir`` waits for the
-checkpoint manager and is refused with a message.
+JAX package, ``cuda`` for the card.  ``--ckpt-dir`` serves the latest
+checkpoint there, one of the port's trainer (``repro_torch.launch.train``)
+or of the JAX package's.
 """
 from __future__ import annotations
 
@@ -30,22 +31,23 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.interop import require_device
-from repro_torch.models.common import HOST_MESH
+from repro_torch.models.common import HOST_MESH, tree_copy_
 from repro_torch.models.model import LM
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.resilience import retry_with_backoff
 
-#: flag -> the module it waits for
-NOT_PORTED = {
-    "--ckpt-dir": "checkpoint/manager.py",
-}
+#: flag -> the module it waits for (every flag of the JAX package's CLI
+#: is ported)
+NOT_PORTED: dict[str, str] = {}
 
 
 def serve_demo(arch: str, *, smoke: bool = True, n_requests: int = 8,
                max_new: int = 12, max_batch: int = 4, max_len: int = 256,
-               seed: int = 0, autoconfigure: bool = False,
+               ckpt_dir: str | None = None, seed: int = 0,
+               autoconfigure: bool = False,
                machine: str | None = None, memory: bool = True,
                precisions=(), slo=None, traffic=None,
                backend: str = "analytic-tpu",
@@ -55,12 +57,14 @@ def serve_demo(arch: str, *, smoke: bool = True, n_requests: int = 8,
                trace_path: str | None = None, trace_out: str | None = None,
                device="cuda") -> dict:
     """Serve ``n_requests`` random prompts of 3-11 tokens with a model of
-    random weights drawn from ``seed``.  With ``autoconfigure`` the engine
+    random weights drawn from ``seed``, or with the latest checkpoint in
+    ``ckpt_dir`` if it holds one.  With ``autoconfigure`` the engine
     comes from ``ServingEngine.autoconfigure`` (``machine``, ``memory``,
     ``precisions``, ``slo``, ``traffic``, ``faults`` and the planning
     ``backend`` go to it; ``max_batch`` is its pick).  Returns the counts,
     the wall time, the engine's step times, the number of prefills, each
-    request's generated tokens and the ``perf_report()``."""
+    request's generated tokens, the ``perf_report()`` and the checkpoint
+    step served (None for random weights)."""
     if trace_out:
         # span tracing costs nothing until enabled; a Chrome-trace export
         # without spans would be instants-only, so asking for one opts in
@@ -69,6 +73,16 @@ def serve_demo(arch: str, *, smoke: bool = True, n_requests: int = 8,
     cfg = get_config(arch, smoke=smoke)
     lm = LM(cfg, HOST_MESH, device=dev)
     values = lm.init(torch.Generator(device=dev).manual_seed(seed))
+    ckpt_step = None
+    if ckpt_dir:
+        mgr = CheckpointManager(ckpt_dir)
+        # restored on the host, then copied into the model in place
+        ckpt_step, state, _ = mgr.restore_latest({"params": values},
+                                                 device="cpu")
+        if state is not None:
+            tree_copy_(values, state["params"])
+            del state
+            print(f"serving checkpoint step {ckpt_step}")
     if autoconfigure:
         # rank the (machine x dtype x batch) deployment grid — memory-
         # infeasible cells pruned against each machine's budget — and let
@@ -176,15 +190,15 @@ def serve_demo(arch: str, *, smoke: bool = True, n_requests: int = 8,
             "prefills": sum(1 for e in eng.trace_events
                             if e["type"] == "admit" and e["bucket"]),
             "generated": {r.rid: list(r.generated) for r in done},
-            "perf": perf}
+            "perf": perf, "ckpt_step": ckpt_step}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description=__doc__.split("\n\n")[0],
-        epilog="not ported yet: " + "; ".join(
+        epilog=("not ported yet: " + "; ".join(
             f"{flag} (waits for {waits})"
-            for flag, waits in NOT_PORTED.items()))
+            for flag, waits in NOT_PORTED.items())) if NOT_PORTED else None)
     ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2-1.5b")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; cpu runs "
@@ -193,6 +207,9 @@ def main(argv=None) -> int:
     ap.add_argument("--max-new", type=int, default=12)
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the latest checkpoint in this directory "
+                         "(the port's trainer's or the JAX package's)")
     ap.add_argument("--autoconfigure", action="store_true",
                     help="pick machine/max_batch/plans by ranking the "
                          "memory-feasible (machine x dtype x batch) grid "
@@ -264,7 +281,7 @@ def main(argv=None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     serve_demo(a.arch, n_requests=a.requests, max_new=a.max_new,
-               max_batch=a.max_batch, max_len=a.max_len,
+               max_batch=a.max_batch, max_len=a.max_len, ckpt_dir=a.ckpt_dir,
                autoconfigure=a.autoconfigure, machine=a.machine,
                memory=not a.no_memory, precisions=a.precision or (),
                slo=slo, traffic=traffic, backend=a.backend,

@@ -125,7 +125,9 @@ def head_matrix(params, cfg):
     """The (D, Vp) logits matrix, row-major.  With tied embeddings it is
     the transposed table; the CUDA kernels take row-major operands only, so
     it is made contiguous here, once per compute copy (``LM.compute_params``
-    keeps it under ``"head"``), not once per decode step."""
+    keeps it under ``"head"``), not once per decode step.  Under autograd
+    the copy is an ordinary differentiable op: a training step rebuilds it
+    from its own compute copy, and the table's gradient flows through it."""
     if "head" in params:
         return params["head"]
     if cfg.tie_embeddings:
@@ -134,9 +136,35 @@ def head_matrix(params, cfg):
 
 
 def logits_head(params, x, cfg):
-    """x: (..., d) -> (..., padded_vocab); soft-capped if configured."""
-    logits = gemm_api.matmul(x, head_matrix(params, cfg))
+    """x: (..., d) -> (..., padded_vocab); soft-capped if configured.  With
+    tied embeddings the table is the head's transpose, row-major, so the
+    backward product ``dX = dlogits · table`` needs no transposed copy."""
+    logits = gemm_api.matmul(
+        x, head_matrix(params, cfg),
+        w_t=params["table"] if cfg.tie_embeddings else None)
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
     return logits
+
+
+def cross_entropy(logits, labels, vocab_size: int, z_coef: float = 1e-4,
+                  mask=None):
+    """Next-token CE over the *logical* vocab (the padded tail masked out).
+
+    logits: (B, S, Vp); labels: (B, S) int.  Returns the scalar mean loss
+    (plus a small z-loss against logit drift) over unmasked positions, in
+    f32.  The tail is set to -1e9 out of place, so autograd follows it.
+    """
+    logits = logits.float()
+    vp = logits.shape[-1]
+    if vp > vocab_size:
+        tail = torch.arange(vp, device=logits.device) >= vocab_size
+        logits = logits.masked_fill(tail, -1e9)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    per_tok = (lse - gold) + z_coef * lse.square()
+    if mask is None:
+        return per_tok.mean()
+    mask = mask.float()
+    return (per_tok * mask).sum() / mask.sum().clamp_min(1.0)

@@ -29,8 +29,10 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.gemm import autograd as gemm_autograd
 from repro_torch.interop import require_device
 from repro_torch.models import attention as attn
 from repro_torch.models import frontends, layers, moe, ssm, xlstm
@@ -219,6 +221,13 @@ class LM(nn.Module):
         self.params = ParamTree(p)
         return self.values()
 
+    def train_mode(self, on: bool = True) -> "LM":
+        """Make the parameters trainable (``requires_grad``), or frozen
+        again with ``on=False``; serving keeps them frozen."""
+        for p in self.params.parameters():
+            p.requires_grad_(on)
+        return self
+
     def values(self) -> dict:
         if self.params is None:
             raise RuntimeError("LM has no parameters: call init() or "
@@ -273,6 +282,65 @@ class LM(nn.Module):
                                              batch["tokens"], cfg))
         x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
         return x.to(self.compute_dtype), prefix_len
+
+    # -- training ---------------------------------------------------------------
+    def _run_stack(self, params, x, *, prefix_len: int, remat):
+        """Forward through every layer for a loss: returns (x, aux).  Each
+        period of the stack is one remat unit, as in the JAX package:
+        ``"block"`` (or True) recomputes all of it in the backward pass,
+        ``"dots"`` keeps the GEMM and grouped-GEMM outputs and recomputes
+        the rest, ``"none"`` (or False / None) keeps everything; the tail
+        layers keep everything."""
+        cfg, mesh = self.cfg, self.mesh
+        if remat not in (None, False, True, "none", "block", "dots"):
+            raise ValueError(f"remat {remat!r}: one of 'block', 'dots', "
+                             f"'none'")
+        units: dict = {}        # (part, period) -> the unit's layers
+        for kind, ppath, cpath in self._layout():
+            units.setdefault(cpath[:2] if cpath[0] == "stack" else cpath,
+                             []).append((kind, ppath, cpath))
+
+        def body(x, layers_):
+            aux = 0.0
+            for kind, ppath, _ in layers_:
+                x, a, _ = _apply_block(_get(params, ppath), kind, x, cfg,
+                                       mesh, prefix_len=prefix_len)
+                aux = aux + a
+            return x, aux
+
+        aux_total = 0.0
+        for key, unit in units.items():
+            if key[0] == "tail" or remat in (None, False, "none"):
+                x, aux = body(x, unit)
+            elif remat in ("block", True):
+                x, aux = checkpoint(body, x, unit, use_reentrant=False,
+                                    preserve_rng_state=False)
+            elif remat == "dots":
+                x, aux = checkpoint(body, x, unit, use_reentrant=False,
+                                    preserve_rng_state=False,
+                                    context_fn=gemm_autograd.dots_context)
+            aux_total = aux_total + aux
+        return x, aux_total
+
+    def loss_fn(self, params, batch, *, remat="block"):
+        """Mean next-token CE (+ z-loss) plus the MoE auxiliary loss.
+        Returns (loss, {"ce_loss", "aux_loss"}), differentiable in
+        ``params`` (the master tree: the compute copy, the tied head
+        included, is made inside, under autograd).  ``batch`` holds
+        ``labels`` (B, S) and the inputs ``prefill`` takes, optionally a
+        ``loss_mask``."""
+        cfg = self.cfg
+        params = self.compute_params(params)
+        x, prefix_len = self._embed_inputs(params, batch)
+        x, aux = self._run_stack(params, x, prefix_len=prefix_len,
+                                 remat=remat)
+        x = layers.apply_norm(params["final_norm"], x, cfg)
+        if prefix_len:
+            x = x[:, prefix_len:]
+        logits = layers.logits_head(params["embed"], x, cfg)
+        loss = layers.cross_entropy(logits, batch["labels"], cfg.vocab_size,
+                                    mask=batch.get("loss_mask"))
+        return loss + aux, {"ce_loss": loss, "aux_loss": aux}
 
     # -- serving: prefill -------------------------------------------------------
     def prefill(self, params, batch):

@@ -193,7 +193,7 @@ def test_serve_cli_takes_the_autoconfigure_flags(capsys, tmp_path):
                        "2", "--max-new", "3"]) == 0
     out = capsys.readouterr().out
     assert "machine=h100" in out and "served 2 requests" in out
-    assert serve.NOT_PORTED == {"--ckpt-dir": "checkpoint/manager.py"}
+    assert serve.NOT_PORTED == {}     # --ckpt-dir came with the checkpoints
 
 
 def test_serve_cli_needs_an_slo_for_faults(capsys):

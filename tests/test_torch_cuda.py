@@ -855,3 +855,93 @@ def test_rmsnorm_takes_a_misaligned_scale_on_the_scalar_path():
     want = R.rmsnorm_plain(x, s)
     assert bool(((got.float() - want.float()).abs()
                  <= _bf16_ulp(want)).all())
+
+
+# ---------------------------------------------------------------------------
+# The GEMM and grouped kernels' backward (gemm/autograd.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+@pytest.mark.parametrize("shape", [(2, 64, 1536, 8960), (300, 520, 390)])
+def test_matmul_backward_runs_on_the_kernels(shape, dt):
+    """gemm.matmul's dA and dB on the card: one launch each, on the
+    dtype's route, against the same products' plain versions."""
+    *lead, k, n = shape
+    tdt = torch.bfloat16 if dt == "bf16" else torch.float32
+    x = (torch.randn(*lead, k, device="cuda") * 0.5).to(tdt).requires_grad_()
+    w = (torch.randn(k, n, device="cuda") * k ** -0.5).to(tdt)
+    w.requires_grad_()
+    K.reset_launch_counts()
+    y = gemm.matmul(x, w)
+    dy = torch.randn_like(y)
+    gx, gw = torch.autograd.grad(y, (x, w), dy)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["gemm_k_inner"] == 3
+    assert K.ROUTES == ({"wgmma": 3, "cuda_cores": 0} if dt == "bf16"
+                        else {"wgmma": 0, "cuda_cores": 3})
+    a2, d2 = x.detach().reshape(-1, k), dy.reshape(-1, n)
+    tol = (dict(rtol=2e-2, atol=2e-2) if dt == "bf16"
+           else dict(rtol=1e-5, atol=1e-4))
+    torch.testing.assert_close(
+        gx.reshape(-1, k), K.gemm_k_inner_plain(d2, w.detach().t()), **tol)
+    torch.testing.assert_close(gw, K.gemm_k_inner_plain(a2.t(), d2), **tol)
+
+
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+def test_grouped_matmul_backward_runs_on_the_kernel(dt):
+    from repro_torch.kernels import grouped_gemm as G
+
+    tdt = torch.bfloat16 if dt == "bf16" else torch.float32
+    x = torch.randn(4, 40, 32, 1536, device="cuda").to(tdt)
+    w = (torch.randn(40, 1536, 512, device="cuda") * 1536 ** -0.5).to(tdt)
+    x.requires_grad_()
+    w.requires_grad_()
+    G.reset_launch_counts()
+    y = gemm.grouped_matmul(x, w)
+    dy = torch.randn_like(y)
+    gx, gw = torch.autograd.grad(y, (x, w), dy)
+    torch.cuda.synchronize()
+    assert G.LAUNCHES["grouped_gemm"] == 3
+    assert G.ROUTES[G.route(tdt)] == 3
+    x3 = x.detach().transpose(0, 1).reshape(40, -1, 1536)
+    d3 = dy.transpose(0, 1).reshape(40, -1, 512)
+    tol = (dict(rtol=2e-2, atol=2e-2) if dt == "bf16"
+           else dict(rtol=1e-5, atol=1e-4))
+    torch.testing.assert_close(
+        gx.transpose(0, 1).reshape(40, -1, 1536),
+        G.grouped_gemm_plain(d3, w.detach().transpose(1, 2).contiguous()),
+        **tol)
+    torch.testing.assert_close(
+        gw, G.grouped_gemm_plain(x3.transpose(1, 2).contiguous(), d3), **tol)
+
+
+def test_loss_fn_gradients_on_the_card_match_the_cpu():
+    """One f32 step of gradients of qwen2-1.5b (smoke) on the card against
+    the same step on the CPU (plain versions): 1e-4 relative L2 a leaf."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.interop import _flatten
+    from repro_torch.models.model import LM
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b", smoke=True),
+                              compute_dtype="float32")
+    batch = make_batch(cfg, ShapeConfig("t", "train", 32, 2), 0)
+    cpu, card = LM(cfg, device="cpu"), LM(cfg, device="cuda")
+    cpu.init(torch.Generator().manual_seed(0))
+    card.init(torch.Generator(device="cuda").manual_seed(0))
+    with torch.no_grad():
+        for p, q in zip(card.parameters(), cpu.parameters(), strict=True):
+            p.copy_(q)
+    grads = {}
+    for dev, lm in (("cpu", cpu), ("cuda", card)):
+        values = lm.train_mode().values()
+        loss, _ = lm.loss_fn(values, {k: v.to(dev) for k, v in batch.items()})
+        leaves = _flatten(values)
+        grads[dev] = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+    for path, g in grads["cpu"].items():
+        got = grads["cuda"][path].cpu()
+        assert ((got - g).norm() / g.norm()).item() <= 1e-4, path

@@ -297,12 +297,25 @@ def test_serve_cli_serves_on_the_cpu_when_asked(capsys):
     assert "served 4 requests, 24 tokens" in out
 
 
-@pytest.mark.parametrize("flag", sorted(serve.NOT_PORTED))
-def test_serve_cli_refuses_flags_of_modules_not_ported(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        serve.main(["--device", "cpu", flag])
-    assert e.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+def test_serve_cli_takes_every_flag_of_the_reference(tmp_path, capsys):
+    """Every flag of ``repro.launch.serve`` is ported (``--ckpt-dir`` came
+    with the checkpoint manager; ``test_torch_checkpoint.py`` serves
+    checkpoints of both trainers through it), and a directory without a
+    checkpoint serves the seeded random weights."""
+    import re
+    flags = {}
+    for pkg in ("repro", "repro_torch"):
+        with open(os.path.join(ROOT, "src", pkg, "launch", "serve.py")) as f:
+            flags[pkg] = set(re.findall(r'add_argument\("(--[a-z0-9-]+)"',
+                                        f.read()))
+    assert "--ckpt-dir" in flags["repro"]
+    assert flags["repro"] <= flags["repro_torch"]
+    assert serve.NOT_PORTED == {}
+    assert serve.main(["--device", "cpu", "--arch", "granite-moe-3b-a800m",
+                       "--requests", "1", "--max-new", "2", "--ckpt-dir",
+                       str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "served 1 requests" in out and "serving checkpoint" not in out
 
 
 def test_serving_entry_points_refuse_to_run_without_a_card(monkeypatch):
