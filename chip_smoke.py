@@ -244,7 +244,10 @@ the deployment report (phase 13).  Phases:
              2 %); priced by ``ServiceModel.from_plans`` on the same
              manifest, order and steps must match and the MAPE is printed
              with no bound (the model prices one layer's GEMMs and the
-             logits; the served step is bound by the host).
+             logits; the served step is bound by the host).  The tied
+             head's logits launch at the served batch (``gemm.matmul`` on
+             ``layers.head_matrix``, the table's ``.t()`` read in place) is
+             timed; with ``--parent``, in turns with the parent's.
 15. train   — (a) ``launch.train.train`` trains Qwen2-1.5B at full width
              (the widths above; f32 master weights and AdamW moments, bf16
              compute, random weights from a seeded generator on the card)
@@ -253,29 +256,38 @@ the deployment report (phase 13).  Phases:
              and grad_norm, ``torch.cuda.max_memory_allocated``, the
              watchdog and the GEMM launches by route, backward (the
              products ``gemm/autograd.py``'s Functions run in their
-             ``backward``) and forward (block remat's recompute
+             ``backward``, also by operand layout: row-major, A or B
+             transposed) and forward (block remat's recompute
              included) are printed; it fails on a loss or grad_norm that
-             is not finite, a bf16 GEMM launch off wgmma, parameters that
-             step 1 (learning rate 0) moved or steps 2-4 did not, or a
-             checkpoint missing at step 2 or 4.  (b) ``serve_demo`` serves
+             is not finite, a bf16 GEMM launch off wgmma, a transposed
+             copy, a row-major backward product other than the tied
+             head's dX (one a step), parameters that step 1 (learning
+             rate 0) moved or steps 2-4 did not, or a checkpoint missing
+             at step 2 or 4.  (b) ``serve_demo`` serves
              the step-4 checkpoint (2 requests, 4 new tokens): the step
              served must be 4 and every token in the vocabulary; the
              checkpoints (37 GB) are then deleted.  (e) granite-moe-3b-
              a800m at full width cut to 4 layers (phase 8's cut), bf16,
              takes 2 steps of 4 x 256 tokens: every grouped launch,
-             forward and backward, on wgmma.  (c) every backward product
-             (kind, direction, shapes, dtype) that (a) and (e) ran is held
-             against its plain version on seeded operands.  (d) Qwen2-1.5B
+             forward and backward, on wgmma, every backward one on a
+             transposed operand, no transposed copy.  (c) every backward
+             product (kind, direction, shapes, dtype, layout) that (a) and
+             (e) ran is held against its plain version on seeded operands
+             stored in that layout.  (d) Qwen2-1.5B
              at full width cut to 2 layers, f32 (the GEMMs on the CUDA
              cores), one step of gradients at 2 x 64 tokens on the card
              against the same step of the port on the CPU: 1e-4 relative
              L2 a leaf.  (f) dA = dC·Bᵀ and dB = Aᵀ·dC of the five
-             Qwen2-1.5B GEMMs at 1,024 tokens (CUDA events, the planner's
-             tiles) beside their plain versions, ``torch.matmul`` on the
-             operands as stored, their bound and the transposed copy each
-             needs (none for the tied head's dA); granite's grouped dx and
-             dw at (e)'s shapes by CUDA-graph replay beside ``torch.bmm``;
-             then one step under ``torch.profiler`` (the card's busy share,
+             Qwen2-1.5B GEMMs at 1,024 tokens on the operands as stored
+             (CUDA events and device time by graph replay, the planner's
+             tiles; each product's tile, layout and whether its blocks
+             walk) beside their plain versions, ``torch.matmul`` on the
+             same views and their bound, the dA of qkv, o, gate_up and
+             logits also at the planner's next two tiles (picked /
+             fastest); granite's grouped dx and dw at (e)'s shapes by
+             CUDA-graph replay beside ``torch.bmm``; with ``--parent``,
+             all of them in turns with the parent's copy + product; then
+             one step under ``torch.profiler`` (the card's busy share,
              the wgmma GEMM's device ms against the rest) and AdamW's wall
              ms in one step.
 
@@ -1138,8 +1150,11 @@ def tree_run(tree, what, out, shapes=None):
     at ``shapes``), ``"gemm_int8"`` (phase 5's int8 turn, :func:`int8_turn`
     at ``shapes``), ``"grouped"`` (phase 6's grouped times), ``"serve"``
     (phase 7's served decode step and profiled drain), ``"norm"`` (phase
-    10's RMSNorm times at the served rows) or ``"flash"`` (phase 10's flash
-    attention times at ``FLASH_TURN_SHAPES``)."""
+    10's RMSNorm times at the served rows), ``"flash"`` (phase 10's flash
+    attention times at ``FLASH_TURN_SHAPES``), ``"backward"`` (phase 15
+    (f)'s backward products, :func:`backward_timings`; ``shapes`` says
+    whether the tree is the parent) or ``"logits"`` (phase 14's tied-head
+    logits launch at ``shapes["rows"]`` rows)."""
     path = os.path.join(out, f"tree_{what}.json")
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
                            "--time-tree", os.path.abspath(tree),
@@ -1182,6 +1197,12 @@ def time_tree(tree, what, shapes, path):
     elif what == "flash":
         from repro_torch.kernels import flash_attention as FA
         res = flash_timings(FA, dev)
+    elif what == "backward":
+        rows, grows = backward_timings(dev, parent=shapes["parent"],
+                                       quiet=True)
+        res = {"rows": rows, "grows": grows}
+    elif what == "logits":
+        res = logits_timing(dev, shapes["rows"])
     else:
         from repro_torch.configs import get_config
         res = served_steps()
@@ -2339,14 +2360,16 @@ def tree_bytes(tree, skip=()):
 
 def record_gemms(K):
     """Wraps ``K.gemm`` (what the ``cuda`` backend's ``execute`` calls) to
-    record every (m, n, k, tile, dtype tag) it runs.  Returns (the set,
-    a function that restores ``K.gemm``)."""
+    record every (m, n, k, tile, dtype tag, layout) it runs, the layout
+    the operands' wgmma transpose bits (``K.wgmma_layout``: the tied
+    logits head's B is the table's ``.t()``).  Returns (the set, a
+    function that restores ``K.gemm``)."""
     seen = set()
     inner = K.gemm
 
     def gemm(a, b, c=None, *, tile):
         seen.add((a.shape[0], b.shape[1], a.shape[1], tile,
-                  K._tag(a.dtype)))
+                  K._tag(a.dtype), K.wgmma_layout(a, b)))
         return inner(a, b, c, tile=tile)
 
     def restore():
@@ -2356,19 +2379,38 @@ def record_gemms(K):
     return seen, restore
 
 
+def in_layout(a, b, layout):
+    """``a`` and ``b`` (matrices, or stacks of them) with the same values,
+    stored as ``layout`` (wgmma's transpose bits, ``K.wgmma_layout``) says:
+    A as the transpose of its contiguous transpose when ``ta``, B when not
+    ``tb``."""
+    def swapped(t):
+        return t.transpose(-2, -1).contiguous().transpose(-2, -1)
+
+    ta, tb = layout
+    return swapped(a) if ta else a, b if tb else swapped(b)
+
+
+LAYOUT_NAMES = {(0, 1): "row-major", (1, 1): "A transposed",
+                (0, 0): "B transposed"}
+
+
 def hold_gemms(K, shapes, dev, label):
-    """Each GEMM a path ran, at its (m, n, k) and tile, against its plain
-    version on seeded operands (B at a weight's init scale, as the models
-    hold it).  Returns the largest error per dtype."""
+    """Each GEMM a path ran, at its (m, n, k), tile and operand layout,
+    against its plain version on seeded operands (B at a weight's init
+    scale, as the models hold it).  Returns the largest error per dtype."""
     import torch
     from repro_torch.core.tpu_model import GridOrder
 
     err = {}
-    for i, (m, n, k, tile, tag) in enumerate(sorted(
-            shapes, key=lambda s: (s[4], s[0], s[1], s[2], str(s[3])))):
+    for i, (m, n, k, tile, tag, layout) in enumerate(sorted(
+            shapes, key=lambda s: (s[4], s[0], s[1], s[2], str(s[3]),
+                                   s[5]))):
         a, b = seeded(m, n, k, tag, 3000 + i, dev)
         b *= k ** -0.5
-        where = f" at {tile}, {m}x{n}x{k} ({label})"
+        a, b = in_layout(a, b, layout)
+        where = (f" at {tile}, {m}x{n}x{k}, {LAYOUT_NAMES[layout]} "
+                 f"({label})")
         if tile.order is GridOrder.K_OUTER:
             c0 = torch.zeros((m, n), dtype=K.out_dtype(a.dtype), device=dev)
             e = compare("gemm_k_outer", tag,
@@ -2446,7 +2488,7 @@ def zamba_phase(K, G, dev):
           "a recurrent prefill ran at a bucket, not its exact length")
     res = {**step_times(out), **launches, "gemm_routes": routes,
            "gemm_shapes": sorted((m, n, k, str(t), tag)
-                                 for m, n, k, t, tag in gemms)}
+                                 for m, n, k, t, tag, _ in gemms)}
     print(f"{res['tokens']} tokens in {res['seconds']:.3f} s: "
           f"{res['tokens_per_s']:.2f} tok/s; {res['steps']} steps "
           f"({res['decode_steps']} without admissions: "
@@ -2789,11 +2831,12 @@ REPLAY_APE = 0.02
 REPLAY_MAPE_PCT = 2.0
 
 
-def autoconf_phase(K, dev, out_dir):
+def autoconf_phase(K, dev, out_dir, parent=None):
     """Phase 14: autoconfigure Qwen2-1.5B at full width on ``cuda`` /
     ``h100-measured`` under an SLO, serve it through the port's entry
-    point, hold its logits and GEMMs, and replay its trace through the
-    simulator (measured and model-priced steps)."""
+    point, hold its logits and GEMMs, time its tied-head logits launch
+    (with ``parent``, in turns with that tree's), and replay its trace
+    through the simulator (measured and model-priced steps)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as serve_mod
@@ -2866,13 +2909,29 @@ def autoconf_phase(K, dev, out_dir):
     res = {**step_times(out), **launches, "gemm_routes": routes,
            "autoconfig": ac, "max_memory_allocated": peak,
            "gemm_shapes": sorted((m, n, k, str(t), tag)
-                                 for m, n, k, t, tag in gemms)}
+                                 for m, n, k, t, tag, _ in gemms)}
     print(f"{res['tokens']} tokens in {res['seconds']:.3f} s: "
           f"{res['tokens_per_s']:.2f} tok/s; {res['steps']} steps "
           f"({res['decode_steps']} without admissions: "
           f"{res['decode_step_ms']:.3f} ms each; all steps "
           f"{res['step_ms_all']:.3f} ms); {out['prefills']} prefills; "
           f"torch.cuda.max_memory_allocated {peak:,} B")
+
+    rows_ = ac["max_batch"]
+    turns = ([tree_run(parent, "logits", out_dir, {"rows": rows_})]
+             if parent else [])
+    res["logits_launch"] = logits_timing(dev, rows_)
+    if parent:
+        turns += [res["logits_launch"],
+                  tree_run(HERE, "logits", out_dir, {"rows": rows_}),
+                  tree_run(parent, "logits", out_dir, {"rows": rows_})]
+        res["logits_turns"] = turns
+    print(f"the tied-head logits launch at {rows_} row(s) (head a view of "
+          f"the table: {res['logits_launch']['head_is_view']}): "
+          f"{res['logits_launch']['ms']:.4f} ms"
+          + (" (turns parent, change, change, parent: "
+             + ", ".join(f"{t['ms']:.4f}" for t in turns) + " ms)"
+             if parent else ""))
 
     trace = eng.trace_json()
     with open(os.path.join(out_dir, "autoconf_trace.json"), "w") as f:
@@ -2934,13 +2993,13 @@ MOE_TRAIN = dict(layers=4, batch=4, seq=256, steps=2)
 
 class Products:
     """Records the backward products of ``gemm/autograd.py``'s two
-    Functions: each (kind, direction, A shape, B shape, dtype tag), and
-    the GEMM and grouped kernels' launches and routes those products make
-    (every other launch is a forward one, block remat's recompute
-    included: it runs inside a Function's ``forward``, even when the
-    backward pass triggers it).  ``install`` wraps, and ``restore``
-    unwraps, the Functions' ``forward`` and ``backward`` and the module's
-    ``product`` / ``grouped_product``."""
+    Functions: each (kind, direction, A shape, B shape, dtype tag,
+    layout), and the GEMM and grouped kernels' launches, routes and
+    layouts those products make (every other launch is a forward one,
+    block remat's recompute included: it runs inside a Function's
+    ``forward``, even when the backward pass triggers it).  ``install``
+    wraps, and ``restore`` unwraps, the Functions' ``forward`` and
+    ``backward`` and the module's ``product`` / ``grouped_product``."""
 
     def __init__(self, K, G, GA):
         self.K, self.G, self.GA = K, G, GA
@@ -2949,24 +3008,36 @@ class Products:
                          "grouped_gemm": 0}
         self.routes = {"gemm": {r: 0 for r in K.ROUTES},
                        "grouped": {r: 0 for r in G.ROUTES}}
+        #: backward launches by operand layout (LAYOUT_NAMES), and the
+        #: row-major backward products (the tied head's dX) by direction
+        self.layouts = {kind: {name: 0 for name in LAYOUT_NAMES.values()}
+                        for kind in ("gemm", "grouped")}
+        self.row_major = {}
         self.depth = 0               # inside a Function's forward
         self.pending = []            # directions of the backward running
+
+    def layout(self, kind, a, b):
+        return (self.K.wgmma_layout(a, b) if kind == "gemm"
+                else self.G.layout(a, b))
 
     def _count(self, kind, fn, a, b, rest):
         K, G = self.K, self.G
         before = (dict(K.LAUNCHES), dict(K.ROUTES), dict(G.LAUNCHES),
                   dict(G.ROUTES))
+        name = LAYOUT_NAMES[self.layout(kind, a, b)]
         out = fn(a, b, *rest)
         if kind == "gemm":
+            n = sum(K.LAUNCHES.values()) - sum(before[0].values())
             for kname in K.LAUNCHES:
                 self.backward[kname] += K.LAUNCHES[kname] - before[0][kname]
             for r in K.ROUTES:
                 self.routes["gemm"][r] += K.ROUTES[r] - before[1][r]
         else:
-            self.backward["grouped_gemm"] += (G.LAUNCHES["grouped_gemm"]
-                                              - before[2]["grouped_gemm"])
+            n = G.LAUNCHES["grouped_gemm"] - before[2]["grouped_gemm"]
+            self.backward["grouped_gemm"] += n
             for r in G.ROUTES:
                 self.routes["grouped"][r] += G.ROUTES[r] - before[3][r]
+        self.layouts[kind][name] += n
         return out
 
     def install(self):
@@ -2980,8 +3051,13 @@ class Products:
             def inner(a, b, *rest):
                 if rec.depth or not rec.pending:
                     return fn(a, b, *rest)
-                rec.seen.add((kind, rec.pending.pop(0), tuple(a.shape),
-                              tuple(b.shape), rec.K._tag(a.dtype)))
+                direction, layout = rec.pending.pop(0), rec.layout(kind, a,
+                                                                   b)
+                rec.seen.add((kind, direction, tuple(a.shape),
+                              tuple(b.shape), rec.K._tag(a.dtype), layout))
+                if layout == (0, 1):
+                    rec.row_major[direction] = (
+                        rec.row_major.get(direction, 0) + 1)
                 return rec._count(kind, fn, a, b, rest)
             return inner
 
@@ -3024,21 +3100,23 @@ class Products:
 
 
 def hold_products(K, G, seen, dev):
-    """Each backward product (kind, direction, shapes, dtype) recorded in
-    phase 15 against its plain version on seeded operands at those shapes
-    (the second operand at a weight's init scale), the GEMMs on the tile
-    the planner gives their shape.  Returns the largest error per kind."""
+    """Each backward product (kind, direction, shapes, dtype, layout)
+    recorded in phase 15 against its plain version on seeded operands at
+    those shapes, stored in that layout (the second operand at a weight's
+    init scale), the GEMMs on the tile the planner gives their shape.
+    Returns the largest error per kind."""
     import torch
     from repro_torch import gemm
 
     err = {"gemm": 0.0, "grouped": 0.0}
-    for i, (kind, direction, sa, sb, tag) in enumerate(sorted(seen)):
+    for i, (kind, direction, sa, sb, tag, layout) in enumerate(sorted(seen)):
         dt = {"bf16": torch.bfloat16, "f32": torch.float32}[tag]
         g = torch.Generator(dev).manual_seed(4000 + i)
         a = torch.randn(sa, generator=g, device=dev).to(dt)
         b = (torch.randn(sb, generator=g, device=dev)
              * sb[-2] ** -0.5).to(dt)
-        where = f" ({direction} {sa} @ {sb})"
+        a, b = in_layout(a, b, layout)
+        where = f" ({direction} {sa} @ {sb}, {LAYOUT_NAMES[layout]})"
         if kind == "gemm":
             plan = gemm.plan((sa[0], sb[1], sa[1]), backend="cuda",
                              dtype=tag)
@@ -3052,24 +3130,59 @@ def hold_products(K, G, seen, dev):
         del a, b
     torch.cuda.empty_cache()
     print(f"phase 15: the {len(seen)} backward products (kind, direction, "
-          f"shapes, dtype) of (a) and (e) match their plain versions (max "
+          f"shapes, dtype, layout) of (a) and (e) match their plain "
+          f"versions (max "
           f"|err| {err}; bf16 rtol = atol = 2e-2, f32 rtol 1e-5 / atol "
           f"1e-4)")
     return err
 
 
-def backward_timings(K, G, dev, tokens=1024):
+#: phase 15 (f): the dA products also timed at the cuda planner's next two
+#: tiles (at 1,024 tokens its 128x128x128 pick gives 96 tiles, leaving 36
+#: of 132 SMs idle)
+WAVE_GEMMS = ("qkv", "o", "gate_up", "logits")
+
+
+def next_tiles(shape, pick, n=2):
+    """The ``n`` tiles the Hopper tile model (the cuda planner's) ranks
+    next after ``pick`` for ``shape``."""
+    from repro_torch.core import hopper_model as H
+    from repro_torch.machines import resolve
+
+    h100 = resolve("h100")
+    ranked = sorted(H.lattice("bf16"),
+                    key=lambda t: H.estimate(shape, t, h100).total)
+    return [t for t in ranked if t != pick][:n]
+
+
+def backward_timings(dev, tokens=1024, parent=False, quiet=False):
     """dA = dC·Bᵀ and dB = Aᵀ·dC of the five Qwen2-1.5B GEMMs at
-    ``tokens`` rows (CUDA events, the planner's tiles, the transposed
-    operand already copied) beside the plain version, ``torch.matmul`` on
-    the operands as stored (cuBLAS reads the transpose in place), the
-    bound and the transposed copy alone (none for the tied head's dA);
-    then granite's grouped dx and dw at its training shapes beside
-    ``torch.bmm``."""
+    ``tokens`` rows (CUDA events, which hold a call's host cost where it
+    exceeds the kernel's, and device time by CUDA-graph replay; the
+    planner's tiles; B at a weight's init scale), then granite's grouped
+    dx = dy·wᵀ and dw = xᵀ·dy at its training shapes (device time by
+    CUDA-graph replay), each as ``gemm/autograd.py`` runs it: on the
+    operands as stored (``b.t()``, ``a.t()``, ``w.transpose(1, 2)``,
+    ``x.transpose(1, 2)``; the tied head's B is the table's ``.t()``, its
+    dB (dCᵀ·A)ᵀ), beside the plain version, ``torch.matmul`` /
+    ``torch.bmm`` on the same views and the bound, and the dA of
+    :data:`WAVE_GEMMS` at the planner's next two tiles (device time).
+    ``parent``: a
+    tree whose kernels read row-major operands only, timed as its autograd
+    ran (each transposed operand copied, the copy inside the time; the
+    tied head's dA on the table, its dB on a copy of Aᵀ); its rows hold
+    the time alone."""
     import torch
     from repro_torch import gemm
     from repro_torch.configs import get_config
     from repro_torch.core.autotune import model_gemm_shapes
+    from repro_torch.core.tpu_model import GemmShape
+    from repro_torch.kernels import gemm as K
+    from repro_torch.kernels import grouped_gemm as G
+
+    def say(*a):
+        if not quiet:
+            print(*a)
 
     qwen = get_config("qwen2-1.5b")
     names = ["qkv", "o", "gate_up", "down", "logits"]
@@ -3078,38 +3191,78 @@ def backward_timings(K, G, dev, tokens=1024):
             qwen, tokens=tokens))):
         m, n, k = s_.m, s_.n, s_.k
         a, b = seeded(m, n, k, "bf16", 5000 + i, dev)
+        b *= k ** -0.5
+        tied = name == "logits" and qwen.tie_embeddings
+        if tied:
+            b = b.t().contiguous().t()       # the head: the table's .t()
         dc = torch.randn((m, n), device=dev, dtype=torch.bfloat16)
-        for direction, (x, y, copy_of, lib) in {
-                "dA": (dc, b.t().contiguous(),
-                       None if name == "logits" else b,
-                       lambda: torch.matmul(dc, b.t())),
-                "dB": (a.t().contiguous(), dc, a,
-                       lambda: torch.matmul(a.t(), dc))}.items():
+        # (x, y, copy x, copy y, the result transposed)
+        prods = ({"dA": (dc, b.t(), False, not tied, False),
+                  "dB": (a.t(), dc, True, False, False)} if parent else
+                 {"dA": (dc, b.t(), False, False, False),
+                  "dB": (dc.t(), a, False, False, True) if tied
+                  else (a.t(), dc, False, False, False)})
+        for direction, (x, y, cx, cy, back) in prods.items():
             mm, nn, kk = x.shape[0], y.shape[1], x.shape[1]
             plan = gemm.plan((mm, nn, kk), backend="cuda", dtype="bf16")
-            ms = cuda_ms(lambda: plan.execute(x, y))
-            plain = cuda_ms(lambda: K.gemm_k_inner_plain(x, y))
-            lib_ms = cuda_ms(lib)
-            copy_ms = (cuda_ms(lambda: copy_of.t().contiguous())
-                       if copy_of is not None else 0.0)
+
+            def run(plan=plan, x=x, y=y, cx=cx, cy=cy):
+                return plan.execute(x.contiguous() if cx else x,
+                                    y.contiguous() if cy else y)
+            ms = cuda_ms(run)
             bms, by = bound(mm, nn, kk, "bf16", False)
-            rows.append({"gemm": name, "direction": direction,
-                         "shape": [mm, nn, kk], "tile": str(plan.selection),
-                         "ms": ms, "plain_ms": plain, "library_ms": lib_ms,
-                         "copy_ms": copy_ms, "bound_ms": bms,
-                         "bound_by": by})
-            print(f"  {name:<8}{direction} {mm}x{nn}x{kk} at "
-                  f"{plan.selection}: {ms:.4f} ms ({100 * bms / ms:.1f}% of "
-                  f"the {bms:.4f} ms bound, {by}), plain {plain:.4f}, "
-                  f"torch.matmul {lib_ms:.4f}, transposed copy "
-                  f"{copy_ms:.4f} ms")
+            row = {"gemm": name, "direction": direction,
+                   "shape": [mm, nn, kk], "tile": str(plan.selection),
+                   "ms": ms, "device_ms": graph_ms(run), "bound_ms": bms,
+                   "bound_by": by, "copies": int(cx) + int(cy)}
+            if parent:
+                rows.append(row)
+                continue
+            lay = K.wgmma_layout(x, y)
+            cfg = K.wgmma_config(plan.selection, ta=lay[0], tb=lay[1])
+            blocks = K.launch_blocks(mm, nn, plan.selection, cfg)
+            row.update(layout=LAYOUT_NAMES[lay], walk=cfg.walk,
+                       blocks=blocks,
+                       plain_ms=cuda_ms(lambda: K.gemm_k_inner_plain(x, y)),
+                       library_ms=cuda_ms(lambda: torch.matmul(x, y)),
+                       transposed_result=back)
+            say(f"  {name:<8}{direction} {mm}x{nn}x{kk} at "
+                f"{plan.selection}, {row['layout']}"
+                f"{' (as its transpose)' if back else ''}, "
+                f"{'walk' if cfg.walk else 'one tile a block'}: {blocks} "
+                f"blocks; {ms:.4f} ms, device {row['device_ms']:.4f} "
+                f"({100 * bms / row['device_ms']:.1f}% of the {bms:.4f} ms "
+                f"bound, {by}), plain {row['plain_ms']:.4f}, torch.matmul "
+                f"{row['library_ms']:.4f}")
+            if direction == "dA" and name in WAVE_GEMMS:
+                row["next_tiles"] = {}
+                for t in next_tiles(GemmShape(mm, nn, kk, dtype="bf16"),
+                                    plan.selection):
+                    alt = gemm.plan((mm, nn, kk), backend="cuda",
+                                    machine="h100", dtype="bf16", tile=t)
+                    compare("gemm_k_inner", "bf16", alt.execute(x, y),
+                            K.gemm_k_inner_plain(x, y),
+                            where=f" at {t} ({name} dA)")
+                    row["next_tiles"][str(t)] = graph_ms(
+                        lambda: alt.execute(x, y))
+                fastest = min([row["device_ms"],
+                               *row["next_tiles"].values()])
+                row["picked_over_fastest"] = row["device_ms"] / fastest
+                say(f"    the planner's next tiles, device: "
+                    + ", ".join(f"{t} {v:.4f} ms"
+                                for t, v in row["next_tiles"].items())
+                    + f"; picked / fastest "
+                    f"{row['picked_over_fastest']:.3f}")
+            rows.append(row)
         del a, b, dc
-    tot = {k: sum(r[k] for r in rows)
-           for k in ("ms", "plain_ms", "library_ms", "copy_ms", "bound_ms")}
-    print(f"GEMM backward, five Qwen2-1.5B GEMMs at {tokens} tokens, dA + "
-          f"dB: {tot['ms']:.4f} ms, transposed copies {tot['copy_ms']:.4f} "
-          f"ms, torch.matmul {tot['library_ms']:.4f}, plain "
-          f"{tot['plain_ms']:.4f}, bound {tot['bound_ms']:.4f} ms")
+    tot = {k: sum(r.get(k, 0.0) for r in rows)
+           for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                     "bound_ms")}
+    say(f"GEMM backward, five Qwen2-1.5B GEMMs at {tokens} tokens, dA + "
+        f"dB: {tot['ms']:.4f} ms, device {tot['device_ms']:.4f} ms "
+        f"({100 * tot['bound_ms'] / tot['device_ms']:.1f}% of the "
+        f"{tot['bound_ms']:.4f} ms bound), torch.matmul "
+        f"{tot['library_ms']:.4f}, plain {tot['plain_ms']:.4f}")
     cfg = get_config("granite-moe-3b-a800m")
     from repro_torch.models.moe import _capacity
     e, c = cfg.n_experts, MOE_TRAIN["batch"] * _capacity(
@@ -3124,27 +3277,87 @@ def backward_timings(K, G, dev, tokens=1024):
              ).to(torch.bfloat16)
         dy = torch.randn((e, c, f), generator=g, device=dev,
                          dtype=torch.bfloat16)
-        for direction, (p, q, copy_of, lib, shp) in {
-                "dx": (dy, w.transpose(1, 2).contiguous(), w,
-                       lambda: torch.bmm(dy, w.transpose(1, 2)),
-                       (e, c, f, d)),
-                "dw": (x.transpose(1, 2).contiguous(), dy, x,
-                       lambda: torch.bmm(x.transpose(1, 2), dy),
+        for direction, (p, q, cp, cq, shp) in {
+                "dx": (dy, w.transpose(1, 2), False, parent, (e, c, f, d)),
+                "dw": (x.transpose(1, 2), dy, parent, False,
                        (e, d, c, f))}.items():
-            ms = graph_ms(lambda: G.grouped_gemm(p, q))
-            plain = graph_ms(lambda: G.grouped_gemm_plain(p, q))
-            lib_ms = graph_ms(lib)
-            copy_ms = graph_ms(lambda: copy_of.transpose(1, 2).contiguous())
+            def run(p=p, q=q, cp=cp, cq=cq):
+                return G.grouped_gemm(p.contiguous() if cp else p,
+                                      q.contiguous() if cq else q)
+            ms = graph_ms(run)
             bms, by = grouped_bound(*shp, "bf16")
-            grows.append({"gemm": name, "direction": direction,
-                          "shape": list(shp), "ms": ms, "plain_ms": plain,
-                          "library_ms": lib_ms, "copy_ms": copy_ms,
-                          "bound_ms": bms, "bound_by": by})
-            print(f"  grouped {name:<8}{direction} {shp}: {ms:.4f} ms "
-                  f"device ({100 * bms / ms:.1f}% of the {bms:.4f} ms "
-                  f"bound, {by}), plain {plain:.4f}, torch.bmm "
-                  f"{lib_ms:.4f}, transposed copy {copy_ms:.4f} ms")
+            row = {"gemm": name, "direction": direction, "shape": list(shp),
+                   "ms": ms, "bound_ms": bms, "bound_by": by,
+                   "copies": int(cp) + int(cq)}
+            if not parent:
+                lay = G.layout(p, q)
+                gcfg = G.grouped_config(G.plan(p, q).tile, lay)
+                row.update(layout=LAYOUT_NAMES[lay], walk=gcfg.walk,
+                           blocks=K.launch_blocks(shp[1], shp[3],
+                                                  G.plan(p, q).tile, gcfg,
+                                                  e),
+                           plain_ms=graph_ms(
+                               lambda: G.grouped_gemm_plain(p, q)),
+                           library_ms=graph_ms(lambda: torch.bmm(p, q)))
+                say(f"  grouped {name:<8}{direction} {shp} at "
+                    f"{G.plan(p, q).tile}, {row['layout']}, "
+                    f"{'walk' if gcfg.walk else 'one tile a block'}: "
+                    f"{row['blocks']} blocks; {ms:.4f} ms device "
+                    f"({100 * bms / ms:.1f}% of the {bms:.4f} ms bound, "
+                    f"{by}), plain {row['plain_ms']:.4f}, torch.bmm "
+                    f"{row['library_ms']:.4f}")
+            grows.append(row)
+    if not parent:
+        say(f"grouped backward dx + dw: "
+            f"{sum(r['ms'] for r in grows):.4f} ms device, torch.bmm "
+            f"{sum(r['library_ms'] for r in grows):.4f}, bound "
+            f"{sum(r['bound_ms'] for r in grows):.4f}")
     return rows, grows
+
+
+def compare_backward(turns):
+    """Phase 15 (f) in turns (parent, change, change, parent): each
+    backward product's ms, the parent's copy + product beside the change's
+    product on the operands as stored."""
+    print("(f) in turns, parent (copy + product) vs this change (product "
+          "on the operands as stored), ms:")
+    for kind, key in (("GEMM", "rows"), ("grouped", "grows")):
+        per = [t[key] for t in turns]
+        for r0, r1, r2, r3 in zip(*per):
+            dev_ = (f"; device parent {r0['device_ms']:.4f} / "
+                    f"{r3['device_ms']:.4f}, change {r1['device_ms']:.4f} / "
+                    f"{r2['device_ms']:.4f}" if "device_ms" in r0 else "")
+            print(f"  {kind} {r1['gemm']:<8}{r1['direction']}: parent "
+                  f"{r0['ms']:.4f} / {r3['ms']:.4f}, change {r1['ms']:.4f} / "
+                  f"{r2['ms']:.4f}{' (walk)' if r1.get('walk') else ''}"
+                  f"{dev_}")
+        for key_ in ("ms", "device_ms"):
+            if key_ not in per[0][0]:
+                continue
+            sums = [sum(r[key_] for r in rs) for rs in per]
+            print(f"  {kind} sum ({key_}): parent {sums[0]:.4f} / "
+                  f"{sums[3]:.4f}, change {sums[1]:.4f} / {sums[2]:.4f} "
+                  f"({min(sums[0], sums[3]) / min(sums[1], sums[2]):.2f}x)")
+
+
+def logits_timing(dev, rows):
+    """One tied-head logits launch of Qwen2-1.5B at ``rows`` (a decode
+    step's batch): ``gemm.matmul(x, head)`` on the head this tree's
+    ``layers.head_matrix`` makes (CUDA events)."""
+    import torch
+    from repro_torch import gemm
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+
+    cfg = get_config("qwen2-1.5b")
+    g = torch.Generator(dev).manual_seed(11)
+    table = (torch.randn((cfg.padded_vocab, cfg.d_model), generator=g,
+                         device=dev) * 0.02).to(torch.bfloat16)
+    head = layers.head_matrix({"table": table}, cfg)
+    x = torch.randn((rows, cfg.d_model), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    return {"rows": rows, "ms": cuda_ms(lambda: gemm.matmul(x, head)),
+            "head_is_view": head.data_ptr() == table.data_ptr()}
 
 
 def profile_train_step(lm, tcfg, pcfg, batch):
@@ -3220,11 +3433,13 @@ def profile_train_step(lm, tcfg, pcfg, batch):
     return res
 
 
-def training_phase(K, G, dev, out_dir):
+def training_phase(K, G, dev, out_dir, parent=None):
     """Phase 15: train Qwen2-1.5B at full width through the port's entry
     point, serve its checkpoint, hold every backward product against its
-    plain version, one f32 step on the card against the CPU, granite's
-    grouped backward, the backward products timed and one step's split."""
+    plain version at its operand layout, one f32 step on the card against
+    the CPU, granite's grouped backward, the backward products timed (with
+    ``parent``, in turns with that tree's copy + product) and one step's
+    split."""
     import shutil
 
     import torch
@@ -3278,12 +3493,13 @@ def training_phase(K, G, dev, out_dir):
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     G.reset_launch_counts()
-    GA.reset_copy_counts()
     t0 = time.perf_counter()
     try:
         out = train_mod.train("qwen2-1.5b", ckpt_dir=ckpt, **TRAIN_RUN)
         launches, routes = dict(K.LAUNCHES), dict(K.ROUTES)
-        copies = dict(GA.COPIES)
+        copies = {"gemm": dict(K.COPIES), "grouped": dict(G.COPIES)}
+        layouts = {k: dict(v) for k, v in rec.layouts.items()}
+        row_major = dict(rec.row_major)
     finally:
         train_mod.make_train_step = real_make
     train_s = time.perf_counter() - t0
@@ -3300,8 +3516,9 @@ def training_phase(K, G, dev, out_dir):
           f"{peak:,} B; watchdog {out['watchdog']}")
     print(f"GEMM launches {launches} by route {routes}: backward "
           f"{bwd['gemm_k_inner'] + bwd['gemm_k_outer']} by route "
-          f"{rec.routes['gemm']}, forward (the recompute included) {fwd}; "
-          f"transposed copies {copies}")
+          f"{rec.routes['gemm']}, by layout {layouts['gemm']} (row-major "
+          f"products by direction {row_major}), forward (the recompute "
+          f"included) {fwd}; copies {copies}")
     for h in out["history"]:
         check(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]),
               f"step {h['step']}: loss {h['loss']}, grad_norm "
@@ -3309,6 +3526,15 @@ def training_phase(K, G, dev, out_dir):
     all_on_wgmma(K, "phase 15 (a)'s bf16 training run")
     check(bwd["gemm_k_inner"] > 0 and rec.routes["gemm"]["cuda_cores"] == 0,
           f"backward GEMM launches {bwd} by route {rec.routes['gemm']}")
+    check(copies["gemm"]["transposed"] == 0
+          and copies["grouped"]["transposed"] == 0,
+          f"the bf16 training run made transposed copies: {copies}")
+    # one row-major backward product a step: the tied head's dX, which
+    # reads the table as stored; every other one reads a transposed view
+    check(row_major == {"dA": TRAIN_RUN["steps"]}
+          and layouts["gemm"]["row-major"] == TRAIN_RUN["steps"],
+          f"row-major backward products {row_major}, launches by layout "
+          f"{layouts['gemm']}: not one tied-head dX a step")
     check(len(fingerprints) == 5, f"{len(fingerprints)} parameter "
                                   f"fingerprints for 4 steps")
     moved = [bool((fingerprints[i + 1] != fingerprints[i]).any())
@@ -3326,7 +3552,8 @@ def training_phase(K, G, dev, out_dir):
                     "max_memory_allocated": peak, "launches": launches,
                     "routes": routes, "backward": bwd,
                     "backward_routes": rec.routes["gemm"],
-                    "copies": copies, "watchdog": out["watchdog"],
+                    "backward_layouts": layouts, "copies": copies,
+                    "watchdog": out["watchdog"],
                     "checkpoint_bytes": ckpt_bytes}
     del out, fingerprints[:]
     torch.cuda.empty_cache()
@@ -3360,6 +3587,7 @@ def training_phase(K, G, dev, out_dir):
     G.reset_launch_counts()
     before = dict(rec.backward)
     groutes_before = dict(rec.routes["grouped"])
+    glayouts_before = dict(rec.layouts["grouped"])
     params, opt = init_train_state(glm, tcfg,
                                    torch.Generator(dev).manual_seed(2))
     step = make_train_step(glm, tcfg, pcfg)
@@ -3375,18 +3603,25 @@ def training_phase(K, G, dev, out_dir):
     g_bwd = rec.backward["grouped_gemm"] - before["grouped_gemm"]
     g_bwd_routes = {r: rec.routes["grouped"][r] - groutes_before[r]
                     for r in G.ROUTES}
+    g_bwd_layouts = {n: rec.layouts["grouped"][n] - glayouts_before[n]
+                     for n in glayouts_before}
     print(f"granite 2 steps: (loss, aux, grad_norm) {glosses}; grouped "
           f"launches {g_launch} by route {g_routes} (backward {g_bwd} by "
-          f"route {g_bwd_routes})")
+          f"route {g_bwd_routes}, by layout {g_bwd_layouts}); copies "
+          f"{dict(G.COPIES)}")
     check(all(math.isfinite(x) for t in glosses for x in t),
           f"granite losses {glosses} not finite")
     check(g_launch > 0 and g_routes == {"wgmma": g_launch, "cuda_cores": 0},
           f"grouped launches {g_launch} by route {g_routes}: not every one "
           f"on wgmma")
-    check(g_bwd > 0 and g_bwd_routes["cuda_cores"] == 0,
-          f"grouped backward launches {g_bwd} by route {g_bwd_routes}")
+    check(g_bwd > 0 and g_bwd_routes["cuda_cores"] == 0
+          and g_bwd_layouts["row-major"] == 0
+          and G.COPIES["transposed"] == 0,
+          f"grouped backward launches {g_bwd} by route {g_bwd_routes}, by "
+          f"layout {g_bwd_layouts}, copies {dict(G.COPIES)}")
     res["moe"] = {"losses": glosses, "grouped_launches": g_launch,
-                  "grouped_routes": g_routes, "grouped_backward": g_bwd}
+                  "grouped_routes": g_routes, "grouped_backward": g_bwd,
+                  "grouped_backward_layouts": g_bwd_layouts}
     del params, opt, step, glm
     torch.cuda.empty_cache()
     rec.restore()
@@ -3437,9 +3672,19 @@ def training_phase(K, G, dev, out_dir):
     torch.cuda.empty_cache()
 
     # -- (f) ---------------------------------------------------------------
-    print("(f) backward products at the planner's tiles (CUDA events; "
-          "grouped: device time by CUDA-graph replay):")
-    res["timing"], res["grouped_timing"] = backward_timings(K, G, dev)
+    print("(f) backward products at the planner's tiles on the operands as "
+          "stored (CUDA events; grouped: device time by CUDA-graph "
+          "replay):")
+    turns = []
+    if parent:
+        turns.append(tree_run(parent, "backward", out_dir, {"parent": True}))
+    res["timing"], res["grouped_timing"] = backward_timings(dev)
+    if parent:
+        turns += [{"rows": res["timing"], "grows": res["grouped_timing"]},
+                  tree_run(HERE, "backward", out_dir, {"parent": False}),
+                  tree_run(parent, "backward", out_dir, {"parent": True})]
+        compare_backward(turns)
+        res["backward_turns"] = turns
     lm = LM(cfg, device=dev)
     tbatch = {k: v.to(dev) for k, v in make_batch(
         cfg, ShapeConfig("t", "train", TRAIN_RUN["seq"], TRAIN_RUN["batch"]),
@@ -3475,10 +3720,11 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", default=None,
                     help="an export of an earlier commit (git archive) "
                          "whose phase-5 GEMM, phase-6 grouped and phase-10 "
-                         "RMSNorm and flash attention times to take on the "
-                         "same card, in the order parent, change, change, "
-                         "parent, and whose served run (phase 7) to take "
-                         "before and after this tree's")
+                         "RMSNorm and flash attention, phase-14 logits "
+                         "launch and phase-15 backward product times to "
+                         "take on the same card, in the order parent, "
+                         "change, change, parent, and whose served run "
+                         "(phase 7) to take before and after this tree's")
     ap.add_argument("--time-tree", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--what", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--shapes", default=None, help=argparse.SUPPRESS)
@@ -3985,8 +4231,8 @@ def main(argv=None) -> int:
     zamba = zamba_phase(K, G, dev)
     families = families_phase(K, dev)
     deployment = deployment_phase(zamba)
-    autoconf = autoconf_phase(K, dev, args.out)
-    training = training_phase(K, G, dev, args.out)
+    autoconf = autoconf_phase(K, dev, args.out, args.parent)
+    training = training_phase(K, G, dev, args.out, args.parent)
 
     csrc = "src/repro_torch/kernels/csrc"
     kernels = []

@@ -14,14 +14,18 @@ kernels:
   ``y[e] = x[e]·w[e]``; backward ``dx[e] = dy[e]·w[e]ᵀ`` and
   ``dw[e] = x[e]ᵀ·dy[e]``, both through the grouped kernel.
 
-The kernels take row-major operands only, so each transposed operand is a
-row-major copy (:func:`transposed`, counted in ``COPIES``).  A caller that
-already holds ``Bᵀ`` row-major passes it as ``b_t`` and ``dA`` needs no
-copy: the tied logits head multiplies by ``table.t()`` and passes the
-table.  CPU tensors run the kernels' plain versions inside the same
-``forward`` / ``backward``, so the CPU tests check the backward formula the
-card runs.  An int8 product has no backward: the models never train in
-int8.
+The transposed operands are views of the saved tensors (``b.t()``,
+``a.t()``, ``w.transpose(1, 2)``, ``x.transpose(1, 2)``), never copies:
+the bf16 kernels read them in place (wgmma's transposed layouts,
+``kernels.gemm.wgmma_layout``), and the f32 CUDA-core route copies one
+inside its wrapper (counted in ``kernels.gemm.COPIES``).  When the
+forward's B (w) is itself a transposed view, as the tied logits head's
+``table.t()`` is, ``dB`` is computed in B's storage layout, ``(dCᵀ·A)ᵀ``,
+so that the gradient comes out contiguous where the parameter is.  CPU
+tensors run the kernels' plain versions on the same views inside the same
+``forward`` / ``backward``, so the CPU tests check the backward formula
+the card runs.  An int8 product has no backward: the models never train
+in int8.
 
 Remat's ``"dots"`` policy keeps these products' outputs and recomputes the
 rest: :func:`dots_context` is the ``context_fn`` of
@@ -33,21 +37,14 @@ from __future__ import annotations
 
 import torch
 
-#: row-major copies of transposed operands made for backward products
-COPIES = {"transposed": 0}
-
 #: the active "dots" recording or replay, innermost last
 _DOTS: list["_Dots"] = []
 
 
-def reset_copy_counts() -> None:
-    COPIES["transposed"] = 0
-
-
-def transposed(t):
-    """The row-major copy of ``t`` with its last two axes swapped."""
-    COPIES["transposed"] += 1
-    return t.transpose(-2, -1).contiguous()
+def stored_transposed(t) -> bool:
+    """Whether ``t`` is the transpose of a row-major tensor (its last two
+    axes swapped: unit stride on the second last), not row-major itself."""
+    return t.stride(-1) != 1 and t.stride(-2) == 1 and t.shape[-1] > 1
 
 
 def wanted(*ts) -> bool:
@@ -56,8 +53,8 @@ def wanted(*ts) -> bool:
 
 
 def product(a, b, backend: str):
-    """``a @ b`` (2-D, row-major) planned on its own shape and executed on
-    ``backend``."""
+    """``a @ b`` (2-D, each row-major or the ``.t()`` of a row-major
+    matrix) planned on its own shape and executed on ``backend``."""
     from repro_torch.gemm.backends import dtype_tag
     from repro_torch.gemm.planner import plan
 
@@ -80,29 +77,28 @@ def _no_int8(t, what: str) -> None:
 
 
 class PlannedMatmul(torch.autograd.Function):
-    """``a (m, k) @ b (k, n)`` on ``backend``; ``b_t``, when given, is
-    ``b.t()`` row-major (used for ``dA`` only, never differentiated);
-    ``out``, when given, is the already computed product (a ``"dots"``
-    recompute)."""
+    """``a (m, k) @ b (k, n)`` on ``backend``; ``out``, when given, is the
+    already computed product (a ``"dots"`` recompute)."""
 
     @staticmethod
-    def forward(ctx, a, b, b_t, backend, out):
+    def forward(ctx, a, b, backend, out):
         ctx.backend = backend
-        ctx.save_for_backward(a, b, b_t)
+        ctx.save_for_backward(a, b)
         return product(a, b, backend) if out is None else out
 
     @staticmethod
     def backward(ctx, dc):
-        a, b, b_t = ctx.saved_tensors
+        a, b = ctx.saved_tensors
         _no_int8(a, "gemm.matmul")
         dc = dc.contiguous()
         da = db = None
         if ctx.needs_input_grad[0]:
-            da = product(dc, transposed(b) if b_t is None else b_t,
-                         ctx.backend)
+            da = product(dc, b.t(), ctx.backend)
         if ctx.needs_input_grad[1]:
-            db = product(transposed(a), dc, ctx.backend)
-        return da, db, None, None, None
+            db = (product(dc.t(), a, ctx.backend).t()
+                  if stored_transposed(b) else product(a.t(), dc,
+                                                       ctx.backend))
+        return da, db, None, None
 
 
 class GroupedMatmul(torch.autograd.Function):
@@ -121,9 +117,11 @@ class GroupedMatmul(torch.autograd.Function):
         dy = dy.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = grouped_product(dy, transposed(w))
+            dx = grouped_product(dy, w.transpose(1, 2))
         if ctx.needs_input_grad[1]:
-            dw = grouped_product(transposed(x), dy)
+            dw = (grouped_product(dy.transpose(1, 2), x).transpose(1, 2)
+                  if stored_transposed(w) else
+                  grouped_product(x.transpose(1, 2), dy))
         return dx, dw, None
 
 
@@ -160,9 +158,9 @@ def _apply(fn, *args):
     return out
 
 
-def planned_matmul(a, b, backend: str, b_t=None):
+def planned_matmul(a, b, backend: str):
     """The differentiable ``a @ b`` (2-D) on ``backend``."""
-    return _apply(PlannedMatmul, a, b, b_t, backend)
+    return _apply(PlannedMatmul, a, b, backend)
 
 
 def grouped_matmul(x, w):

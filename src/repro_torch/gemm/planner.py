@@ -195,16 +195,17 @@ def default_execute_backend() -> str:
     return "cuda"
 
 
-def matmul(x, w, *, backend: str | None = None, w_t=None):
+def matmul(x, w, *, backend: str | None = None):
     """Planned matmul over arbitrary leading dims: ``(..., k) @ (k, n)``.
 
     Folds leading dims into M, plans on the executable backend (default
     :func:`default_execute_backend`) and executes the plan — the
     framework-wide route by which every dense layer inherits the paper's
-    analytic tile selection.  Differentiable: when autograd records it,
-    the backward products run planned on the same backend
-    (``gemm/autograd.py``); ``w_t``, ``w.t()`` row-major if the caller
-    holds it, spares ``dX`` a transposed copy.
+    analytic tile selection.  ``w`` may be the ``.t()`` of a row-major
+    matrix (the tied logits head): the bf16 kernels read it in place.
+    Differentiable: when autograd records it, the backward products run
+    planned on the same backend, on views of the saved operands
+    (``gemm/autograd.py``).
     """
     from repro_torch.gemm import autograd
     lead = x.shape[:-1]
@@ -213,7 +214,7 @@ def matmul(x, w, *, backend: str | None = None, w_t=None):
     n = w.shape[-1]
     backend = backend or default_execute_backend()
     if autograd.wanted(a2, w):
-        out = autograd.planned_matmul(a2, w, backend, w_t)
+        out = autograd.planned_matmul(a2, w, backend)
     else:
         out = plan((m, n, k), backend=backend,
                    dtype=dtype_tag(x.dtype)).execute(a2, w)

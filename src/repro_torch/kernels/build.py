@@ -44,25 +44,30 @@ _VP, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 _GEMM_ARGS = (_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I64, _I64, _I64,
               _I32, _I32, _I32, _I32, _VP)
 #: maps; Cin, Cout; M, N, K; ldc; k0, k1; bm, bn, ks, stages, group; stream
-_WGMMA_ARGS = (_VP, _VP, _VP, _I32, _I32, _I32, _I64, _I32, _I32, _I32,
-               _I32, _I32, _I32, _I32, _VP)
-#: A, B, C; M, N, K; lda, ldb, ldc; bm, bn, ks; maps (384 bytes, written)
-#: (int8: B is Bt, its transpose, and ldb Bt's row stride)
-_WGMMA_ENCODE_ARGS = (_VP, _VP, _VP, _I32, _I32, _I32, _I64, _I64, _I64,
-                      _I32, _I32, _I32, _VP)
+#: (the int8 GEMM)
+_S8_ARGS = (_VP, _VP, _VP, _I32, _I32, _I32, _I64, _I32, _I32, _I32, _I32,
+            _I32, _I32, _I32, _VP)
+#: A, Bt, C; M, N, K; lda, ldbt, ldc; bm, bn, ks; maps (384 bytes, written)
+#: (the int8 GEMM: Bt is B transposed, ldbt its row stride)
+_S8_ENCODE_ARGS = (_VP, _VP, _VP, _I32, _I32, _I32, _I64, _I64, _I64, _I32,
+                   _I32, _I32, _VP)
+#: the bf16 GEMM's: the int8 ones and, before the stream or the maps, the
+#: layout (ta, tb: wgmma's transpose bits)
+_WGMMA_ARGS = (*_S8_ARGS[:-1], _I32, _I32, _VP)
+_WGMMA_ENCODE_ARGS = (*_S8_ENCODE_ARGS[:-1], _I32, _I32, _VP)
 #: B, Bt; K, N; ldb, ldbt; stream (the int8 GEMM's transposed copy of B)
 _TRANSPOSE_ARGS = (_VP, _VP, _I32, _I32, _I64, _I64, _VP)
 #: x, w, y; E, C, D, F; bc, bf, bk; stream (the f32 grouped GEMM)
 _GROUPED_ARGS = (_VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
                  _VP)
 #: maps of x, w, y (y's may be null); y; E, C, D, F; y's row and expert
-#: strides; bm, bn, ks, stages, group; stream
+#: strides; bm, bn, ks, stages, group; ta, tb; stream
 _GROUPED_WGMMA_ARGS = (_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I64,
-                       _I64, _I32, _I32, _I32, _I32, _I32, _VP)
+                       _I64, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _VP)
 #: map (128 bytes, written); base; rows, cols, depth; ld, plane; operand;
-#: bm, bn, ks
+#: bm, bn, ks; trans (the operand stored transposed)
 _GROUPED_ENCODE_ARGS = (_VP, _VP, _I32, _I32, _I32, _I64, _I64, _I32, _I32,
-                        _I32, _I32)
+                        _I32, _I32, _I32)
 #: q, k, v, o; B, S, Skv, H, D; q, k, v strides (batch, seq, head); causal;
 #: stream (the f32 flash attention)
 _FLASH_ARGS = (_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32,
@@ -98,10 +103,9 @@ TARGETS = {
     "gemm_f32": Target("gemm.cu", "REPRO_GEMM_F32", "repro_gemm_tile",
                        _GEMM_ARGS),
     "gemm_int8": Target("gemm.cu", "REPRO_GEMM_INT8", "repro_gemm_s8",
-                        _WGMMA_ARGS, (("repro_gemm_s8_encode",
-                                       _WGMMA_ENCODE_ARGS),
-                                      ("repro_transpose_s8",
-                                       _TRANSPOSE_ARGS))),
+                        _S8_ARGS, (("repro_gemm_s8_encode",
+                                    _S8_ENCODE_ARGS),
+                                   ("repro_transpose_s8", _TRANSPOSE_ARGS))),
     "grouped_gemm_bf16": Target("grouped_gemm.cu", "REPRO_GEMM_BF16",
                                 "repro_grouped_gemm_wgmma",
                                 _GROUPED_WGMMA_ARGS,

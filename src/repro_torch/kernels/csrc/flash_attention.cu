@@ -658,7 +658,7 @@ __device__ __forceinline__ void issue_scores(float* s, uint32_t qa,
         sw128_desc(qa + (kt / 4) * 64 * NC * 128 + (kt % 4) * 32, 16, 1024);
     const uint64_t db =
         sw128_desc(ka + (kt / 4) * BK * 128 + (kt % 4) * 32, 16, 1024);
-    Wgmma<BK, 0>::mma(s, da, db, kt > 0);
+    Wgmma<BK, 0, 0>::mma(s, da, db, kt > 0);
   }
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }

@@ -49,33 +49,43 @@ extern "C" {
 
 #if defined(REPRO_GEMM_BF16)
 
-// Encode the tensor maps of A (M, K), B (K, N) and C (M, N), bf16
-// row-major with row strides lda, ldb, ldc, for a bm x bn tile staged ks
-// deep; writes three CUtensorMap (384 bytes) to `maps`.  A and B need rows
-// of a multiple of 8 elements and 16-byte aligned bases; C's map is left
-// empty when C has neither (the kernel then writes C directly).  Returns
-// 0, a CUDA error code, or 100000 + the driver's CUresult.
+// Encode the tensor maps of A (M, K), B (K, N) and C (M, N), bf16, for a
+// bm x bn tile staged ks deep, in the layout (ta, tb) (the instruction's
+// transpose bits): ta = 0, A row-major with row stride lda; ta = 1, A read
+// in place as A^T's row-major storage (K, M), row stride lda (A is the
+// .t() of a row-major matrix); tb = 1, B row-major with row stride ldb;
+// tb = 0, B read as B^T's storage (N, K).  C is row-major with row stride
+// ldc.  Writes three CUtensorMap (384 bytes) to `maps`.  A's and B's stored
+// rows need a multiple of 8 elements and 16-byte aligned bases; C's map is
+// left empty when C has neither (the kernel then writes C directly).
+// Returns 0, a CUDA error code, or 100000 + the CUresult of
+// cuTensorMapEncodeTiled.
 int repro_gemm_wgmma_encode(const void* A, const void* B, const void* C,
                             int M, int N, int K, int64_t lda, int64_t ldb,
-                            int64_t ldc, int bm, int bn, int ks, void* maps) {
-  return repro::wgmma_encode(A, B, C, M, N, K, lda, ldb, ldc, bm, bn, ks,
-                             maps);
+                            int64_t ldc, int bm, int bn, int ks, int ta,
+                            int tb, void* maps) {
+  return repro::wgmma_encode(A, B, C, M, N, K, lda, ldb, ldc, bm, bn, ks, ta,
+                             tb, maps);
 }
 
 // Cout = Cin + A[:, k0:k1] . B[k0:k1, :] (Cin null, or Cout) over the
 // bm x bn tiles, in slabs ks deep through `stages` shared-memory stages, on
-// the maps of repro_gemm_wgmma_encode; blocks walk M fastest within groups
-// of `group` m tiles.  k-inner is one call over [0, K); k-outer one call
-// per k block with Cin = Cout.  Launches on `stream` and returns
+// the maps of repro_gemm_wgmma_encode for the same layout (ta, tb); blocks
+// walk M fastest within groups of `group` m tiles, and an MN-major A's
+// k-inner launch walks them persistently.  The layouts taken:
+// (0, 1), (1, 1) and (0, 0).  k-inner is one call over [0, K); k-outer one
+// call per k block with Cin = Cout.  Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 int repro_gemm_wgmma(const void* maps, const void* Cin, void* Cout, int M,
                      int N, int K, int64_t ldc, int k0, int k1, int bm,
-                     int bn, int ks, int stages, int group, void* stream) {
+                     int bn, int ks, int stages, int group, int ta, int tb,
+                     void* stream) {
   alignas(64) CUtensorMap m[3];
   memcpy(m, maps, sizeof(m));
   return repro::launch_tiles<false>(m, Cin, Cout, M, N, K, ldc, 0, 1, k0, k1,
                                     bm, bn, ks, stages, group,
-                                    repro::tma_c_ok(Cout, ldc, bn), stream);
+                                    repro::tma_c_ok(Cout, ldc, bn), ta, tb,
+                                    stream);
 }
 
 #elif defined(REPRO_GEMM_INT8)

@@ -36,8 +36,14 @@
 //     8 KB for 2 x 64 x 64 x 64 flops, which the tensor cores absorb at
 //     about 7.7 TB/s of weights (2.3x HBM's rate) however few rows are
 //     real.  Swapping the operands (the weights as the m64 side, the tokens
-//     as N = 8-32) would waste none of the m64 rows but needs an MN-major A
-//     and a transposed epilogue; it was not built (PERF.md).
+//     as N = 8-32) would waste none of the m64 rows but needs a transposed
+//     epilogue; it was not built (PERF.md).
+//   * the backward products read their transposed operands in place, in
+//     wgmma_gemm.cuh's layouts: dx = dy.w^T reads w^T's storage (w) as a
+//     K-major B, dw = x^T.dy reads x as an MN-major A, whose blocks walk
+//     the tiles of every expert persistently (its products are four
+//     64-deep slabs at granite's training shapes).  Both take a deeper
+//     ring than the served step (kernels/grouped_gemm.py:grouped_config).
 //   * tiles sized for a bytes-bound kernel of short-lived blocks
 //     (kernels/grouped_gemm.py: grouped_tile, grouped_config): bn = 64 F
 //     columns per block, so that gate/up (F = 512) has 40 x 8 = 320 blocks
@@ -79,31 +85,31 @@ extern "C" {
 
 // Encode the rank-3 tensor map of one operand of a bm x bn tile staged ks
 // deep: a stack of `depth` row-major (rows, cols) bf16 matrices with row
-// stride ld and `plane` elements apart; operand 0 is x (boxes of bm rows),
-// 1 is w (boxes of ks rows), 2 is y (the C tile's boxes).  Writes one
-// CUtensorMap (128 bytes) to `map`.  Returns 0, a CUDA error code, or
-// 100000 + the CUresult of cuTensorMapEncodeTiled.
+// stride ld and `plane` elements apart, as stored; operand 0 is x (the A
+// side), 1 is w (the B side), 2 is y (the C tile's boxes).  trans: the
+// operand is read in place as its transpose (x^T's storage, rows = D and
+// cols = C, read MN-major; w^T's storage, rows = F and cols = D, read
+// K-major).  Writes one CUtensorMap (128 bytes) to `map`.  Returns 0, a
+// CUDA error code, or 100000 + the CUresult of cuTensorMapEncodeTiled.
 int repro_grouped_encode(void* map, const void* base, int rows, int cols,
                          int depth, int64_t ld, int64_t plane, int operand,
-                         int bm, int bn, int ks) {
+                         int bm, int bn, int ks, int trans) {
   using namespace repro;
   if (rows <= 0 || cols <= 0 || depth <= 0 || bm <= 0 || bn <= 0 ||
-      ks <= 0 || operand < 0 || operand > 2)
+      ks <= 0 || operand < 0 || operand > 2 || (operand == 2 && trans))
     return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(base) % 16 != 0 || ld % 8 != 0 ||
       plane % 8 != 0)
     return cudaErrorMisalignedAddress;
-  const Geom g(bm, bn, ks, true);
+  const Geom g(bm, bn, ks, true, operand == 0 && trans,
+               !(operand == 1 && trans));
+  const int box_rows = operand == 0 ? g.a_rows : g.b_rows;
   alignas(64) CUtensorMap m;
   memset(&m, 0, sizeof(m));
   const int e =
-      operand == 0
+      operand < 2
           ? encode_map(&m, base, rows, cols, ld, kBoxCols,
-                       g.bmp < kMaxBoxRows ? g.bmp : kMaxBoxRows,
-                       CU_TENSOR_MAP_SWIZZLE_128B, depth, plane)
-      : operand == 1
-          ? encode_map(&m, base, rows, cols, ld, kBoxCols,
-                       g.bkp < kMaxBoxRows ? g.bkp : kMaxBoxRows,
+                       box_rows < kMaxBoxRows ? box_rows : kMaxBoxRows,
                        CU_TENSOR_MAP_SWIZZLE_128B, depth, plane)
           : encode_map(&m, base, rows, cols, ld, g.c_cols, g.c_rows,
                        g.c_swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
@@ -115,17 +121,20 @@ int repro_grouped_encode(void* map, const void* base, int rows, int cols,
 
 // y (E, C, F) = x (E, C, D) . w (E, D, F) on the maps of
 // repro_grouped_encode (x as operand 0, w as 1, y as 2, all for the same
-// bm, bn, ks).  map_y null: y is stored from registers, rows ldy elements
-// apart and experts plane_y apart; else through the C tile by TMA (y's
-// rows and base 16-byte aligned).  Slabs ks deep through `stages`
-// shared-memory stages; blocks walk C tiles fastest within groups of
-// `group`.  Launches on `stream` and returns cudaGetLastError() (0 on
+// bm, bn, ks) in the layout (ta, tb) (the instruction's transpose bits:
+// ta = 1 when x's map is x^T's storage, tb = 0 when w's is w^T's; (0, 1),
+// (1, 1) and (0, 0) are taken).  map_y null: y is stored from registers,
+// rows ldy elements apart and experts plane_y apart; else through the C
+// tile by TMA (y's rows and base 16-byte aligned).  Slabs ks deep through
+// `stages` shared-memory stages; blocks walk C tiles fastest within groups
+// of `group`, and an MN-major x walks the tiles of all experts
+// persistently.  Launches on `stream` and returns cudaGetLastError() (0 on
 // success).
 int repro_grouped_gemm_wgmma(const void* map_x, const void* map_w,
                              const void* map_y, void* y, int E, int C, int D,
                              int F, int64_t ldy, int64_t plane_y, int bm,
-                             int bn, int ks, int stages, int group,
-                             void* stream) {
+                             int bn, int ks, int stages, int group, int ta,
+                             int tb, void* stream) {
   using namespace repro;
   const int tma_c = map_y != nullptr;
   if (map_x == nullptr || map_w == nullptr ||
@@ -137,7 +146,8 @@ int repro_grouped_gemm_wgmma(const void* map_x, const void* map_w,
   memcpy(&m[1], map_w, sizeof(CUtensorMap));
   if (tma_c) memcpy(&m[2], map_y, sizeof(CUtensorMap));
   return launch_tiles<true>(m, nullptr, y, C, F, D, ldy, plane_y, E, 0, D,
-                            bm, bn, ks, stages, group, tma_c, stream);
+                            bm, bn, ks, stages, group, tma_c, ta, tb,
+                            stream);
 }
 
 #else

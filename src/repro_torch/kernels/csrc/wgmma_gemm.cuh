@@ -44,6 +44,15 @@
 //     slab of A is two boxes per row band and a bn = 128 slab of B two
 //     boxes; the descriptors name the same 128-byte swizzle, every box
 //     starts on 1024 bytes, and no box dimension exceeds 256.
+//   * Transposed operands are read in place (the backward products: dA =
+//     dC.B^T reads the stored weight, dB = A^T.dC the saved activation).
+//     The SS form of bf16 wgmma has a transpose bit for each operand, so
+//     the layout is two compile-time flags, never a branch (a branch around
+//     a wgmma serialises every wgmma): TA = 1 reads A stored (K, M)
+//     row-major as MN-major, staged the way B is (bands of 64 M columns,
+//     the slab's K rows each); TB = 0 reads B stored (N, K) row-major as
+//     K-major, staged the way A is (bands of 64 K columns, max(bn, 64) N
+//     rows each).  Each tensor map is encoded on the matrix as stored.
 //   * Loads: one producer warp keeps a ring of `stages` shared-memory slabs
 //     in flight with cp.async.bulk.tensor, each completing on a full
 //     mbarrier; consumers release a slab on its empty mbarrier once their
@@ -76,6 +85,25 @@
 //     (kernels/gemm.py:raster_group picks it), so the B columns a group
 //     shares are read from device memory about once per group, not once
 //     per m tile.
+//   * MN-major A (TA = 1) walks its tiles persistently.  Its products are
+//     short (dB = A^T.dC at 1,024 tokens is eight 128-deep slabs a tile,
+//     the grouped dw four 64-deep ones), so a block that fills its ring,
+//     computes and stores alone leaves the tensor cores idle through every
+//     fill and epilogue.  There the launch holds as many blocks as the SMs
+//     keep resident, each walking output tiles in the raster order above,
+//     striding by the grid; the producer's ring runs on across tiles, so
+//     the next tile's slabs load during this tile's epilogue, and the C
+//     tile's TMA store drains while the next tile computes.  The consumers
+//     keep one wgmma group in flight (wait_group 1) and release a stage one
+//     slab late.  K-major B (TB = 0: dA = dC.B^T, the grouped dx, the tied
+//     logits head) keeps one tile a block and wait_group 0, as the
+//     row-major layout does: its products are deep (dA of gate_up 140
+//     slabs a tile), and there the slab that the late release holds back
+//     from the producer cost more than the walk saved (gate_up's dA 0.1394
+//     ms walked, 0.1172 not; the grouped dx 0.0805 and 0.0673 against
+//     0.0686 and 0.0585; device ms, NVIDIA H100 80GB HBM3, 700 W, PERF.md).
+//     Both transposed layouts keep a deeper ring than the row-major one
+//     (kernels/gemm.py:wgmma_config).
 //
 // The host encodes the three tensor maps once per wrapper call
 // (repro_gemm_wgmma_encode) and passes them by value to every launch as
@@ -104,28 +132,40 @@ constexpr int kWgmmaMaxSmem = 232448;  // a Hopper block's dynamic limit
 constexpr int kBoxCols = 64;           // 64 bf16 = one 128-byte swizzle row
 constexpr int kMaxBoxRows = 256;       // TMA's largest box dimension
 
-// The shared-memory layout, for a bm x bn tile and a slab ks deep.  One
-// stage: A as ceil(ks/64) bands of bmp x 64 (bmp = max(bm, 8) rows, so a
-// band is whole 1024-byte swizzle atoms), then B as max(bn, 64)/64 bands of
-// bkp x 64 (bkp = max(ks, 16) rows, one k16 step at least).  After the
-// stages: the bm x bn C tile (c_tile: C's rows readable by TMA), the pad
-// that an m64 read of a band shorter than 64 rows reaches into, and the
-// mbarriers (a full and an empty one per stage, one for the C tile).  The C tile is boxes of
+// The shared-memory layout, for a bm x bn tile, a slab ks deep and the
+// operands' layout (ta, tb: the instruction's transpose bits).  One stage:
+// A, then B, each as bands 128 bytes wide.  K-major A (ta = 0): ceil(ks/64)
+// bands of bmp x 64 (bmp = max(bm, 8) rows, so a band is whole 1024-byte
+// swizzle atoms); MN-major A (ta = 1): max(bm, 64)/64 bands of bkp rows
+// (bkp = max(ks, 16), one k16 step at least) of 64 M columns.  MN-major B
+// (tb = 1): max(bn, 64)/64 bands of bkp x 64; K-major B (tb = 0):
+// ceil(ks/64) bands of bnp x 64 (bnp = max(bn, 64) rows: the instruction
+// reads N >= 64 rows).  After the stages: the bm x bn C tile (c_tile: C's
+// rows readable by TMA), the pad that an m64 read of a K-major A band
+// shorter than 64 rows reaches into, and the mbarriers (a full and an
+// empty one per stage, one for the C tile).  The C tile is boxes of
 // c_rows x c_cols: 64 columns with the 128-byte swizzle when bm >= 8 and
 // bn >= 64 (the epilogue's row-strided accesses then hit distinct banks),
 // else min(bn, 256) columns unswizzled.  The base is 1024-byte aligned.
 // Mirrored by kernels/gemm.py:wgmma_config.
 struct Geom {
-  int bmp, nkc, bkp, ncc, a_bytes, b_bytes, stage_bytes, c_rows, c_cols,
-      c_rows_log2, c_cols_log2, c_bytes, pad;
+  int bmp, nkc, bkp, ncc, bnp, a_bands, a_rows, b_bands, b_rows, a_bytes,
+      b_bytes, stage_bytes, c_rows, c_cols, c_rows_log2, c_cols_log2,
+      c_bytes, pad;
   bool c_swizzle;
-  __host__ __device__ Geom(int bm, int bn, int ks, bool c_tile) {
+  __host__ __device__ Geom(int bm, int bn, int ks, bool c_tile,
+                           bool ta = false, bool tb = true) {
     bmp = bm < 8 ? 8 : bm;
     nkc = (ks + kBoxCols - 1) / kBoxCols;
     bkp = ks < 16 ? 16 : ks;
     ncc = (bn < kBoxCols ? kBoxCols : bn) / kBoxCols;
-    a_bytes = nkc * bmp * 128;
-    b_bytes = ncc * bkp * 128;
+    bnp = bn < kBoxCols ? kBoxCols : bn;
+    a_bands = ta ? (bmp < kBoxCols ? 1 : bmp / kBoxCols) : nkc;
+    a_rows = ta ? bkp : bmp;
+    b_bands = tb ? ncc : nkc;
+    b_rows = tb ? bkp : bnp;
+    a_bytes = a_bands * a_rows * 128;
+    b_bytes = b_bands * b_rows * 128;
     stage_bytes = a_bytes + b_bytes;
     c_swizzle = bm >= 8 && bn >= kBoxCols;
     c_rows = bm < kMaxBoxRows ? bm : kMaxBoxRows;
@@ -136,7 +176,7 @@ struct Geom {
     }
     // rounded up to keep what follows aligned
     c_bytes = c_tile ? (bm * bn * 2 + 127) / 128 * 128 : 0;
-    pad = bmp < 64 ? (64 - bmp) * 128 : 0;
+    pad = !ta && bmp < 64 ? (64 - bmp) * 128 : 0;
   }
   __host__ __device__ int smem(int stages) const {
     return stages * stage_bytes + c_bytes + pad + 16 * stages + 8;
@@ -242,14 +282,16 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
 }
 
 // One m64nNk16 product, D += A.B (D = A.B when scale_d is 0), f32
-// accumulators d[0 .. N/2), A K-major from shared memory.  TB = 1: B
-// MN-major (the transpose bit; the GEMMs' B, (K, N) row-major); TB = 0: B
-// K-major (flash attention's k tile, whose rows are contiguous in the
-// product's depth).
-template <int N, int TB = 1> struct Wgmma;
+// accumulators d[0 .. N/2), both operands from shared memory (the SS form),
+// each with its transpose bit.  TA = 0: A K-major ((M, K) row-major); TA =
+// 1: A MN-major (stored (K, M) row-major: a backward product's saved
+// activation).  TB = 1: B MN-major (the GEMMs' B, (K, N) row-major); TB = 0:
+// B K-major (stored (N, K) row-major: a backward product's weight, flash
+// attention's k tile).
+template <int N, int TA = 0, int TB = 1> struct Wgmma;
 
-template <int TB>
-struct Wgmma<64, TB> {
+template <int TA, int TB>
+struct Wgmma<64, TA, TB> {
   __device__ __forceinline__ static void mma(float* d, uint64_t da,
                                              uint64_t db, int scale_d = 1) {
     asm volatile(
@@ -258,7 +300,7 @@ struct Wgmma<64, TB> {
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
         "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27, %28, %29, %30, %31 "
-        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -266,12 +308,12 @@ struct Wgmma<64, TB> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
 
-template <int TB>
-struct Wgmma<128, TB> {
+template <int TA, int TB>
+struct Wgmma<128, TA, TB> {
   __device__ __forceinline__ static void mma(float* d, uint64_t da,
                                              uint64_t db, int scale_d = 1) {
     asm volatile(
@@ -283,7 +325,7 @@ struct Wgmma<128, TB> {
         "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
         "%60, %61, %62, %63 "
-        "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -297,12 +339,12 @@ struct Wgmma<128, TB> {
           "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
           "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
 
-template <int TB>
-struct Wgmma<256, TB> {
+template <int TA, int TB>
+struct Wgmma<256, TA, TB> {
   __device__ __forceinline__ static void mma(float* d, uint64_t da,
                                              uint64_t db, int scale_d = 1) {
     asm volatile(
@@ -319,7 +361,7 @@ struct Wgmma<256, TB> {
         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
         "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
         "%120, %121, %122, %123, %124, %125, %126, %127 "
-        "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+        "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -346,7 +388,7 @@ struct Wgmma<256, TB> {
           "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
           "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
 
@@ -568,26 +610,33 @@ struct WgmmaS8<256> {
   }
 };
 
-// C[i0:i0+bm, j0:j0+bn] (+)= A[i0:, k0:k1] . B[k0:k1, j0:] for the tile of
+// C[i0:i0+bm, j0:j0+bn] (+)= A[i0:, k0:k1] . B[k0:k1, j0:] for the tiles of
 // this block, in slabs ks deep.  NW: the instruction's N; W: consumer
-// warpgroups (warps 0 .. 4W-1); warp 4W is the producer.  Cin, when not
-// null, is added before the one rounding to Cout; it is Cout (k-outer
-// updates C in place).  tma_c: C goes through the block's C tile in shared
-// memory, loaded (k-outer) and stored by TMA on map_c; else each thread
-// reads and writes its own elements of C directly.  G: the grouped GEMM,
-// one product per expert e = blockIdx.z: the maps are rank 3 with e their
-// outer coordinate, so every box fills and clips at its own expert's
-// edges, and a direct store of C starts c_plane elements per expert in.
-template <int NW, int W, bool G>
+// warpgroups (warps 0 .. 4W-1); warp 4W is the producer.  TA, TB: the
+// operands' layout (Wgmma's transpose bits; Geom).  Cin, when not null, is
+// added before the one rounding to Cout; it is Cout (k-outer updates C in
+// place).  tma_c: C goes through the block's C tile in shared memory,
+// loaded (k-outer) and stored by TMA on map_c; else each thread reads and
+// writes its own elements of C directly.  G: the grouped GEMM, one product
+// per expert e: the maps are rank 3 with e their outer coordinate, so every
+// box fills and clips at its own expert's edges, and a direct store of C
+// starts c_plane elements per expert in.
+//
+// Tiles: one tile a block, tile blockIdx.x of expert blockIdx.z, except
+// for MN-major A (P, the walk), which numbers the tiles of all `experts`
+// products in one sequence, expert-major, block b taking tiles b,
+// b + gridDim.x, ...; a k-outer launch (Cin) gives every tile its own block
+// even there (its C tile is loaded before the tile's first slab).
+template <int NW, int W, bool G, bool TA, bool TB>
 __device__ __forceinline__ void wgmma_tiles(
     const CUtensorMap& map_a, const CUtensorMap& map_b,
     const CUtensorMap& map_c, const __nv_bfloat16* Cin,
     __nv_bfloat16* Cout, int M, int N, int k0, int k1, int64_t ldc,
     int64_t c_plane, int bm, int bn, int ks, int stages, int gm, int gn,
-    int group, int tma_c, int pairs) {
+    int group, int tma_c, int pairs, int experts) {
+  constexpr bool P = TA;
   extern __shared__ __align__(1024) unsigned char smem[];
-  const Geom g(bm, bn, ks, tma_c);
-  const int e = G ? static_cast<int>(blockIdx.z) : 0;
+  const Geom g(bm, bn, ks, tma_c, TA, TB);
   unsigned char* ctile = smem + stages * g.stage_bytes;
   uint64_t* full =
       reinterpret_cast<uint64_t*>(ctile + g.c_bytes + g.pad);
@@ -596,11 +645,18 @@ __device__ __forceinline__ void wgmma_tiles(
 
   // grouped order: m tiles fastest inside a group of `group` m tiles
   const int per_group = group * gn;
-  const int first_m = static_cast<int>(blockIdx.x) / per_group * group;
-  const int gsize = min(gm - first_m, group);
-  const int in_group = static_cast<int>(blockIdx.x) % per_group;
-  const int i0 = (first_m + in_group % gsize) * bm;
-  const int j0 = in_group / gsize * bn;
+  const int per_e = gm * gn;
+  const int tiles = P ? per_e * experts : static_cast<int>(gridDim.x);
+  int i0 = 0, j0 = 0, e = 0;
+  auto place = [&](int tile) {
+    e = G ? (P ? tile / per_e : static_cast<int>(blockIdx.z)) : 0;
+    const int t = P ? tile % per_e : tile;
+    const int first_m = t / per_group * group;
+    const int gsize = min(gm - first_m, group);
+    const int in_group = t % per_group;
+    i0 = (first_m + in_group % gsize) * bm;
+    j0 = in_group / gsize * bn;
+  };
 
   const int pieces = (k1 - k0 + ks - 1) / ks;
   const int units_n = (bn < kBoxCols ? kBoxCols : bn) / NW;
@@ -622,190 +678,263 @@ __device__ __forceinline__ void wgmma_tiles(
 
   if (warp == 4 * W) {
     // producer: one thread issues the C tile (k-outer) and every box of
-    // every slab
+    // every slab, its ring running on from one tile to the next
     if (lane != 0) return;
-    if (tma_c && Cin != nullptr) {
-      mbar_expect_tx(cbar, bm * bn * 2);
-      for (int m = 0; m < bm; m += g.c_rows)
-        for (int n = 0; n < bn; n += g.c_cols)
-          tma_load<G>(&map_c, ctile + (m * bn + n * g.c_rows) * 2, cbar,
-                      j0 + n, i0 + m, e);
-    }
     int stage = 0, phase = 0;
-    for (int r = 0; r < rounds; ++r) {
-      for (int p = 0; p < pieces; ++p) {
-        mbar_wait(&empty[stage], phase ^ 1);
-        unsigned char* st = smem + stage * g.stage_bytes;
-        mbar_expect_tx(&full[stage], g.stage_bytes);
-        const int kk = (k0 + p * ks) & ~7;
-        for (int c = 0; c < g.nkc; ++c)
-          for (int m = 0; m < g.bmp; m += kMaxBoxRows)
-            tma_load<G>(&map_a, st + (c * g.bmp + m) * 128, &full[stage],
-                        kk + c * kBoxCols, i0 + m, e);
-        for (int c = 0; c < g.ncc; ++c)
-          for (int k = 0; k < g.bkp; k += kMaxBoxRows)
-            tma_load<G>(&map_b, st + g.a_bytes + (c * g.bkp + k) * 128,
-                        &full[stage], (j0 & ~7) + c * kBoxCols, kk + k, e);
-        if (++stage == stages) {
-          stage = 0;
-          phase ^= 1;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      place(tile);
+      if (tma_c && Cin != nullptr) {
+        mbar_expect_tx(cbar, bm * bn * 2);
+        for (int m = 0; m < bm; m += g.c_rows)
+          for (int n = 0; n < bn; n += g.c_cols)
+            tma_load<G>(&map_c, ctile + (m * bn + n * g.c_rows) * 2, cbar,
+                        j0 + n, i0 + m, e);
+      }
+      for (int r = 0; r < rounds; ++r) {
+        for (int p = 0; p < pieces; ++p) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* st = smem + stage * g.stage_bytes;
+          unsigned char* sb = st + g.a_bytes;
+          mbar_expect_tx(&full[stage], g.stage_bytes);
+          const int kk = (k0 + p * ks) & ~7;
+          // A: K-major boxes at (k, m), or MN-major ones at (m, k) from the
+          // 8-aligned row below the tile's own (bm < 8)
+          for (int c = 0; c < g.a_bands; ++c)
+            for (int x = 0; x < g.a_rows; x += kMaxBoxRows)
+              if constexpr (TA)
+                tma_load<G>(&map_a, st + (c * g.a_rows + x) * 128,
+                            &full[stage], (i0 & ~7) + c * kBoxCols, kk + x,
+                            e);
+              else
+                tma_load<G>(&map_a, st + (c * g.a_rows + x) * 128,
+                            &full[stage], kk + c * kBoxCols, i0 + x, e);
+          // B: MN-major boxes at (n, k) from the 8-aligned column below the
+          // tile's own (bn < 8), or K-major ones at (k, n)
+          for (int c = 0; c < g.b_bands; ++c)
+            for (int x = 0; x < g.b_rows; x += kMaxBoxRows)
+              if constexpr (TB)
+                tma_load<G>(&map_b, sb + (c * g.b_rows + x) * 128,
+                            &full[stage], (j0 & ~7) + c * kBoxCols, kk + x,
+                            e);
+              else
+                tma_load<G>(&map_b, sb + (c * g.b_rows + x) * 128,
+                            &full[stage], kk + c * kBoxCols, j0 + x, e);
+          if (++stage == stages) {
+            stage = 0;
+            phase ^= 1;
+          }
         }
       }
     }
     return;
   }
 
-  // consumers: warpgroup wg runs unit r*W + wg of each round
+  // consumers: warpgroup wg runs unit r*W + wg of each round (units is a
+  // power of two, and two warpgroups run only two units or more, so every
+  // warpgroup has a unit in every round: no branch stands around a wgmma)
   const int wg = warp / 4, t = threadIdx.x % 128;
   const int k16 = (ks + 15) / 16;
   int stage = 0, phase = 0;
-  for (int r = 0; r < rounds; ++r) {
-    const int u = r * W + wg;
-    const bool active = u < units;
-    const int um = u / units_n, un = u % units_n;
-    float acc[NW / 2];
+  bool stored = false;  // a C tile's TMA store is in flight (P)
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    place(tile);
+    for (int r = 0; r < rounds; ++r) {
+      const int u = r * W + wg;
+      const int um = u / units_n, un = u % units_n;
+      float acc[NW / 2];
 #pragma unroll
-    for (int i = 0; i < NW / 2; ++i) acc[i] = 0.0f;
+      for (int i = 0; i < NW / 2; ++i) acc[i] = 0.0f;
 
-    for (int p = 0; p < pieces; ++p) {
-      mbar_wait(&full[stage], phase);
-      unsigned char* st = smem + stage * g.stage_bytes;
-      if (ks < 16) {
-        // a slab shallower than one k16 step: zero A's columns and B's
-        // rows outside [lo, hi), which hold the neighbouring slabs' values
-        const int lo = (k0 + p * ks) & 7;
-        const int hi = lo + min(ks, k1 - (k0 + p * ks));
-        for (int e = t; e < g.bmp * 16; e += 128) {
-          const int row = e / 16, col = e % 16;
-          if (col < lo || col >= hi)
-            *reinterpret_cast<__nv_bfloat16*>(
-                st + row * 128 + (((col >> 3) ^ (row & 7)) << 4) +
-                (col & 7) * 2) = __float2bfloat16(0.0f);
+      int held = -1;  // P: the stage whose wgmma group is still in flight
+      for (int p = 0; p < pieces; ++p) {
+        mbar_wait(&full[stage], phase);
+        unsigned char* st = smem + stage * g.stage_bytes;
+        unsigned char* sb = st + g.a_bytes;
+        if (ks < 16) {
+          // a slab shallower than one k16 step: zero the k outside
+          // [lo, hi), which holds the neighbouring slabs' values: columns
+          // of a K-major band (16 of each row, swizzled), rows of an
+          // MN-major one (whole 128-byte rows)
+          const int lo = (k0 + p * ks) & 7;
+          const int hi = lo + min(ks, k1 - (k0 + p * ks));
+          auto zero_k_major = [&](unsigned char* band, int rows) {
+            for (int x = t; x < rows * 16; x += 128) {
+              const int row = x / 16, col = x % 16;
+              if (col < lo || col >= hi)
+                *reinterpret_cast<__nv_bfloat16*>(
+                    band + row * 128 + (((col >> 3) ^ (row & 7)) << 4) +
+                    (col & 7) * 2) = __float2bfloat16(0.0f);
+            }
+          };
+          auto zero_mn_major = [&](unsigned char* base, int bands) {
+            for (int x = t; x < bands * 16 * 64; x += 128) {
+              const int c = x / (16 * 64), row = x / 64 % 16;
+              if (row < lo || row >= hi)
+                reinterpret_cast<__nv_bfloat16*>(
+                    base + (c * g.bkp + row) * 128)[x % 64] =
+                    __float2bfloat16(0.0f);
+            }
+          };
+          if constexpr (TA)
+            zero_mn_major(st, g.a_bands);
+          else
+            zero_k_major(st, g.bmp);
+          if constexpr (TB)
+            zero_mn_major(sb, g.b_bands);
+          else
+            zero_k_major(sb, g.bnp);
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
         }
-        for (int e = t; e < g.ncc * 16 * 64; e += 128) {
-          const int c = e / (16 * 64), row = e / 64 % 16;
-          if (row < lo || row >= hi)
-            reinterpret_cast<__nv_bfloat16*>(
-                st + g.a_bytes + (c * g.bkp + row) * 128)[e % 64] =
-                __float2bfloat16(0.0f);
+        {
+          // A: K-major, band kt/4 and 32 bytes (16 columns) per k16 step
+          // inside it; MN-major, 16 rows of 128 bytes per k16 step in the
+          // unit's band.  B: MN-major, 16 rows per k16 step, bands bkp * 128
+          // apart; K-major, as K-major A on the unit's NW rows.
+          const uint32_t a0 =
+              smem_u32(st) + um * (TA ? g.bkp : 64) * 128;
+          const uint32_t b0 =
+              smem_u32(sb) + un * (TB ? (NW / kBoxCols) * g.bkp : NW) * 128;
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+          for (int kt = 0; kt < k16; ++kt) {
+            const uint64_t da =
+                TA ? sw128_desc(a0 + kt * 16 * 128, g.bkp * 128, 1024)
+                   : sw128_desc(a0 + (kt / 4) * g.bmp * 128 + (kt % 4) * 32,
+                                16, 1024);
+            const uint64_t db =
+                TB ? sw128_desc(b0 + kt * 16 * 128, g.bkp * 128, 1024)
+                   : sw128_desc(b0 + (kt / 4) * g.bnp * 128 + (kt % 4) * 32,
+                                16, 1024);
+            Wgmma<NW, TA, TB>::mma(acc, da, db);
+          }
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          if constexpr (P)
+            asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+          else
+            asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
         }
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+        // P: the slab before this one has retired; release its stage
+        if (lane == 0 && (P ? held >= 0 : true))
+          mbar_arrive(&empty[P ? held : stage]);
+        held = stage;
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
-      if (active) {
-        const uint32_t a0 = smem_u32(st) + um * 64 * 128;
-        const uint32_t b0 =
-            smem_u32(st) + g.a_bytes + un * (NW / kBoxCols) * g.bkp * 128;
-        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-        for (int kt = 0; kt < k16; ++kt) {
-          // A: band kt/4, 32 bytes (16 columns) per k16 step inside it;
-          // B: 16 rows of 128 bytes per k16 step, bands bkp * 128 apart
-          const uint64_t da = sw128_desc(
-              a0 + (kt / 4) * g.bmp * 128 + (kt % 4) * 32, 16, 1024);
-          const uint64_t db =
-              sw128_desc(b0 + kt * 16 * 128, g.bkp * 128, 1024);
-          Wgmma<NW>::mma(acc, da, db);
-        }
-        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      if constexpr (P) {
         asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        if (lane == 0 && held >= 0) mbar_arrive(&empty[held]);
       }
-      if (lane == 0) mbar_arrive(&empty[stage]);
-      if (++stage == stages) {
-        stage = 0;
-        phase ^= 1;
+      if (P && tma_c && r == 0 && stored) {
+        // the previous tile's store must have read the C tile before any
+        // consumer writes this tile's sums into it
+        if (threadIdx.x == 0)
+          asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        asm volatile("bar.sync 3, %0;\n" ::"r"(W * 128) : "memory");
       }
-    }
-    if (!active) continue;
 
-    // epilogue: thread t holds rows 16*(t/32) + (t%32)/4 (+ 8) and columns
-    // 8j + 2*(t%4) (+ 1) of the 64 x NW unit, which starts j0 % 8 columns
-    // before the tile when bn < 8.  Addresses come from one row pointer or
-    // offset per row and shifts and masks per column step (every size here
-    // is a power of two): per-element divisions and 64-bit products had
-    // cost a k-outer block most of its time.
-    const int row_l = um * 64 + 16 * (t / 32) + (t % 32) / 4;
-    const int col_l = un * NW + 2 * (t % 4) - (j0 & 7);
-    if (tma_c && Cin != nullptr && r == 0) mbar_wait(cbar, 0);
+      // epilogue: thread t holds rows 16*(t/32) + (t%32)/4 (+ 8) and
+      // columns 8j + 2*(t%4) (+ 1) of the 64 x NW unit, which starts i0 % 8
+      // rows (MN-major A, bm < 8) or j0 % 8 columns (MN-major B, bn < 8)
+      // before the tile.  Addresses come from one row pointer or offset per
+      // row and shifts and masks per column step (every size here is a
+      // power of two): per-element divisions and 64-bit products had cost
+      // a k-outer block most of its time.
+      const int row_l =
+          um * 64 + 16 * (t / 32) + (t % 32) / 4 - (TA ? (i0 & 7) : 0);
+      const int col_l = un * NW + 2 * (t % 4) - (TB ? (j0 & 7) : 0);
+      if (tma_c && Cin != nullptr && r == 0) mbar_wait(cbar, 0);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int rl = row_l + 8 * h;
-      if (rl >= bm) continue;
-      if (tma_c) {
-        // the C tile in shared memory (see Geom); TMA stores only what
-        // lies inside C.  k-outer reads the row's C values first, all
-        // loads in flight together, then writes the sums.
-        const int br = rl & (g.c_rows - 1);
-        unsigned char* rowp =
-            ctile + (rl >> g.c_rows_log2) * g.c_rows * bn * 2 +
-            (g.c_swizzle ? br * 128 : br * g.c_cols * 2);
-        int off[NW / 8];
-        __nv_bfloat162 cv[NW / 8];
+      for (int h = 0; h < 2; ++h) {
+        const int rl = row_l + 8 * h;
+        if (rl < 0 || rl >= bm) continue;
+        if (tma_c) {
+          // the C tile in shared memory (see Geom); TMA stores only what
+          // lies inside C.  k-outer reads the row's C values first, all
+          // loads in flight together, then writes the sums.
+          const int br = rl & (g.c_rows - 1);
+          unsigned char* rowp =
+              ctile + (rl >> g.c_rows_log2) * g.c_rows * bn * 2 +
+              (g.c_swizzle ? br * 128 : br * g.c_cols * 2);
+          int off[NW / 8];
+          __nv_bfloat162 cv[NW / 8];
+#pragma unroll
+          for (int j = 0; j < NW / 8; ++j) {
+            const int bc = (col_l + 8 * j) & (g.c_cols - 1);
+            off[j] = ((col_l + 8 * j) >> g.c_cols_log2) * g.c_rows *
+                         g.c_cols * 2 +
+                     (g.c_swizzle
+                          ? (((bc >> 3) ^ (br & 7)) << 4) + (bc & 7) * 2
+                          : bc * 2);
+            cv[j] = Cin != nullptr && col_l + 8 * j < bn
+                        ? *reinterpret_cast<const __nv_bfloat162*>(rowp +
+                                                                   off[j])
+                        : __floats2bfloat162_rn(0.0f, 0.0f);
+          }
+#pragma unroll
+          for (int j = 0; j < NW / 8; ++j) {
+            if (col_l + 8 * j >= bn) continue;
+            const float2 c2 = __bfloat1622float2(cv[j]);
+            *reinterpret_cast<__nv_bfloat162*>(rowp + off[j]) =
+                __floats2bfloat162_rn(acc[4 * j + 2 * h] + c2.x,
+                                      acc[4 * j + 2 * h + 1] + c2.y);
+          }
+          continue;
+        }
+        const int row = i0 + rl;
+        if (row >= M) continue;
+        // Cin, when given, is Cout
+        __nv_bfloat16* crow =
+            Cout + e * c_plane + static_cast<int64_t>(row) * ldc + j0;
+        const int cend = min(bn, N - j0);  // columns inside the tile and C
 #pragma unroll
         for (int j = 0; j < NW / 8; ++j) {
-          const int bc = (col_l + 8 * j) & (g.c_cols - 1);
-          off[j] = ((col_l + 8 * j) >> g.c_cols_log2) * g.c_rows * g.c_cols *
-                       2 +
-                   (g.c_swizzle ? (((bc >> 3) ^ (br & 7)) << 4) + (bc & 7) * 2
-                                : bc * 2);
-          cv[j] = Cin != nullptr && col_l + 8 * j < bn
-                      ? *reinterpret_cast<const __nv_bfloat162*>(rowp + off[j])
-                      : __floats2bfloat162_rn(0.0f, 0.0f);
-        }
-#pragma unroll
-        for (int j = 0; j < NW / 8; ++j) {
-          if (col_l + 8 * j >= bn) continue;
-          const float2 c2 = __bfloat1622float2(cv[j]);
-          *reinterpret_cast<__nv_bfloat162*>(rowp + off[j]) =
-              __floats2bfloat162_rn(acc[4 * j + 2 * h] + c2.x,
-                                    acc[4 * j + 2 * h + 1] + c2.y);
-        }
-        continue;
-      }
-      const int row = i0 + rl;
-      if (row >= M) continue;
-      // Cin, when given, is Cout
-      __nv_bfloat16* crow =
-          Cout + e * c_plane + static_cast<int64_t>(row) * ldc + j0;
-      const int cend = min(bn, N - j0);  // columns inside the tile and C
-#pragma unroll
-      for (int j = 0; j < NW / 8; ++j) {
-        const int cl = col_l + 8 * j;
-        float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
-        const bool in0 = cl >= 0 && cl < cend;
-        const bool in1 = cl + 1 >= 0 && cl + 1 < cend;
-        if (pairs && in1) {
-          __nv_bfloat162* at = reinterpret_cast<__nv_bfloat162*>(crow + cl);
-          if (Cin != nullptr) {
-            const float2 c2 = __bfloat1622float2(*at);
-            v0 += c2.x;
-            v1 += c2.y;
-          }
-          *at = __floats2bfloat162_rn(v0, v1);
-        } else {
-          if (in0) {
-            if (Cin != nullptr) v0 += __bfloat162float(crow[cl]);
-            crow[cl] = __float2bfloat16(v0);
-          }
-          if (in1) {
-            if (Cin != nullptr) v1 += __bfloat162float(crow[cl + 1]);
-            crow[cl + 1] = __float2bfloat16(v1);
+          const int cl = col_l + 8 * j;
+          float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+          const bool in0 = cl >= 0 && cl < cend;
+          const bool in1 = cl + 1 >= 0 && cl + 1 < cend;
+          if (pairs && in1) {
+            __nv_bfloat162* at = reinterpret_cast<__nv_bfloat162*>(crow + cl);
+            if (Cin != nullptr) {
+              const float2 c2 = __bfloat1622float2(*at);
+              v0 += c2.x;
+              v1 += c2.y;
+            }
+            *at = __floats2bfloat162_rn(v0, v1);
+          } else {
+            if (in0) {
+              if (Cin != nullptr) v0 += __bfloat162float(crow[cl]);
+              crow[cl] = __float2bfloat16(v0);
+            }
+            if (in1) {
+              if (Cin != nullptr) v1 += __bfloat162float(crow[cl + 1]);
+              crow[cl + 1] = __float2bfloat16(v1);
+            }
           }
         }
       }
     }
+    if (!tma_c) continue;
+    // every consumer's part of the C tile is in shared memory: one thread
+    // stores the tile.  One tile a block waits here until TMA has read it;
+    // a persistent block only before the next tile writes the C tile, and
+    // at its end
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 3, %0;\n" ::"r"(W * 128) : "memory");
+    if (threadIdx.x == 0) {
+      for (int m = 0; m < bm; m += g.c_rows)
+        for (int n = 0; n < bn; n += g.c_cols)
+          tma_store<G>(&map_c, ctile + (m * bn + n * g.c_rows) * 2, j0 + n,
+                       i0 + m, e);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      if constexpr (!P)
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    }
+    stored = true;
   }
-  if (!tma_c) return;
-  // every consumer's part of the C tile is in shared memory: one thread
-  // stores the tile and waits until TMA has read it
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("bar.sync 3, %0;\n" ::"r"(W * 128) : "memory");
-  if (threadIdx.x != 0) return;
-  for (int m = 0; m < bm; m += g.c_rows)
-    for (int n = 0; n < bn; n += g.c_cols)
-      tma_store<G>(&map_c, ctile + (m * bn + n * g.c_rows) * 2, j0 + n,
-                   i0 + m, e);
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  if (P && tma_c && stored && threadIdx.x == 0)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // The GEMM (k-inner, or one k-outer pass) and the grouped GEMM: the same
@@ -814,7 +943,7 @@ __device__ __forceinline__ void wgmma_tiles(
 // that short-lived blocks (k-outer's passes, the grouped GEMM's) overlap;
 // wider or two-warpgroup tiles need every register a block can have.
 #define REPRO_WGMMA_KERNEL(NAME, G_)                                         \
-  template <int NW, int W>                                                   \
+  template <int NW, int W, bool TA, bool TB>                                 \
   __global__ void __launch_bounds__(W * 128 + 32,                            \
                                     W == 1 && NW <= 128 ? 3 : 1)             \
   NAME(const __grid_constant__ CUtensorMap map_a,                            \
@@ -822,10 +951,11 @@ __device__ __forceinline__ void wgmma_tiles(
        const __grid_constant__ CUtensorMap map_c,                            \
        const __nv_bfloat16* Cin, __nv_bfloat16* Cout, int M, int N, int k0,  \
        int k1, int64_t ldc, int64_t c_plane, int bm, int bn, int ks,         \
-       int stages, int gm, int gn, int group, int tma_c, int pairs) {        \
-    wgmma_tiles<NW, W, G_>(map_a, map_b, map_c, Cin, Cout, M, N, k0, k1,     \
-                           ldc, c_plane, bm, bn, ks, stages, gm, gn, group,  \
-                           tma_c, pairs);                                    \
+       int stages, int gm, int gn, int group, int tma_c, int pairs,          \
+       int experts) {                                                        \
+    wgmma_tiles<NW, W, G_, TA, TB>(map_a, map_b, map_c, Cin, Cout, M, N, k0, \
+                                   k1, ldc, c_plane, bm, bn, ks, stages, gm, \
+                                   gn, group, tma_c, pairs, experts);        \
   }
 REPRO_WGMMA_KERNEL(wgmma_gemm, false)
 REPRO_WGMMA_KERNEL(grouped_wgmma, true)
@@ -885,11 +1015,21 @@ int encode_map(CUtensorMap* map, const void* base, int rows, int cols,
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
                              static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(map, type,
-                        depth > 0 ? 3 : 2, const_cast<void*>(base), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  auto encode = [&] {
+    return fn(map, type, depth > 0 ? 3 : 2, const_cast<void*>(base), dims,
+              strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  };
+  CUresult r = encode();
+  int dev = 0;
+  // an autograd backward runs on a thread of its own, where no runtime
+  // call may have made a context current yet, and cuTensorMapEncodeTiled
+  // refuses to encode without one: make the current device's primary
+  // context current and encode again
+  if (r == CUDA_ERROR_INVALID_CONTEXT && cudaGetDevice(&dev) == cudaSuccess &&
+      cudaSetDevice(dev) == cudaSuccess)
+    r = encode();
   return r == CUDA_SUCCESS ? 0 : kDriverErrorBase + static_cast<int>(r);
 }
 
@@ -901,24 +1041,34 @@ bool tma_c_ok(const void* C, int64_t ldc, int bn, int size = 2) {
          reinterpret_cast<uintptr_t>(C) % 16 == 0;
 }
 
+// The tensor maps of A, B and C for a bm x bn tile staged ks deep, in the
+// layout (ta, tb) of wgmma_tiles: each map is encoded on the matrix as
+// stored, A (M, K) row-major with row stride lda, or (ta) A^T's storage
+// (K, M); B (K, N) with row stride ldb, or (!tb) B^T's storage (N, K).  A's
+// and B's stored rows must be multiples of 8 elements on 16-byte aligned
+// bases.
 int wgmma_encode(const void* A, const void* B, const void* C, int M, int N,
                  int K, int64_t lda, int64_t ldb, int64_t ldc, int bm, int bn,
-                 int ks, void* maps) {
+                 int ks, int ta, int tb, void* maps) {
   if (M <= 0 || N <= 0 || K <= 0 || bm <= 0 || bn <= 0 || ks <= 0)
     return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(B)) %
           16 != 0 || lda % 8 != 0 || ldb % 8 != 0)
     return cudaErrorMisalignedAddress;
-  const Geom g(bm, bn, ks, tma_c_ok(C, ldc, bn));
+  const Geom g(bm, bn, ks, tma_c_ok(C, ldc, bn), ta, tb);
+  const int a_box = g.a_rows < kMaxBoxRows ? g.a_rows : kMaxBoxRows;
+  const int b_box = g.b_rows < kMaxBoxRows ? g.b_rows : kMaxBoxRows;
   alignas(64) CUtensorMap m[3];
   memset(m, 0, sizeof(m));
-  int e = encode_map(&m[0], A, M, K, lda, kBoxCols,
-                     g.bmp < kMaxBoxRows ? g.bmp : kMaxBoxRows,
-                     CU_TENSOR_MAP_SWIZZLE_128B);
+  int e = ta ? encode_map(&m[0], A, K, M, lda, kBoxCols, a_box,
+                          CU_TENSOR_MAP_SWIZZLE_128B)
+             : encode_map(&m[0], A, M, K, lda, kBoxCols, a_box,
+                          CU_TENSOR_MAP_SWIZZLE_128B);
   if (e == 0)
-    e = encode_map(&m[1], B, K, N, ldb, kBoxCols,
-                   g.bkp < kMaxBoxRows ? g.bkp : kMaxBoxRows,
-                   CU_TENSOR_MAP_SWIZZLE_128B);
+    e = tb ? encode_map(&m[1], B, K, N, ldb, kBoxCols, b_box,
+                        CU_TENSOR_MAP_SWIZZLE_128B)
+           : encode_map(&m[1], B, N, K, ldb, kBoxCols, b_box,
+                        CU_TENSOR_MAP_SWIZZLE_128B);
   if (e == 0 && tma_c_ok(C, ldc, bn))
     e = encode_map(&m[2], C, M, N, ldc, g.c_cols, g.c_rows,
                    g.c_swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
@@ -927,18 +1077,30 @@ int wgmma_encode(const void* A, const void* B, const void* C, int M, int N,
   return e;
 }
 
-template <int NW, int W, bool G>
+// SMs of the current device, read once per device.
+int sm_count() {
+  static int count[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (count[dev] == 0 &&
+      cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    count[dev] = 0;
+  return count[dev];
+}
+
+template <int NW, int W, bool G, bool TA, bool TB>
 int launch_wgmma(const CUtensorMap* m, const __nv_bfloat16* cin,
                  __nv_bfloat16* cout, int M, int N, int k0, int k1,
                  int64_t ldc, int64_t c_plane, int bm, int bn, int ks,
                  int stages, int gm, int gn, int group, int tma_c, int pairs,
-                 dim3 grid, int smem, cudaStream_t stream) {
+                 int experts, int smem, cudaStream_t stream) {
   // only the kernel this library launches is instantiated
   auto* kernel = [] {
     if constexpr (G)
-      return grouped_wgmma<NW, W>;
+      return grouped_wgmma<NW, W, TA, TB>;
     else
-      return wgmma_gemm<NW, W>;
+      return wgmma_gemm<NW, W, TA, TB>;
   }();
   static bool configured = false;
   if (!configured) {
@@ -953,35 +1115,62 @@ int launch_wgmma(const CUtensorMap* m, const __nv_bfloat16* cin,
     if (e != cudaSuccess) return e;
     configured = true;
   }
+  const int64_t tiles = static_cast<int64_t>(gm) * gn * experts;
+  dim3 grid(static_cast<unsigned>(gm) * gn, 1,
+            static_cast<unsigned>(experts));
+  if (TA) {
+    // one sequence of tiles; without a C tile to load first (k-inner), as
+    // many blocks as the SMs hold, each walking tiles (wgmma_tiles)
+    int64_t blocks = tiles;
+    if (cin == nullptr) {
+      // resident blocks an SM holds at this shared memory, asked once per
+      // size (a call can then be captured in a CUDA graph)
+      static int sized = -1, per_sm = 0;
+      if (sized != smem) {
+        const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, W * 128 + 32, smem);
+        if (e != cudaSuccess) return e;
+        sized = smem;
+      }
+      const int64_t resident = static_cast<int64_t>(per_sm) * sm_count();
+      if (resident < 1) return cudaErrorInvalidConfiguration;
+      if (resident < blocks) blocks = resident;
+    }
+    grid = dim3(static_cast<unsigned>(blocks), 1, 1);
+  }
   kernel<<<grid, W * 128 + 32, smem, stream>>>(
       m[0], m[1], m[2], cin, cout, M, N, k0, k1, ldc, c_plane, bm, bn, ks,
-      stages, gm, gn, group, tma_c, pairs);
+      stages, gm, gn, group, tma_c, pairs, experts);
   return cudaGetLastError();
 }
 
 // One launch over the (M/bm) x (N/bn) tiles of each of `experts` products
-// (G: the grouped GEMM, rank-3 maps, the expert on blockIdx.z; else one
-// product) for K in [k0, k1), on the maps m[0..2] (m[2] read only when
-// tma_c).  The caller (kernels/gemm.py:wgmma_config, or
+// (G: the grouped GEMM, rank-3 maps; else one product) for K in [k0, k1),
+// on the maps m[0..2] (m[2] read only when tma_c) of the layout (ta, tb).
+// The caller (kernels/gemm.py:wgmma_config, or
 // kernels/grouped_gemm.py:grouped_config) picks ks and stages and refuses
-// what does not fit first.
+// what does not fit first.  The layouts instantiated: row-major (0, 1),
+// MN-major A (1, 1) and K-major B (0, 0); MN-major A needs a ring of two
+// stages unless its pass is one slab (its consumers hold a stage one slab
+// late).
 template <bool G>
 int launch_tiles(const CUtensorMap* m, const void* Cin, void* Cout, int M,
                  int N, int K, int64_t ldc, int64_t c_plane, int experts,
                  int k0, int k1, int bm, int bn, int ks, int stages,
-                 int group, int tma_c, void* stream) {
+                 int group, int tma_c, int ta, int tb, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || k0 < 0 || k1 <= k0 || k1 > K ||
       stages < 1 || group < 1 || bm <= 0 || bn <= 0 || ks <= 0 ||
       (bm & (bm - 1)) || (bn & (bn - 1)) || (ks & (ks - 1)) ||
       (Cin != nullptr && Cin != Cout) || experts < 1 || experts > 65535 ||
-      (G && Cin != nullptr))
+      (G && Cin != nullptr) || (ta && !tb) ||
+      (ta && stages < 2 && k1 - k0 > ks))
     return cudaErrorInvalidValue;
-  const Geom g(bm, bn, ks, tma_c);
+  const Geom g(bm, bn, ks, tma_c, ta, tb);
   const int smem = g.smem(stages);
   if (smem > kWgmmaMaxSmem) return cudaErrorInvalidValue;
   const int64_t gm = (static_cast<int64_t>(M) + bm - 1) / bm;
   const int64_t gn = (static_cast<int64_t>(N) + bn - 1) / bn;
-  if (gm * gn > 2147483647LL) return cudaErrorInvalidValue;
+  if (gm * gn * experts > 2147483647LL) return cudaErrorInvalidValue;
   if (group > gm) group = static_cast<int>(gm);
   if (group * gn > 2147483647LL) group = 1;
   // bf16 pairs (4-byte stores) need even columns at 4-byte addresses
@@ -994,18 +1183,18 @@ int launch_tiles(const CUtensorMap* m, const void* Cin, void* Cout, int M,
   // two warpgroups of N = 256 would spill (kernels/gemm.py:wgmma_config)
   const int w = units < 2 || nw == 256 ? 1 : 2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(gm * gn), 1,
-                  static_cast<unsigned>(experts));
-#define REPRO_WGMMA_CASE(NW_, W_)                                            \
-  if (nw == NW_ && w == W_)                                                  \
-    return launch_wgmma<NW_, W_, G>(m, cin, cout, M, N, k0, k1, ldc,        \
-                                    c_plane, bm, bn, ks, stages,             \
-                                    static_cast<int>(gm),                    \
-                                    static_cast<int>(gn), group, tma_c,      \
-                                    pairs, grid, smem, s);
-  REPRO_WGMMA_CASE(64, 1) REPRO_WGMMA_CASE(64, 2)
-  REPRO_WGMMA_CASE(128, 1) REPRO_WGMMA_CASE(128, 2)
-  REPRO_WGMMA_CASE(256, 1)
+#define REPRO_WGMMA_CASE(NW_, W_, TA_, TB_)                                  \
+  if (nw == NW_ && w == W_ && ta == TA_ && tb == TB_)                       \
+    return launch_wgmma<NW_, W_, G, (TA_) != 0, (TB_) != 0>(                 \
+        m, cin, cout, M, N, k0, k1, ldc, c_plane, bm, bn, ks, stages,        \
+        static_cast<int>(gm), static_cast<int>(gn), group, tma_c, pairs,     \
+        experts, smem, s);
+#define REPRO_WGMMA_LAYOUT(TA_, TB_)                                         \
+  REPRO_WGMMA_CASE(64, 1, TA_, TB_) REPRO_WGMMA_CASE(64, 2, TA_, TB_)        \
+  REPRO_WGMMA_CASE(128, 1, TA_, TB_) REPRO_WGMMA_CASE(128, 2, TA_, TB_)      \
+  REPRO_WGMMA_CASE(256, 1, TA_, TB_)
+  REPRO_WGMMA_LAYOUT(0, 1) REPRO_WGMMA_LAYOUT(1, 1) REPRO_WGMMA_LAYOUT(0, 0)
+#undef REPRO_WGMMA_LAYOUT
 #undef REPRO_WGMMA_CASE
   return cudaErrorInvalidValue;
 }

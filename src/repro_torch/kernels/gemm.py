@@ -23,17 +23,24 @@ Two routes, by operand dtype (:func:`route`):
   s8 -> s32, exact) in ``csrc/wgmma_s8.cuh`` (:func:`int8_config`).  8-bit
   wgmma reads both operands K-major, so an int8 call first writes B
   transposed, once (:func:`transposed_copy`, a kernel, counted in
-  ``COPIES["transposed"]``; all k-outer passes share it).  The tensor maps
-  are encoded once per wrapper call; a k-outer pass differs only in its
-  k0.  TMA needs 16-byte aligned bases and row strides: an operand without
-  them is first copied once into an aligned buffer (:func:`aligned_copy`,
-  counted in ``COPIES["aligned"]``).
+  ``COPIES["transposed"]``; all k-outer passes share it).  bf16 reads an
+  operand that is the ``.t()`` of a row-major matrix in place
+  (:func:`wgmma_layout`: A MN-major, B K-major; the backward products'
+  ``a.t()`` and ``b.t()``), one of the two at a time; an MN-major A's
+  blocks walk their tiles persistently.  The tensor maps are encoded once
+  per wrapper call; a k-outer pass differs only in its k0.  TMA needs
+  16-byte aligned bases and row strides: an operand without them is first
+  copied once into an aligned buffer (:func:`aligned_copy`, counted in
+  ``COPIES["aligned"]``).
 * ``"cuda_cores"``: f32 runs ``csrc/tile_gemm.cuh`` on the CUDA cores
   (FP32 FMA; no TF32, which would not compute the f32 function): register
   tiles read as 16-byte fragments from a cp.async ring of sub-slabs,
   configured by :func:`launch_config`.  A call resolves the library once
   and passes each launch its k range, so a k-outer pass is one ctypes
-  call.
+  call.  The kernel reads row-major operands only: a transposed operand
+  (the ``.t()`` of a row-major matrix) is copied once, row-major, counted
+  in ``COPIES["transposed"]`` (so is an int8 one, and bf16's A when both
+  operands are transposed).
 
 Bound on an H100: at the planner's tiles and Qwen2-1.5B's shapes k-inner is
 bound by operations; at decode (M of a few rows) by the bytes of B; k-outer
@@ -81,8 +88,9 @@ CORE_STAGES = 3
 LAUNCHES = {"gemm_k_inner": 0, "gemm_k_outer": 0}
 #: the same launches by route: tensor cores (bf16, int8) or CUDA cores
 ROUTES = {"wgmma": 0, "cuda_cores": 0}
-#: operands copied before a wgmma launch: into a TMA-aligned buffer, or
-#: (int8's B) transposed
+#: operands copied before a launch: into a TMA-aligned buffer, or
+#: transposed (int8's B; a transposed operand the route does not read in
+#: place, made row-major)
 COPIES = {"aligned": 0, "transposed": 0}
 
 _TAGS = {torch.bfloat16: "bf16", torch.float32: "f32", torch.int8: "int8"}
@@ -217,6 +225,13 @@ WGMMA_BOX_COLS = 64
 #: tile two 48 KB stages leave room for a second block on the SM, which
 #: measured faster than four stages and one block (PERF.md, PR 14).
 WGMMA_STAGES = 2
+#: the ring of a transposed layout: as many stages as fit without costing
+#: the SM a resident block, at most this many (three at 128x128x128, whose
+#: 64 KB stages and 32 KB C tile hold one block an SM either way).  Deeper
+#: than the row-major layout's: at 1,024 tokens three stages took the
+#: backward products 2.78-2.79 ms of device time where two took 2.90-2.92
+#: (both one tile a block; PERF.md)
+WGMMA_TRANSPOSED_STAGES = 4
 
 
 class WgmmaConfig(NamedTuple):
@@ -229,22 +244,68 @@ class WgmmaConfig(NamedTuple):
     stage_bytes: int
     smem_bytes: int   #: dynamic shared memory one block claims
     threads: int      #: consumers x 128 + one producer warp
+    #: an MN-major A's k-inner launch: as many blocks as the SMs hold, each
+    #: walking tiles (:func:`launch_blocks`)
+    walk: bool = False
+    #: blocks one SM holds by shared memory and threads (the launcher asks
+    #: the occupancy API, which also counts registers)
+    blocks_per_sm: int = 1
 
 
-def _wgmma_stage(bm: int, bn: int, ks: int,
-                 c_tile: bool) -> tuple[int, int]:
+def wgmma_layout(a, b) -> tuple[int, int]:
+    """wgmma's transpose bits ``(ta, tb)`` for the 2-D operands of ``a @
+    b`` as stored: ``ta = 1`` when A is the ``.t()`` of a row-major matrix
+    (read MN-major), ``tb = 0`` when B is (read K-major); row-major
+    operands give ``(0, 1)``.  Raises ValueError for any other strides."""
+    return int(is_transposed(a)), int(not is_transposed(b))
+
+
+def is_transposed(t) -> bool:
+    """Whether the 2-D ``t`` is the ``.t()`` of a row-major matrix (a unit
+    row stride), not row-major itself; raises ValueError for an operand
+    that is neither."""
+    if t.stride(1) == 1 or t.numel() <= 1:
+        return False
+    if t.stride(0) == 1:
+        return True
+    raise ValueError(f"the kernels take row-major operands and their "
+                     f"transposes, got strides {t.stride()}")
+
+
+def _wgmma_stage(bm: int, bn: int, ks: int, c_tile: bool, ta: int = 0,
+                 tb: int = 1) -> tuple[int, int]:
     """(bytes of one stage, bytes after the stages) for a bm x bn tile
-    staged ks deep, as ``Geom`` in csrc/wgmma_gemm.cuh lays them out: a
-    stage holds A in ceil(ks/64) bands of max(bm, 8) rows and B in
-    max(bn, 64)/64 bands of max(ks, 16) rows, 128 bytes a row; after the
-    stages come the bf16 C tile (``c_tile``), the pad an m64 read of a
-    band shorter than 64 rows reaches into, and one C-tile mbarrier."""
-    bmp = max(bm, 8)
-    a = -(-ks // WGMMA_BOX_COLS) * bmp * 128
-    b = max(bn, WGMMA_BOX_COLS) // WGMMA_BOX_COLS * max(ks, 16) * 128
-    pad = (64 - bmp) * 128 if bmp < 64 else 0
+    staged ks deep in the layout ``(ta, tb)``, as ``Geom`` in
+    csrc/wgmma_gemm.cuh lays them out, 128 bytes a row: K-major A (ta = 0)
+    in ceil(ks/64) bands of max(bm, 8) rows, MN-major A in max(bm, 64)/64
+    bands of max(ks, 16) rows; MN-major B (tb = 1) in max(bn, 64)/64 bands
+    of max(ks, 16) rows, K-major B in ceil(ks/64) bands of max(bn, 64)
+    rows.  After the stages come the bf16 C tile (``c_tile``), the pad an
+    m64 read of a K-major A band shorter than 64 rows reaches into, and
+    one C-tile mbarrier."""
+    bmp, bkp, bnp = max(bm, 8), max(ks, 16), max(bn, WGMMA_BOX_COLS)
+    kbands = -(-ks // WGMMA_BOX_COLS)
+    a = (max(bmp // WGMMA_BOX_COLS, 1) * bkp if ta else kbands * bmp) * 128
+    b = (bnp // WGMMA_BOX_COLS * bkp if tb else kbands * bnp) * 128
+    pad = (64 - bmp) * 128 if bmp < 64 and not ta else 0
     c = -(-bm * bn * 2 // 128) * 128 if c_tile else 0
     return a + b, c + pad + 8
+
+
+def resident_blocks(smem: int, threads: int) -> int:
+    """Blocks one H100 SM holds at once by shared memory and threads."""
+    return min(SM_SMEM_BYTES // (smem + BLOCK_RESERVED_SMEM),
+               SM_THREADS // threads, SM_BLOCKS)
+
+
+def launch_blocks(m: int, n: int, tile: TileConfig, cfg: WgmmaConfig,
+                  experts: int = 1) -> int:
+    """Thread blocks one launch of ``cfg`` runs over the tiles of
+    ``experts`` m x n products: one a tile, or for a walk as many as the
+    SMs hold, at most one a tile (``launch_wgmma`` in
+    csrc/wgmma_gemm.cuh, from the occupancy API)."""
+    tiles = experts * -(-m // tile.bm) * -(-n // tile.bn)
+    return min(tiles, cfg.blocks_per_sm * SMS) if cfg.walk else tiles
 
 
 def _wgmma_smem(stage_bytes: int, rest: int, stages: int) -> int:
@@ -252,33 +313,41 @@ def _wgmma_smem(stage_bytes: int, rest: int, stages: int) -> int:
     return stages * (stage_bytes + 16) + rest
 
 
-def wgmma_config(tile: TileConfig, *, k_outer: bool = False) -> WgmmaConfig:
-    """How the tensor-core route runs the bf16 ``tile``; raises ValueError
+def wgmma_config(tile: TileConfig, *, k_outer: bool = False, ta: int = 0,
+                 tb: int = 1) -> WgmmaConfig:
+    """How the tensor-core route runs the bf16 ``tile`` with its operands
+    in the layout ``(ta, tb)`` (:func:`wgmma_layout`); raises ValueError
     for a tile it does not take.  The slab is the plan's bk deep unless two
     such slabs do not fit in a block's shared memory, then the deepest
-    power of two (at least 16) that fits twice.  The stages are as many as
-    fit, at most :data:`WGMMA_STAGES`, and for a k-outer pass (one bk
-    block) at most its slabs: a deeper ring would hold nothing."""
+    power of two (at least 16) that fits twice.  The row-major layout's
+    stages are as many as fit, at most :data:`WGMMA_STAGES`; a transposed
+    layout's as many as fit without costing a resident block, at most
+    :data:`WGMMA_TRANSPOSED_STAGES`.  An MN-major A's k-inner blocks walk
+    tiles, and hold two stages at least (its consumers release a stage one
+    slab late).  A k-outer pass (one bk block) holds at most its slabs: a
+    deeper ring would hold nothing."""
     bm, bn, bk = tile.bm, tile.bn, tile.bk
     if not (_pow2(bm) and _pow2(bn) and _pow2(bk)):
         raise ValueError(f"tile {tile}: the kernels take power-of-two "
                          f"bm, bn, bk")
+    if ta and not tb:
+        raise ValueError("the bf16 route reads one transposed operand at a "
+                         "time")
     ks = bk
     # C goes through a tile in shared memory where TMA can move its rows
     # (bn >= 8; the launcher also checks C's alignment, and a tile reserved
     # but unused only costs shared memory)
     c_tile = bn >= 8
-    while ks > 16 and _wgmma_smem(*_wgmma_stage(bm, bn, ks, c_tile), 2) \
-            > MAX_SMEM_BYTES:
+    while ks > 16 and _wgmma_smem(
+            *_wgmma_stage(bm, bn, ks, c_tile, ta, tb), 2) > MAX_SMEM_BYTES:
         ks //= 2
-    stage, rest = _wgmma_stage(bm, bn, ks, c_tile)
+    stage, rest = _wgmma_stage(bm, bn, ks, c_tile, ta, tb)
     fit = (MAX_SMEM_BYTES - rest) // (stage + 16)
     if fit < 1:
         raise ValueError(
             f"tile {tile}: one {stage}-byte stage exceeds the "
             f"{MAX_SMEM_BYTES} bytes of shared memory a Hopper block may "
             f"claim")
-    stages = min(fit, WGMMA_STAGES, bk // ks if k_outer else fit)
     bnp = max(bn, WGMMA_BOX_COLS)
     nw = min(bnp, 256)
     units = -(-max(bm, 8) // 64) * (bnp // nw)
@@ -286,9 +355,29 @@ def wgmma_config(tile: TileConfig, *, k_outer: bool = False) -> WgmmaConfig:
     # ptxas's 168 registers a thread of a two-warpgroup block and spill
     # (1,820 bytes), so N = 256 runs one warpgroup, in rounds
     consumers = 1 if units < 2 or nw == 256 else 2
+    threads = consumers * 128 + 32
+    transposed = bool(ta or not tb)
+    if not transposed:
+        stages = min(fit, WGMMA_STAGES, bk // ks if k_outer else fit)
+    else:
+        def resident(n):
+            return resident_blocks(_wgmma_smem(stage, rest, n), threads)
+
+        stages = min(fit, 2)
+        while stages < min(fit, WGMMA_TRANSPOSED_STAGES) and \
+                resident(stages + 1) >= resident(stages):
+            stages += 1
+        stages = min(stages, bk // ks) if k_outer else stages
+        if ta and stages < 2 and not (k_outer and bk == ks):
+            raise ValueError(
+                f"tile {tile}: two {stage}-byte stages exceed the "
+                f"{MAX_SMEM_BYTES} bytes of shared memory a Hopper block "
+                f"may claim, and a transposed operand's ring holds a stage "
+                f"one slab late")
+    smem = _wgmma_smem(stage, rest, stages)
     return WgmmaConfig(nw, consumers, -(-units // consumers), ks, stages,
-                       stage, _wgmma_smem(stage, rest, stages),
-                       consumers * 128 + 32)
+                       stage, smem, threads, bool(ta) and not k_outer,
+                       resident_blocks(smem, threads))
 
 
 #: int8 columns (bytes) of one 128-byte-swizzled TMA box (csrc/wgmma_s8.cuh)
@@ -367,15 +456,18 @@ def int8_config(tile: TileConfig, *, k_outer: bool = False) -> WgmmaConfig:
                        consumers * 128 + 32)
 
 
-def check_tile(tile: TileConfig, dtype, *, k_outer: bool = False):
-    """The route's config for ``tile`` (:func:`wgmma_config` for bf16,
-    :func:`int8_config` for int8, :func:`launch_config` for f32); raises
-    ValueError for a tile the route does not take, on any device."""
+def check_tile(tile: TileConfig, dtype, *, k_outer: bool = False,
+               layout: tuple[int, int] = (0, 1)):
+    """The route's config for ``tile`` (:func:`wgmma_config` for bf16, in
+    the operands' ``layout``, :func:`int8_config` for int8,
+    :func:`launch_config` for f32); raises ValueError for a tile the route
+    does not take, on any device."""
     tag = _tag(dtype)
     if tag == "int8":
         return int8_config(tile, k_outer=k_outer)
     if tag == "bf16":
-        return wgmma_config(tile, k_outer=k_outer)
+        return wgmma_config(tile, k_outer=k_outer, ta=layout[0],
+                            tb=layout[1])
     return launch_config(tile, dtype)
 
 
@@ -495,13 +587,28 @@ def _check_operands(a, b) -> tuple[int, int, int]:
 
 def _check_cuda(*ts) -> None:
     for t in ts:
-        if t.stride(-1) != 1 and t.numel() > 1:
-            raise ValueError(f"the kernels take row-major operands (unit "
-                             f"column stride), got strides {t.stride()}")
         if max(t.shape) >= 2 ** 31:
             raise ValueError(f"dimension {max(t.shape)} exceeds int32")
     if len({t.device for t in ts}) != 1:
         raise ValueError("operands on different CUDA devices")
+
+
+def _as_read(a, b):
+    """``(a, b, layout)``: the operands as the route reads them and their
+    wgmma layout (:func:`wgmma_layout`).  bf16 reads one transposed
+    operand in place (when both are, A is copied row-major); f32 and int8
+    read row-major operands only, so a transposed one is copied; each copy
+    counts in ``COPIES["transposed"]``.  Raises ValueError for an operand
+    that is neither row-major nor transposed."""
+    ta, tb = wgmma_layout(a, b)
+    bf16 = _tag(a.dtype) == "bf16"
+    if ta and (not tb or not bf16):
+        a, ta = a.contiguous(), 0
+        COPIES["transposed"] += 1
+    if not tb and not bf16:
+        b, tb = b.contiguous(), 1
+        COPIES["transposed"] += 1
+    return a, b, (ta, tb)
 
 
 def _core_launches(kname: str, a, b, c_in, c_out, m: int, n: int, k: int,
@@ -551,31 +658,47 @@ def _wgmma_lib(dtype):
     return lib, getattr(lib, encode), getattr(lib, launch)
 
 
-def _wgmma_maps(lib, encode, a, b, c, m: int, n: int, k: int, tile, cfg):
-    """The tensor maps of A, B and C (384 bytes) of one wrapper call, after
-    copying an operand TMA cannot read in place (int8: B always, into its
-    transpose); returns (maps, the operands used), which the caller keeps
-    alive until its launches are enqueued."""
+def _layout_config(tile, dtype, layout, cfg, *, k_outer: bool = False):
+    """(the layout the tensor-core launcher takes, None for int8, whose
+    operands are row-major; the config in that layout): ``cfg``, the
+    row-major layout's, unless a bf16 operand is transposed."""
+    if _tag(dtype) != "bf16":
+        return None, cfg
+    if layout != (0, 1):
+        cfg = check_tile(tile, dtype, k_outer=k_outer, layout=layout)
+    return layout, cfg
+
+
+def _wgmma_maps(lib, encode, a, b, c, m: int, n: int, k: int, tile, cfg,
+                layout):
+    """The tensor maps of A, B and C (384 bytes) of one wrapper call, each
+    on its operand as stored (a transposed operand's storage is the
+    row-major ``.t()``; ``layout`` as :func:`wgmma_layout`, None for
+    int8), after copying an operand TMA cannot read in place (int8: B
+    always, into its transpose); returns (maps, the operands used), which
+    the caller keeps alive until its launches are enqueued."""
     import ctypes
 
-    if needs_aligned_copy(a):
-        a = aligned_copy(a)
+    ta, tb = layout or (0, 1)
+    sa, sb = (a.t() if ta else a), (b if tb else b.t())
+    if needs_aligned_copy(sa):
+        sa = aligned_copy(sa)
         COPIES["aligned"] += 1
     if a.dtype == torch.int8:
-        b = transposed_copy(b)
+        sb = transposed_copy(sb)
         COPIES["transposed"] += 1
-    elif needs_aligned_copy(b):
-        b = aligned_copy(b)
+    elif needs_aligned_copy(sb):
+        sb = aligned_copy(sb)
         COPIES["aligned"] += 1
     maps = ctypes.create_string_buffer(384)
-    err = encode(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-                 _tma_row_stride(a), _tma_row_stride(b), c.stride(0),
-                 tile.bm, tile.bn, cfg.ks, maps)
+    err = encode(sa.data_ptr(), sb.data_ptr(), c.data_ptr(), m, n, k,
+                 _tma_row_stride(sa), _tma_row_stride(sb), c.stride(0),
+                 tile.bm, tile.bn, cfg.ks, *(layout or ()), maps)
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"tensor maps for {m}x{n}x{k} on tile {tile}: "
                            f"{msg} (error {err})")
-    return maps, (a, b)
+    return maps, (sa, sb)
 
 
 #: L2 bytes a group of m tiles may claim for the A rows it shares
@@ -593,12 +716,13 @@ def raster_group(m: int, k: int, bm: int, elem_bytes: int = 2) -> int:
 
 
 def _launch_wgmma(lib, launch, maps, c_in, c_out, m: int, n: int, k: int,
-                  k0: int, k1: int, tile, cfg, group: int) -> None:
+                  k0: int, k1: int, tile, cfg, group: int, layout) -> None:
     with on_device(c_out):
         stream = raw_stream(c_out)
         err = launch(maps, None if c_in is None else c_in.data_ptr(),
                      c_out.data_ptr(), m, n, k, c_out.stride(0), k0, k1,
-                     tile.bm, tile.bn, cfg.ks, cfg.stages, group, stream)
+                     tile.bm, tile.bn, cfg.ks, cfg.stages, group,
+                     *(layout or ()), stream)
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"wgmma gemm launch failed for {m}x{n}x{k} "
@@ -608,35 +732,39 @@ def _launch_wgmma(lib, launch, maps, c_in, c_out, m: int, n: int, k: int,
 
 
 def gemm_k_inner(a, b, *, tile: TileConfig):
-    """C = A @ B, output-stationary (B3A2C0 analogue)."""
+    """C = A @ B, output-stationary (B3A2C0 analogue).  Each operand is
+    row-major or the ``.t()`` of a row-major matrix (:func:`_as_read`)."""
     m, n, k = _check_operands(a, b)
     cfg = check_tile(tile, a.dtype)
     if _on_cpu(a, b):
         return gemm_k_inner_plain(a, b)
     _check_cuda(a, b)
     out = torch.empty((m, n), dtype=out_dtype(a.dtype), device=a.device)
-    if route(a.dtype) == "cuda_cores":
-        if out.numel():
-            _core_launches("gemm_k_inner", a, b, None, out, m, n, k, tile,
-                           max(k, 1))
+    if not out.numel():
         return out
-    if out.numel() and k == 0:
+    a, b, layout = _as_read(a, b)
+    if route(a.dtype) == "cuda_cores":
+        _core_launches("gemm_k_inner", a, b, None, out, m, n, k, tile,
+                       max(k, 1))
+        return out
+    if k == 0:
         out.zero_()
         return out
-    elif out.numel():
-        lib, encode, launch = _wgmma_lib(a.dtype)
-        maps, _keep = _wgmma_maps(lib, encode, a, b, out, m, n, k, tile, cfg)
-        _launch_wgmma(lib, launch, maps, None, out, m, n, k, 0, k, tile, cfg,
-                      raster_group(m, k, tile.bm, a.element_size()))
-    else:
-        return out
+    layout, cfg = _layout_config(tile, a.dtype, layout, cfg)
+    lib, encode, launch = _wgmma_lib(a.dtype)
+    with on_device(out):
+        maps, _keep = _wgmma_maps(lib, encode, a, b, out, m, n, k, tile, cfg,
+                                  layout)
+    _launch_wgmma(lib, launch, maps, None, out, m, n, k, 0, k, tile, cfg,
+                  raster_group(m, k, tile.bm, a.element_size()), layout)
     LAUNCHES["gemm_k_inner"] += 1
     return out
 
 
 def gemm_k_outer(a, b, c, *, tile: TileConfig):
     """C + A @ B with C streamed once per k block (C3B2A0/B3C2A0 analogue);
-    C is rounded to its dtype after every pass."""
+    C is rounded to its dtype after every pass.  Operands as
+    :func:`gemm_k_inner`'s."""
     m, n, k = _check_operands(a, b)
     cfg = check_tile(tile, a.dtype, k_outer=True)
     if tuple(c.shape) != (m, n):
@@ -651,18 +779,21 @@ def gemm_k_outer(a, b, c, *, tile: TileConfig):
     _check_cuda(a, b, c)
     out = c.clone(memory_format=torch.contiguous_format)
     bk = tile.bk
-    if route(a.dtype) == "cuda_cores":
-        if out.numel() and k:
-            _core_launches("gemm_k_outer", a, b, out, out, m, n, k, tile, bk)
-        return out
     if not (out.numel() and k):
         return out
+    a, b, layout = _as_read(a, b)
+    if route(a.dtype) == "cuda_cores":
+        _core_launches("gemm_k_outer", a, b, out, out, m, n, k, tile, bk)
+        return out
+    layout, cfg = _layout_config(tile, a.dtype, layout, cfg, k_outer=True)
     lib, encode, launch = _wgmma_lib(a.dtype)
-    maps, _keep = _wgmma_maps(lib, encode, a, b, out, m, n, k, tile, cfg)
+    with on_device(out):
+        maps, _keep = _wgmma_maps(lib, encode, a, b, out, m, n, k, tile, cfg,
+                                  layout)
     group = raster_group(m, min(bk, k), tile.bm, a.element_size())
     for k0 in range(0, k, bk):
         _launch_wgmma(lib, launch, maps, out, out, m, n, k, k0,
-                      min(k0 + bk, k), tile, cfg, group)
+                      min(k0 + bk, k), tile, cfg, group, layout)
         LAUNCHES["gemm_k_outer"] += 1
     return out
 

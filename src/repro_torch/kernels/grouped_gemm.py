@@ -20,17 +20,24 @@ Two routes, by dtype (:func:`route`), as for the GEMM (``kernels/gemm.py``):
   (at most 128) tokens by 64 F columns, in slabs 64 deep, in a ring of at
   most three stages (:func:`grouped_config`): the kernel is bound by bytes,
   and its blocks are short-lived, so what matters is many blocks in flight
-  on every SM, each with a few slabs of weights.  Each encoded tensor map is kept, keyed by everything the encoding
-  is a function of (:func:`map_key`), so the expert weights' maps are
-  encoded once and a call encodes none.  Operands whose rows TMA
-  cannot read (D or F not a multiple of 8, a misaligned base) are first
-  copied once to aligned rows (``kernels.gemm.aligned_copy``, counted in
-  ``COPIES``).
+  on every SM, each with a few slabs of weights.  Each encoded tensor map
+  is kept, keyed by everything the encoding is a function of
+  (:func:`map_key`), so the expert weights' maps are encoded once and a
+  call encodes none.  Operands whose rows TMA cannot read (D or F not a
+  multiple of 8, a misaligned base) are first copied once to aligned rows
+  (``kernels.gemm.aligned_copy``, counted in ``COPIES["aligned"]``).  The
+  backward products' ``x.transpose(1, 2)`` and ``w.transpose(1, 2)``
+  (views of contiguous tensors) are read in place, in wgmma's transposed
+  layouts (``kernels.gemm.wgmma_layout``); an MN-major x's blocks walk the
+  tiles of every expert persistently.
 * ``"cuda_cores"``: f32 runs the GEMM's CUDA-core kernel,
   ``csrc/tile_gemm.cuh`` (FP32 FMA: TF32 would not compute the f32
   function), with the expert as ``blockIdx.z``, on a bc x 128 x 128 tile:
   register tiles of 4-wide fragments fed by a cp.async ring of weight
-  sub-slabs (``kernels.gemm.launch_config``).
+  sub-slabs (``kernels.gemm.launch_config``).  It reads contiguous
+  operands only: a transposed view is copied once (counted in
+  ``COPIES["transposed"]``; so is bf16's x when both operands are
+  transposed).
 
 A tile the route does not take raises ValueError, on any device.  Ragged
 edges are handled in the kernels, so C, D and F need not divide the tile.
@@ -57,8 +64,9 @@ from repro_torch.kernels.gemm import on_device, raw_stream
 LAUNCHES = {"grouped_gemm": 0}
 #: the same launches by route: tensor cores (bf16) or CUDA cores (f32)
 ROUTES = {"wgmma": 0, "cuda_cores": 0}
-#: operands copied into a TMA-aligned buffer before a wgmma launch
-COPIES = {"aligned": 0}
+#: operands copied before a launch: into a TMA-aligned buffer (wgmma), or
+#: from a transposed view the route does not read in place
+COPIES = {"aligned": 0, "transposed": 0}
 _TAGS = {torch.bfloat16: "bf16", torch.float32: "f32"}
 MAX_BLOCK_C = 128
 #: the CUDA-core route's tile: bf x bk
@@ -112,43 +120,61 @@ def grouped_tile(c: int, dtype) -> TileConfig:
     return TileConfig(bc, BLOCK_F, BLOCK_K)
 
 
-def grouped_config(tile: TileConfig) -> K.WgmmaConfig:
+def grouped_config(tile: TileConfig, layout: tuple[int, int] = (0, 1)
+                   ) -> K.WgmmaConfig:
     """How the wgmma route runs ``tile`` (bc x bf tokens by columns, slabs
-    bk deep): as many stages as fit :data:`WGMMA_BLOCKS_PER_SM` blocks to
-    an SM, at most :data:`WGMMA_MAX_STAGES`; a tile of which two stages do
-    not fit that share gets as many as fit a block's whole limit.  Raises
+    bk deep) on operands in ``layout`` (``kernels.gemm.wgmma_layout``): as
+    many stages as fit :data:`WGMMA_BLOCKS_PER_SM` blocks to an SM, at
+    most :data:`WGMMA_MAX_STAGES`; a tile of which two stages do not fit
+    that share gets as many as fit a block's whole limit.  A transposed
+    layout takes ``kernels.gemm.WGMMA_TRANSPOSED_STAGES``, as many as fit
+    a block's limit, and an MN-major x walks its tiles (two stages at
+    least: its consumers release a stage one slab late).  Raises
     ValueError for a tile the route does not take (one stage over the
     232,448 B a Hopper block may claim)."""
     bm, bn, bk = tile.bm, tile.bn, tile.bk
     if not all(v > 0 and v & (v - 1) == 0 for v in (bm, bn, bk)):
         raise ValueError(f"tile {tile}: the kernels take power-of-two "
                          f"bm, bn, bk")
-    stage, rest = K._wgmma_stage(bm, bn, bk, bn >= 8)
+    ta, tb = layout
+    if ta and not tb:
+        raise ValueError("the bf16 route reads one transposed operand at a "
+                         "time")
+    walk = bool(ta)
+    stage, rest = K._wgmma_stage(bm, bn, bk, bn >= 8, ta, tb)
     share = SM_SMEM_BYTES // WGMMA_BLOCKS_PER_SM - BLOCK_RESERVED_SMEM
     fit = (share - rest) // (stage + 16)
     if fit < 2:
         fit = (K.MAX_SMEM_BYTES - rest) // (stage + 16)
-    if fit < 1:
+    if fit < (2 if walk else 1):
         raise ValueError(
-            f"tile {tile}: one {stage}-byte stage exceeds the "
-            f"{K.MAX_SMEM_BYTES} bytes of shared memory a Hopper block may "
-            f"claim")
+            f"tile {tile}: {2 if walk else 1} {stage}-byte stage(s) exceed "
+            f"the {K.MAX_SMEM_BYTES} bytes of shared memory a Hopper block "
+            f"may claim")
     stages = min(fit, WGMMA_MAX_STAGES)
+    if ta or not tb:
+        # the backward products are deeper than a served step's: a ring of
+        # kernels.gemm.WGMMA_TRANSPOSED_STAGES, as a block's limit allows
+        # (two blocks an SM at 128 x 64 x 64, where three stages of the
+        # row-major ring fit three)
+        stages = min(K.WGMMA_TRANSPOSED_STAGES,
+                     (K.MAX_SMEM_BYTES - rest) // (stage + 16))
     bnp = max(bn, K.WGMMA_BOX_COLS)
     nw = min(bnp, 256)
     units = -(-max(bm, 8) // 64) * (bnp // nw)
     consumers = 1 if units < 2 or nw == 256 else 2     # as wgmma_config
+    smem, threads = K._wgmma_smem(stage, rest, stages), consumers * 128 + 32
     return K.WgmmaConfig(nw, consumers, -(-units // consumers), bk, stages,
-                         stage, K._wgmma_smem(stage, rest, stages),
-                         consumers * 128 + 32)
+                         stage, smem, threads, walk,
+                         K.resident_blocks(smem, threads))
 
 
-def check_tile(tile: TileConfig, dtype):
-    """The route's config for ``tile`` (:func:`grouped_config` for bf16,
-    ``kernels.gemm.launch_config`` for f32); raises ValueError for a tile
-    the route does not take."""
+def check_tile(tile: TileConfig, dtype, layout: tuple[int, int] = (0, 1)):
+    """The route's config for ``tile`` (:func:`grouped_config` for bf16, in
+    the operands' ``layout``, ``kernels.gemm.launch_config`` for f32);
+    raises ValueError for a tile the route does not take."""
     if route(dtype) == "wgmma":
-        return grouped_config(tile)
+        return grouped_config(tile, layout)
     return K.launch_config(tile, dtype)
 
 
@@ -178,8 +204,9 @@ def _check(x, w) -> None:
 
 
 class Plan(NamedTuple):
-    """What one call signature (shapes, dtypes, tile) needs: checked and
-    configured once, since both follow from the signature alone."""
+    """What one call signature (shapes, dtypes, layout, tile) needs:
+    checked and configured once, since both follow from the signature
+    alone."""
     e: int
     c: int
     d: int
@@ -189,28 +216,56 @@ class Plan(NamedTuple):
     ks: int         #: the wgmma route's slab depth, stages and raster
     stages: int     #: group (0 on the CUDA-core route)
     group: int
+    #: wgmma's transpose bits for x and w as read (:func:`layout`)
+    layout: tuple[int, int] = (0, 1)
 
 
-#: plans by (x's shape, w's shape, dtypes, the tile asked for); dropped
-#: past :data:`MAX_PLANS`
+#: plans by (x's shape, w's shape, dtypes, layout, the tile asked for);
+#: dropped past :data:`MAX_PLANS`
 _PLANS: dict[tuple, Plan] = {}
 MAX_PLANS = 256
 
 
-def plan(x, w, tile: TileConfig | None = None) -> Plan:
-    """The :class:`Plan` of ``grouped_gemm(x, w, tile=tile)``; raises
-    ValueError for operands or a tile the kernels do not take."""
-    key = (x.shape, w.shape, x.dtype, w.dtype, tile)
+def stored_transposed(t) -> bool:
+    """Whether the 3-D operand ``t`` is the ``transpose(1, 2)`` of a
+    contiguous tensor, not contiguous itself; raises ValueError for one
+    that is neither."""
+    if t.is_contiguous():
+        return False
+    if t.transpose(1, 2).is_contiguous():
+        return True
+    raise ValueError("the grouped GEMM kernel takes contiguous operands "
+                     "and their transpose(1, 2) views")
+
+
+def layout(x, w) -> tuple[int, int]:
+    """wgmma's transpose bits ``(ta, tb)`` for the operands as the route
+    reads them: ``ta = 1`` for an x stored transposed, ``tb = 0`` for a w
+    stored transposed; bf16 reads one of them at a time (with both, x is
+    copied first: :func:`_as_read`), f32 neither."""
+    if route(x.dtype) != "wgmma":
+        return 0, 1
+    tw = stored_transposed(w)
+    return int(stored_transposed(x) and not tw), int(not tw)
+
+
+def plan(x, w, tile: TileConfig | None = None,
+         lay: tuple[int, int] | None = None) -> Plan:
+    """The :class:`Plan` of ``grouped_gemm(x, w, tile=tile)`` in the layout
+    ``lay`` (default: :func:`layout`); raises ValueError for operands or a
+    tile the kernels do not take."""
+    _check(x, w)
+    lay = layout(x, w) if lay is None else lay
+    key = (x.shape, w.shape, x.dtype, w.dtype, lay, tile)
     p = _PLANS.get(key)
     if p is None:
-        _check(x, w)
         e, c, d = x.shape
         f = w.shape[2]
         t = grouped_tile(c, x.dtype) if tile is None else tile
-        cfg = check_tile(t, x.dtype)
+        cfg = check_tile(t, x.dtype, lay)
         rt = route(x.dtype)
         p = (Plan(e, c, d, f, t, rt, cfg.ks, cfg.stages,
-                  K.raster_group(c, d, t.bm)) if rt == "wgmma"
+                  K.raster_group(c, d, t.bm), lay) if rt == "wgmma"
              else Plan(e, c, d, f, t, rt, 0, 0, 0))
         if len(_PLANS) >= MAX_PLANS:
             _PLANS.clear()
@@ -227,25 +282,29 @@ MAX_MAPS = 1024
 
 
 def map_key(operand: str, ptr: int, rows: int, cols: int, depth: int,
-            ld: int, plane: int, tile: TileConfig) -> tuple:
+            ld: int, plane: int, tile: TileConfig, trans: bool = False
+            ) -> tuple:
     """What the tensor map of one operand is a pure function of: its base
-    address, its extents (``depth`` matrices of ``rows`` x ``cols``), its
-    strides (``ld`` between rows, ``plane`` between experts, in elements)
-    and, through the tile, its box and swizzle.  A map kept under this key
-    is right for any tensor with these values, whatever memory it reuses."""
+    address, its extents as stored (``depth`` matrices of ``rows`` x
+    ``cols``), its strides (``ld`` between rows, ``plane`` between
+    experts, in elements), whether it is read as its transpose (``trans``)
+    and, through the tile and that layout, its box and swizzle.  A map kept
+    under this key is right for any tensor with these values, whatever
+    memory it reuses."""
     return (OPERANDS[operand], ptr, rows, cols, depth, ld, plane, tile.bm,
-            tile.bn, tile.bk)
+            tile.bn, tile.bk, bool(trans))
 
 
 def _tensor_map(lib, operand: str, ptr: int, rows: int, cols: int,
-                depth: int, ld: int, tile: TileConfig):
-    key = map_key(operand, ptr, rows, cols, depth, ld, rows * ld, tile)
+                depth: int, ld: int, tile: TileConfig, trans: bool = False):
+    key = map_key(operand, ptr, rows, cols, depth, ld, rows * ld, tile,
+                  trans)
     m = _MAPS.get(key)
     if m is None:
         m = ctypes.create_string_buffer(128)
         err = lib.repro_grouped_encode(m, ptr, rows, cols, depth, ld,
                                        rows * ld, key[0], tile.bm, tile.bn,
-                                       tile.bk)
+                                       tile.bk, int(trans))
         if err != 0:
             msg = lib.repro_cuda_error_string(err).decode()
             raise RuntimeError(f"tensor map of {operand} ({depth}, {rows}, "
@@ -291,22 +350,28 @@ def _launch(x, w, y, p: Plan) -> None:
 
 def _launch_wgmma(x, w, y, p: Plan) -> None:
     e, c, d, f, tile = p.e, p.c, p.d, p.f, p.tile
+    ta, tb = p.layout
     lib = build.load("grouped_gemm_bf16")
-    # the operands read (aligned copies among them) live until the launch
-    # is enqueued
-    xa, ldx, cx = tma_rows(x, d)
-    wa, ldw, cw = tma_rows(w, f)
+    # each operand as stored: x (C, D) a matrix, or x^T's (D, C); w (D, F),
+    # or w^T's (F, D).  The operands read (aligned copies among them) live
+    # until the launch is enqueued
+    xs = x.transpose(1, 2) if ta else x
+    ws = w if tb else w.transpose(1, 2)
+    xa, ldx, cx = tma_rows(xs, xs.shape[2])
+    wa, ldw, cw = tma_rows(ws, ws.shape[2])
     COPIES["aligned"] += cx + cw
-    mx = _tensor_map(lib, "x", xa.data_ptr(), c, d, e, ldx, tile)
-    mw = _tensor_map(lib, "w", wa.data_ptr(), d, f, e, ldw, tile)
-    # y (fresh, contiguous) goes out by TMA where its rows are 16 bytes
-    my = (_tensor_map(lib, "y", y.data_ptr(), c, f, e, f, tile)
-          if f % 8 == 0 and y.data_ptr() % 16 == 0 and tile.bn >= 8
-          else None)
     with on_device(y):
+        mx = _tensor_map(lib, "x", xa.data_ptr(), *xs.shape[1:], e, ldx,
+                         tile, ta)
+        mw = _tensor_map(lib, "w", wa.data_ptr(), *ws.shape[1:], e, ldw,
+                         tile, not tb)
+        # y (fresh, contiguous) goes out by TMA where its rows are 16 bytes
+        my = (_tensor_map(lib, "y", y.data_ptr(), c, f, e, f, tile)
+              if f % 8 == 0 and y.data_ptr() % 16 == 0 and tile.bn >= 8
+              else None)
         err = lib.repro_grouped_gemm_wgmma(
             mx, mw, my, y.data_ptr(), e, c, d, f, f, c * f, tile.bm, tile.bn,
-            p.ks, p.stages, p.group, raw_stream(y))
+            p.ks, p.stages, p.group, ta, tb, raw_stream(y))
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"grouped wgmma launch failed for ({e}, {c}, {d}) "
@@ -314,16 +379,33 @@ def _launch_wgmma(x, w, y, p: Plan) -> None:
                            f"error {err})")
 
 
+def _as_read(x, w, p: Plan):
+    """x and w as the route reads them: a transposed view the plan's layout
+    does not read in place (f32: any; bf16: x when both are transposed) is
+    copied contiguous once, counted in ``COPIES["transposed"]``."""
+    ta, tb = p.layout
+    if not ta and stored_transposed(x):
+        x = x.contiguous()
+        COPIES["transposed"] += 1
+    if tb and stored_transposed(w):
+        w = w.contiguous()
+        COPIES["transposed"] += 1
+    return x, w
+
+
 def grouped_gemm(x, w, *, tile: TileConfig | None = None):
-    """x: (E, C, D) @ w: (E, D, F) -> (E, C, F) in ``x.dtype``.
+    """x: (E, C, D) @ w: (E, D, F) -> (E, C, F) in ``x.dtype``.  Each
+    operand is contiguous or the ``transpose(1, 2)`` of a contiguous
+    tensor (:func:`layout`).
 
     ``tile`` overrides :func:`grouped_tile`; a tile the route does not take
     raises ValueError, on any device."""
-    p = plan(x, w, tile)
-    if not (x.is_cuda and w.is_cuda) and K._on_cpu(x, w):
+    cpu = not (x.is_cuda and w.is_cuda) and K._on_cpu(x, w)
+    # the plain version reads any strides: a CPU call checks the tile in
+    # the row-major layout
+    p = plan(x, w, tile, (0, 1) if cpu else None)
+    if cpu:
         return grouped_gemm_plain(x, w)
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("the grouped GEMM kernel takes contiguous operands")
     if x.get_device() != w.get_device():
         raise ValueError("operands on different CUDA devices")
     y = x.new_empty((p.e, p.c, p.f))
@@ -331,6 +413,7 @@ def grouped_gemm(x, w, *, tile: TileConfig | None = None):
         return y
     if p.d == 0:
         return y.zero_()
+    x, w = _as_read(x, w, p)
     _launch(x, w, y, p)
     LAUNCHES["grouped_gemm"] += 1
     ROUTES[p.route] += 1

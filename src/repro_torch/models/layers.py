@@ -122,26 +122,26 @@ def embed_tokens(params, token_ids, cfg):
 
 
 def head_matrix(params, cfg):
-    """The (D, Vp) logits matrix, row-major.  With tied embeddings it is
-    the transposed table; the CUDA kernels take row-major operands only, so
-    it is made contiguous here, once per compute copy (``LM.compute_params``
-    keeps it under ``"head"``), not once per decode step.  Under autograd
-    the copy is an ordinary differentiable op: a training step rebuilds it
-    from its own compute copy, and the table's gradient flows through it."""
+    """The (D, Vp) logits matrix.  With tied embeddings it is the table's
+    ``.t()``, a view: the bf16 GEMM reads it in place (K-major B), so
+    neither a training step nor a compute copy copies the table
+    (``LM.compute_params`` keeps the view under ``"head"``); the f32 route
+    copies it row-major inside each call.  Under autograd the view is an
+    ordinary differentiable op, and the table's gradient flows through
+    it."""
     if "head" in params:
         return params["head"]
     if cfg.tie_embeddings:
-        return params["table"].t().contiguous()
+        return params["table"].t()
     return params["unembed"]
 
 
 def logits_head(params, x, cfg):
     """x: (..., d) -> (..., padded_vocab); soft-capped if configured.  With
-    tied embeddings the table is the head's transpose, row-major, so the
-    backward product ``dX = dlogits · table`` needs no transposed copy."""
-    logits = gemm_api.matmul(
-        x, head_matrix(params, cfg),
-        w_t=params["table"] if cfg.tie_embeddings else None)
+    tied embeddings the backward product ``dX = dlogits · table`` reads the
+    table row-major and ``dTable`` comes out in the table's layout
+    (``gemm/autograd.py``)."""
+    logits = gemm_api.matmul(x, head_matrix(params, cfg))
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)

@@ -236,8 +236,9 @@ class LM(nn.Module):
 
     def compute_params(self, params=None) -> dict:
         """The compute copy of ``params`` (default: this model's): matrices
-        in the compute dtype, vectors kept, plus the logits matrix as a
-        row-major ``(D, Vp)`` under ``embed.head``.  Make it once and pass
+        in the compute dtype, vectors kept, plus the ``(D, Vp)`` logits
+        matrix under ``embed.head`` (tied: a view of the table,
+        ``layers.head_matrix``).  Make it once and pass
         it to every call; a tree that is already a compute copy comes back
         unchanged, without copies."""
         params = self.values() if params is None else params

@@ -3,9 +3,10 @@ package, on the CPU.
 
 ``gemm.matmul`` and ``gemm.grouped_matmul`` are ``torch.autograd.Function``s
 (``repro_torch.gemm.autograd``) whose backward products run on the same
-planned kernels as the forward; on CPU tensors those are the kernels' plain
-versions, so these tests check the backward formula the card runs.  The
-JAX side is ``jax.vjp`` of ``repro.gemm.matmul`` / ``grouped_matmul`` (the
+planned kernels as the forward, on views of the saved operands (no
+transposed copies); on CPU tensors those are the kernels' plain versions,
+so these tests check the backward formula the card runs.  The JAX side is
+``jax.vjp`` of ``repro.gemm.matmul`` / ``grouped_matmul`` (the
 ``reference`` backend, jnp products, as the JAX package runs on the CPU) and
 ``jax.value_and_grad`` of ``repro.models.model.LM.loss_fn`` on the same
 weights (``interop.load_jax_params``) and the same batch.
@@ -16,11 +17,11 @@ rtol 1e-4 / atol 1e-6 per element of each leaf for qwen2-1.5b and
 granite-moe-3b-a800m.  The recurrent families are held per leaf by relative
 L2: xlstm-125m at 1e-5 (one element of 30 k sits 1.8e-6 from the JAX
 package's, beyond the elementwise atol, while both packages lie as close
-to a float64 run); zamba2-1.2b at 1e-3: its f32 gradient lies 3.1e-4
-(relative L2) from a float64 run of the port's own model where the JAX
-package's lies 1.9e-5, an open fault of the port's Mamba2 backward in the
-model (ROADMAP queue 3; the block alone is as accurate as the JAX
-package's).
+to a float64 run); zamba2-1.2b at 1e-4 (the worst leaf measures 4.4e-5).
+Both packages' f32 gradients of zamba2 lie 2-4e-5 (relative L2) from the
+JAX package's float64 run on the same weights and batch, the port's no
+further than the JAX package's: each leaf is held to at most twice the JAX
+package's distance, plus 1e-6.
 """
 import dataclasses
 
@@ -94,46 +95,68 @@ def test_grouped_matmul_gradients_match_jax_vjp(lead, dt):
     _close(gw, dw, dt)
 
 
-def test_backward_products_are_planned_and_copies_counted(monkeypatch):
-    """dA = dC·Bᵀ and dB = Aᵀ·dC each go through ``gemm.plan`` on their own
-    shape (on the forward's backend); each transposed operand is one
-    counted row-major copy, and a given ``w_t`` spares dA's."""
+def _spy_products(monkeypatch):
+    """Records every ``GA.product`` call: (A's shape, B's shape, backend,
+    A's and B's storage, A's and B's strides)."""
     seen = []
     real = GA.product
 
     def spy(a, b, backend):
-        seen.append((tuple(a.shape), tuple(b.shape), backend))
-        assert a.is_contiguous() and b.is_contiguous()
+        seen.append((tuple(a.shape), tuple(b.shape), backend, a.data_ptr(),
+                     b.data_ptr(), a.stride(), b.stride()))
         return real(a, b, backend)
 
     monkeypatch.setattr(GA, "product", spy)
+    return seen
+
+
+def test_backward_products_are_planned_and_copies_counted(monkeypatch):
+    """dA = dC·Bᵀ and dB = Aᵀ·dC each go through ``gemm.plan`` on their own
+    shape (on the forward's backend), on views of the saved operands: no
+    copy is made.  A transposed B (the tied head's ``table.t()``) gives dA
+    on the table as stored and dB = (dCᵀ·A)ᵀ, contiguous where the table
+    is."""
+    seen = _spy_products(monkeypatch)
     x = torch.randn(6, 8, requires_grad=True)
     w = torch.randn(8, 5, requires_grad=True)
-    GA.reset_copy_counts()
     gemm.matmul(x, w, backend="reference").sum().backward()
-    assert seen == [((6, 8), (8, 5), "reference"),
-                    ((6, 5), (5, 8), "reference"),
-                    ((8, 6), (6, 5), "reference")]
-    assert GA.COPIES == {"transposed": 2}
+    assert [s[:3] for s in seen] == [((6, 8), (8, 5), "reference"),
+                                     ((6, 5), (5, 8), "reference"),
+                                     ((8, 6), (6, 5), "reference")]
+    assert seen[1][4] == w.data_ptr() and seen[1][6] == (1, 5)      # w.t()
+    assert seen[2][3] == x.data_ptr() and seen[2][5] == (1, 8)      # x.t()
     seen.clear()
-    x.grad = w.grad = None
-    gemm.matmul(x, w, w_t=w.detach().t().contiguous()).sum().backward()
+    x.grad = None
+    table = torch.randn(5, 8, requires_grad=True)
+    gemm.matmul(x, table.t()).sum().backward()
     assert [s[:2] for s in seen] == [((6, 8), (8, 5)), ((6, 5), (5, 8)),
-                                     ((8, 6), (6, 5))]
-    assert GA.COPIES == {"transposed": 3}
-    torch.testing.assert_close(x.grad, torch.ones(6, 5) @ w.detach().t())
+                                     ((5, 6), (6, 8))]
+    assert seen[0][4] == table.data_ptr() and seen[0][6] == (1, 8)
+    assert seen[1][4] == table.data_ptr() and seen[1][6] == (8, 1)
+    assert seen[2][5] == (1, 5) and seen[2][4] == x.data_ptr()
+    torch.testing.assert_close(x.grad, torch.ones(6, 5) @ table.detach())
+    torch.testing.assert_close(table.grad, torch.ones(5, 6) @ x.detach())
+    assert table.grad.is_contiguous()
 
 
-def test_tied_head_gradient_flows_to_the_table_without_a_copy_for_dx():
+def test_tied_head_gradient_flows_to_the_table_without_a_copy_for_dx(
+        monkeypatch):
+    """The head is the table's ``.t()`` (a view): the forward and dX read
+    the table as stored, dTable reads the activations as stored, and no
+    product receives a copy of either."""
     cfg = get_config("qwen2-1.5b", smoke=True)
     assert cfg.tie_embeddings
     from repro_torch.models import layers
+    seen = _spy_products(monkeypatch)
     table = torch.randn(cfg.padded_vocab, cfg.d_model, requires_grad=True)
     x = torch.randn(2, 3, cfg.d_model, requires_grad=True)
-    GA.reset_copy_counts()
+    head = layers.head_matrix({"table": table}, cfg)
+    assert head.data_ptr() == table.data_ptr() and head.t().is_contiguous()
     logits = layers.logits_head({"table": table}, x, cfg)
     (logits.square().sum()).backward()
-    assert GA.COPIES == {"transposed": 1}          # Aᵀ for dB only
+    assert len(seen) == 3
+    assert seen[0][4] == seen[1][4] == table.data_ptr()   # forward, dX
+    assert seen[2][4] == x.data_ptr()                     # dTable
     x2 = x.detach().requires_grad_()
     t2 = table.detach().requires_grad_()
     (x2 @ t2.t()).square().sum().backward()
@@ -155,8 +178,8 @@ def test_serving_calls_record_nothing():
 def test_int8_products_have_no_backward():
     class Ctx:
         saved_tensors = (torch.zeros(2, 2, dtype=torch.int8),
-                         torch.zeros(2, 2, dtype=torch.int8), None)
-        needs_input_grad = (True, True, False, False, False)
+                         torch.zeros(2, 2, dtype=torch.int8))
+        needs_input_grad = (True, True, False, False)
         backend = "cuda"
 
     with pytest.raises(TypeError, match="floating point"):
@@ -208,7 +231,7 @@ def _grads(lm, values, batch, remat="block"):
 #: per arch: None holds each element at rtol 1e-4 / atol 1e-6, a number
 #: bounds each leaf's relative L2 (module docstring)
 GRAD_BOUND = {"qwen2-1.5b": None, "granite-moe-3b-a800m": None,
-              "xlstm-125m": 1e-5, "zamba2-1.2b": 1e-3}
+              "xlstm-125m": 1e-5, "zamba2-1.2b": 1e-4}
 
 
 @pytest.mark.parametrize("arch", sorted(GRAD_BOUND))
@@ -235,6 +258,113 @@ def test_loss_fn_and_gradients_match_jax_value_and_grad(arch):
         else:
             rel = np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-30)
             assert rel <= bound, (path, rel)
+
+
+def test_zamba2_gradients_are_as_close_to_float64_as_the_jax_packages():
+    """The JAX package's zamba2 smoke model run in float64 (every dtype of
+    its config, under ``jax.enable_x64``) on the carried weights and batch
+    is the yardstick: each leaf of the port's f32 gradient lies at most
+    twice as far from it (relative L2) as the JAX package's f32 gradient,
+    plus 1e-6."""
+    arch = "zamba2-1.2b"
+    lm, values, jlm, jvalues = _carried(arch)
+    batch = _batch(lm.cfg, 2, 16, 7)
+
+    def jax_grads(model, params):
+        _, g = jax.jit(jax.value_and_grad(
+            lambda v: model.loss_fn(v, {k: jnp.asarray(x)
+                                        for k, x in batch.items()}),
+            has_aux=True))(params)
+        return _unstack(jax.tree.map(np.array, g))
+
+    want32 = jax_grads(jlm, jvalues)
+    with jax.enable_x64(True):
+        cfg64 = dataclasses.replace(jget_config(arch, smoke=True),
+                                    param_dtype="float64",
+                                    compute_dtype="float64",
+                                    kv_cache_dtype="float64")
+        want64 = jax_grads(JLM(cfg64, JHOST_MESH), jax.tree.map(
+            lambda a: jnp.asarray(np.asarray(a), jnp.float64), jvalues))
+    _, _, grads = _grads(lm, values, batch)
+    assert set(grads) == set(want64)
+    for path, g in grads.items():
+        ref = want64[path]
+        assert ref.dtype == np.float64, path
+        norm = max(np.linalg.norm(ref), 1e-30)
+        port = np.linalg.norm(g.numpy().astype(np.float64) - ref) / norm
+        jax_ = np.linalg.norm(want32[path].astype(np.float64) - ref) / norm
+        assert port <= 2 * jax_ + 1e-6, (path, port, jax_)
+
+
+def _record_backward(monkeypatch):
+    """Wraps both Functions' ``backward`` and the products they call:
+    records each backward product as (kind, A, B, the storage of the
+    backward's saved operands)."""
+    rec = {"products": [], "saved": None}
+
+    class Ctx:
+        """The backward's ctx, noting the saved operands' storage when the
+        backward unpacks them (once: a remat block's recompute runs then,
+        before anything is noted, and is not recorded)."""
+
+        def __init__(self, ctx):
+            self._ctx = ctx
+
+        def __getattr__(self, name):
+            return getattr(self._ctx, name)
+
+        @property
+        def saved_tensors(self):
+            ts = self._ctx.saved_tensors
+            rec["saved"] = {t.data_ptr() for t in ts}
+            return ts
+
+    for fn, name in ((GA.PlannedMatmul, "product"),
+                     (GA.GroupedMatmul, "grouped_product")):
+        def backward(ctx, grad, _real=fn.backward):
+            try:
+                return _real(Ctx(ctx), grad)
+            finally:
+                rec["saved"] = None
+
+        def spy(a, b, *rest, _real=getattr(GA, name), _name=name):
+            if rec["saved"] is not None:
+                rec["products"].append((_name, a, b, rec["saved"]))
+            return _real(a, b, *rest)
+        monkeypatch.setattr(fn, "backward", staticmethod(backward))
+        monkeypatch.setattr(GA, name, spy)
+    return rec
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "granite-moe-3b-a800m"])
+def test_a_loss_fn_step_makes_no_transposed_copy(arch, dt, monkeypatch):
+    """Every backward product of a smoke ``loss_fn`` step reads one of the
+    backward's saved operands in place, a view sharing its storage, beside
+    the incoming gradient; and every one has a transposed operand (``b.t()``,
+    ``a.t()``, ``w.transpose(1, 2)``, ``x.transpose(1, 2)``, the tied
+    head's ``dlogits.t()``) but the tied head's dX, which reads the table
+    as stored."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), compute_dtype=dt)
+    lm = LM(cfg, HOST_MESH, device="cpu")
+    values = lm.init(torch.Generator().manual_seed(3))
+    lm.train_mode()
+    rec = _record_backward(monkeypatch)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, 2, 8, 5).items()}
+    loss, _ = lm.loss_fn(values, batch)
+    torch.autograd.grad(loss, list(_flatten(values).values()),
+                        allow_unused=True)
+    kinds = {"product": 0, "grouped_product": 0}
+    row_major = 0
+    for kind, a, b, saved in rec["products"]:
+        kinds[kind] += 1
+        assert a.data_ptr() in saved or b.data_ptr() in saved, (
+            kind, a.shape, b.shape)
+        row_major += not any(GA.stored_transposed(t) for t in (a, b))
+        assert a.dtype == b.dtype == getattr(torch, dt)
+    assert kinds["product"] > 0
+    assert (kinds["grouped_product"] > 0) == (arch != "qwen2-1.5b")
+    assert row_major == int(cfg.tie_embeddings)
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "granite-moe-3b-a800m"])

@@ -509,8 +509,10 @@ def test_grouped_kernel_refuses_a_tile_over_the_shared_memory_limit():
     before = G.LAUNCHES["grouped_gemm"]
     with pytest.raises(ValueError, match="shared memory"):
         G.grouped_gemm(x, w, tile=TileConfig(128, 128, 512))
+    # transpose(1, 2) views of contiguous tensors are read in place; a
+    # strided slice is neither
     with pytest.raises(ValueError, match="contiguous"):
-        G.grouped_gemm(x.transpose(1, 2).contiguous().transpose(1, 2), w)
+        G.grouped_gemm(x[:, :, ::2], w[:, ::2])
     assert G.LAUNCHES["grouped_gemm"] == before
 
 
@@ -945,3 +947,119 @@ def test_loss_fn_gradients_on_the_card_match_the_cpu():
     for path, g in grads["cpu"].items():
         got = grads["cuda"][path].cpu()
         assert ((got - g).norm() / g.norm()).item() <= 1e-4, path
+
+
+# ---------------------------------------------------------------------------
+# Transposed operands read in place: the backward products' layouts
+# ---------------------------------------------------------------------------
+
+def _transposed_operands(m, n, k, which, seed):
+    """bf16 (A, B) of an m x n x k product, ``which`` of them ("a" or "b")
+    the ``.t()`` of a row-major matrix: A^T stored (k, m), or B^T stored
+    (n, k)."""
+    a, b = _operands(m, n, k, "bf16", seed)
+    if which == "a":
+        return a.t().contiguous().t(), b
+    return a, b.t().contiguous().t()
+
+
+#: (m, n, k, tile): ragged in every dimension (A^T's rows of 300 and B^T's
+#: of 390 are copied to aligned rows), a slab shallower than a k16 step,
+#: tiles narrower than 8 rows or columns, N = 256 in rounds
+BACKWARD_CASES = [(300, 520, 390, (64, 128, 128)),
+                  (300, 520, 392, (128, 128, 128)),
+                  (256, 256, 200, (64, 128, 8)),
+                  (37, 200, 136, (4, 64, 64)),
+                  (200, 37, 136, (64, 4, 64)),
+                  (300, 520, 390, (128, 256, 64))]
+
+
+@pytest.mark.parametrize("which", ["a", "b"])
+@pytest.mark.parametrize("m,n,k,tile", BACKWARD_CASES)
+def test_backward_layouts_match_plain_versions(which, m, n, k, tile):
+    """A read MN-major, or B read K-major, in place (no transposed copy),
+    in both loop orders, against the plain version on the same views:
+    k-inner within bf16 2e-2, k-outer within one bf16 ulp a pass."""
+    a, b = _transposed_operands(m, n, k, which, m + n + k)
+    assert K.wgmma_layout(a, b) == ((1, 1) if which == "a" else (0, 0))
+    ti, to = TileConfig(*tile), TileConfig(*tile, GridOrder.K_OUTER)
+    c0 = torch.zeros((m, n), dtype=torch.bfloat16, device="cuda")
+    copies, routes = dict(K.COPIES), K.ROUTES["wgmma"]
+    got_i = K.gemm_k_inner(a, b, tile=ti)
+    got_o = K.gemm_k_outer(a, b, c0, tile=to)
+    torch.cuda.synchronize()
+    passes = -(-k // tile[2])
+    assert K.ROUTES["wgmma"] == routes + 1 + passes
+    assert K.COPIES["transposed"] == copies["transposed"]
+    stored = (a.t(), b) if which == "a" else (a, b.t())
+    assert K.COPIES["aligned"] - copies["aligned"] == 2 * sum(
+        K.needs_aligned_copy(t) for t in stored)
+    torch.testing.assert_close(got_i.float(),
+                               K.gemm_k_inner_plain(a, b).float(),
+                               rtol=2e-2, atol=2e-2)
+    tol = passes * _streamed_ulp(a, b, c0, tile[2])
+    want_o = K.gemm_k_outer_plain(a, b, c0, bk=tile[2])
+    assert bool(((got_o.float() - want_o.float()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("which", ["a", "b"])
+def test_backward_walk_covers_more_tiles_than_blocks(which):
+    """At 128x128x128 an MN-major A walks 512 tiles with the blocks one
+    SM each holds (a K-major B runs one tile a block); every tile is
+    computed once."""
+    m, n, k, tile = 2048, 4096, 256, TileConfig(128, 128, 128)
+    a, b = _transposed_operands(m, n, k, which, 7)
+    cfg = K.wgmma_config(tile, ta=int(which == "a"), tb=int(which == "a"))
+    assert cfg.walk == (which == "a")
+    assert (K.launch_blocks(m, n, tile, cfg) < 512) == (which == "a")
+    got = K.gemm_k_inner(a, b, tile=tile)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(),
+                               K.gemm_k_inner_plain(a, b).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("m", [4, 1024])
+def test_backward_tied_head_reads_the_table_in_place(m):
+    """The tied logits head: x @ table.t() reads the (V, D) table K-major
+    at the planner's tile (a decode and a training batch of rows)."""
+    table = (torch.randn(49408, 1536, device="cuda") * 0.02).to(
+        torch.bfloat16)
+    x = torch.randn(m, 1536, device="cuda").to(torch.bfloat16)
+    copies = dict(K.COPIES)
+    got = gemm.matmul(x, table.t())
+    torch.cuda.synchronize()
+    assert K.COPIES == copies
+    torch.testing.assert_close(got.float(),
+                               K.gemm_k_inner_plain(x, table.t()).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+#: (E, C, D, F): granite's training shapes (C = 256), D and F no multiple
+#: of 8 (the stored rows are copied to aligned ones), C not a multiple of 8
+GROUPED_BACKWARD = [(40, 256, 1536, 512), (40, 256, 512, 1536),
+                    (3, 24, 201, 75), (3, 21, 200, 72)]
+
+
+@pytest.mark.parametrize("direction", ["dx", "dw"])
+@pytest.mark.parametrize("e,c,d,f", GROUPED_BACKWARD)
+def test_grouped_backward_layouts_match_plain_versions(direction, e, c, d,
+                                                        f):
+    """dx = dy·wᵀ reads w K-major and dw = xᵀ·dy reads x MN-major (walking
+    the tiles of every expert), in place; within bf16 2e-2 of the plain
+    version on the same views."""
+    from repro_torch.kernels import grouped_gemm as G
+
+    x, w = _grouped_operands(e, c, d, f, "bf16")
+    dy = torch.randn(e, c, f, device="cuda").to(torch.bfloat16)
+    p, q = ((dy, w.transpose(1, 2)) if direction == "dx"
+            else (x.transpose(1, 2), dy))
+    assert G.layout(p, q) == ((0, 0) if direction == "dx" else (1, 1))
+    routes, copies = G.ROUTES["wgmma"], G.COPIES["transposed"]
+    got = G.grouped_gemm(p, q)
+    torch.cuda.synchronize()
+    assert G.ROUTES["wgmma"] == routes + 1
+    assert G.COPIES["transposed"] == copies
+    torch.testing.assert_close(got.float(),
+                               G.grouped_gemm_plain(p, q).float(),
+                               rtol=2e-2, atol=2e-2)

@@ -176,7 +176,7 @@ def test_cpu_tensors_count_nothing_on_either_route(dtype, shape):
                    torch.ones(e, d, f, dtype=dtype))
     assert G.LAUNCHES == {"grouped_gemm": 0}
     assert G.ROUTES == {"wgmma": 0, "cuda_cores": 0}
-    assert G.COPIES == {"aligned": 0}
+    assert G.COPIES == {"aligned": 0, "transposed": 0}
 
 
 def test_map_key_hits_on_the_same_values_and_misses_on_a_changed_stride():
@@ -239,7 +239,7 @@ def test_the_map_cache_encodes_once_per_key(monkeypatch):
     assert G._tensor_map(lib, "w", 4096, 1536, 512, 40, 512, tile) is first
     assert len(lib.calls) == 1
     assert lib.calls[0] == (4096, 1536, 512, 40, 512, 1536 * 512,
-                            G.OPERANDS["w"], 32, 64, 64)
+                            G.OPERANDS["w"], 32, 64, 64, 0)
     G._tensor_map(lib, "w", 4096, 1536, 512, 40, 520, tile)
     assert len(lib.calls) == 2
     G._tensor_map(lib, "x", 8192, 32, 1536, 40, 1536, tile)

@@ -205,7 +205,9 @@ def test_compute_copy_is_made_once():
     values = lm.init(torch.Generator().manual_seed(0))
     params = lm.compute_params(values)
     head = params["embed"]["head"]
-    assert head.dtype == torch.bfloat16 and head.is_contiguous()
+    # tied: the head is the compute table's .t(), a view, not a copy
+    assert head.dtype == torch.bfloat16 and head.t().is_contiguous()
+    assert head.data_ptr() == params["embed"]["table"].data_ptr()
     assert tuple(head.shape) == (cfg.d_model, cfg.padded_vocab)
     assert params["stack"][0]["b0_moe"]["norm1"]["scale"].dtype == \
         torch.float32
