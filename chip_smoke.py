@@ -10,9 +10,10 @@ non-zero.  It drives six paths of the port: the paper's GEMM loop
 (phases 3-4), serving granite-moe-3b-a800m at full width (phase 7), the
 attention and norm entry points on that model's activations (phase 9),
 serving zamba2-1.2b at full width (phase 11), Qwen2-1.5B
-autoconfigured, served and replayed (phase 14) and Qwen2-1.5B trained
-at full width (phase 15), beside the other model families (phase 12) and
-the deployment report (phase 13).  Phases:
+autoconfigured, served and replayed (phase 14), Qwen2-1.5B trained
+at full width (phase 15) and the multi-device layer (phase 16), beside the
+other model families (phase 12) and the deployment report (phase 13).
+Phases:
 
 1. build   — compile every source of ``src/repro_torch/kernels/csrc/`` for
              sm_90a (one nvcc per library, all in parallel); print build
@@ -290,6 +291,38 @@ the deployment report (phase 13).  Phases:
              one step under ``torch.profiler`` (the card's busy share,
              the wgmma GEMM's device ms against the rest) and AdamW's wall
              ms in one step.
+16. meshes  — Qwen2-1.5B at full width (28 layers, 4 x 256 tokens) on the
+             multi-device layer (``runtime/sharding.py``).  (a) a (1, 1)
+             ``make_host_mesh`` over a one-rank NCCL group: two FSDP +
+             int8_ef steps (``ParallelConfig(fsdp=True,
+             grad_compression="int8_ef")``; the first at learning rate 0),
+             a prefill and a decode step, against the unsharded path from
+             the same seed: the state (parameters, moments, error buffer:
+             digests of their bits), the metrics and both logits must be
+             equal bit for bit (every collective over one rank is the
+             identity), and every GEMM launch on wgmma; one step's
+             collectives (calls and bytes by op and axis) are printed.
+             (b) two ranks spawned on cuda:0 through gloo (NCCL refuses
+             two ranks on one device) on a (1, 2) mesh, tensor parallel
+             only (12/2 query heads, 2/2 KV heads, d_ff 8960/2, vocabulary
+             151,936/2): each rank's prefill logits (gathered) within 0.1
+             relative L2 of (a)'s unsharded ones (phase 7's bound), the
+             first step's loss within 1e-2 relative, an f32 two-layer
+             model's gradients within 1e-4
+             relative L2 a leaf of the unsharded ones (phase 15 (d)'s
+             bound); per rank the ms of two steps, the peak memory, the
+             collectives of a step and which collectives gloo takes on
+             CUDA tensors are printed.  (c) on the same two ranks,
+             expert parallelism: granite-moe-3b-a800m's MoE block at full
+             width (40 experts top-8, 20 a rank), bf16, 4 x 256 tokens,
+             capacity factor 64 so that neither path drops a token:
+             ``apply_moe_ep`` (two all-to-alls each way, the local experts
+             on the grouped kernel, every launch on wgmma) against
+             ``apply_moe`` on the whole block, output and each gradient of
+             sum(y^2) within 2e-2 relative L2.  The pipeline's sends and
+             receives have no gloo CUDA path (a send of a CUDA tensor
+             aborts the rank) and one card holds no two NCCL ranks: the
+             CPU tests hold it.
 
 With tied embeddings and random weights, the token's own embedding
 dominates the last hidden state, so greedy decoding echoes the input token
@@ -305,7 +338,10 @@ their runs),
 phase 7 the grouped kernel and at least one GEMM kernel, phases 9 and 10
 (each) the flash attention and RMSNorm kernels, phases 11 and 14
 ``gemm_k_inner`` on the wgmma route, phase 15 ``gemm_k_inner`` forward
-and backward and (in (e)) the grouped kernel forward and backward.  The
+and backward and (in (e)) the grouped kernel forward and backward, phase
+16 ``gemm_k_inner`` and (in (c)) the grouped kernel on the wgmma route
+(their launches, forward and backward, are added to ``gemm_k_inner``'s,
+``gemm_k_inner_bwd``'s, ``grouped_gemm``'s and ``grouped_gemm_bwd``'s).  The
 line before the last is the ``{"kernels": [...]}`` record (the GEMM
 kernels three times, each timed at its dtype's planner tiles: bf16 from
 ``wgmma_gemm.cuh``, int8, ``*_int8``, from ``wgmma_s8.cuh``, and f32,
@@ -2431,6 +2467,32 @@ def hold_gemms(K, shapes, dev, label):
     return err
 
 
+def hold_gemms_by_kernel(K, shapes, dev, label):
+    """:func:`hold_gemms` split by kernel: the largest error under each
+    name of the kernels line (``gemm_k_inner``, ``gemm_k_outer``, with
+    ``_f32`` / ``_int8`` after them for those dtypes)."""
+    from repro_torch.core.tpu_model import GridOrder
+
+    err = {}
+    for kname in ("gemm_k_inner", "gemm_k_outer"):
+        part = {s for s in shapes if (s[3].order is GridOrder.K_OUTER)
+                == (kname == "gemm_k_outer")}
+        if part:
+            for tag, e in hold_gemms(K, part, dev,
+                                     f"{label}, {kname}").items():
+                err[kname + ("" if tag == "bf16" else f"_{tag}")] = e
+    return err
+
+
+def max_errors(*errs):
+    """The largest error per key over dicts of errors."""
+    out = {}
+    for e in errs:
+        for k, v in e.items():
+            out[k] = max(out.get(k, 0.0), v)
+    return out
+
+
 def zamba_phase(K, G, dev):
     """Phase 11: serve zamba2-1.2b at full width through the port's entry
     point, phase 7's traffic; returns the run's numbers."""
@@ -2666,10 +2728,10 @@ def families_phase(K, dev):
     slstm = {"ms": 0.0, "calls": 0, "steps": 0}
     apply_slstm = xlstm.apply_slstm
 
-    def timed_slstm(params, x, cfg):
+    def timed_slstm(params, x, *rest):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = apply_slstm(params, x, cfg)
+        out = apply_slstm(params, x, *rest)
         torch.cuda.synchronize()
         slstm["ms"] += 1e3 * (time.perf_counter() - t0)
         slstm["calls"] += 1
@@ -2992,10 +3054,11 @@ MOE_TRAIN = dict(layers=4, batch=4, seq=256, steps=2)
 
 
 class Products:
-    """Records the backward products of ``gemm/autograd.py``'s two
-    Functions: each (kind, direction, A shape, B shape, dtype tag,
-    layout), and the GEMM and grouped kernels' launches, routes and
-    layouts those products make (every other launch is a forward one,
+    """Records the products of ``gemm/autograd.py``'s two Functions: each
+    (kind, direction, A shape, B shape, dtype tag, layout), the backward
+    ones in ``seen`` and the forward ones in ``forward_seen``, and the GEMM
+    and grouped kernels' launches, routes and layouts the backward
+    products make (every other launch is a forward one,
     block remat's recompute included: it runs inside a Function's
     ``forward``, even when the backward pass triggers it).  ``install``
     wraps, and ``restore`` unwraps, the Functions' ``forward`` and
@@ -3004,6 +3067,7 @@ class Products:
     def __init__(self, K, G, GA):
         self.K, self.G, self.GA = K, G, GA
         self.seen = set()
+        self.forward_seen = set()
         self.backward = {"gemm_k_inner": 0, "gemm_k_outer": 0,
                          "grouped_gemm": 0}
         self.routes = {"gemm": {r: 0 for r in K.ROUTES},
@@ -3049,6 +3113,11 @@ class Products:
 
         def wrap_product(kind, fn):
             def inner(a, b, *rest):
+                if rec.depth:
+                    rec.forward_seen.add((kind, "forward", tuple(a.shape),
+                                          tuple(b.shape),
+                                          rec.K._tag(a.dtype),
+                                          rec.layout(kind, a, b)))
                 if rec.depth or not rec.pending:
                     return fn(a, b, *rest)
                 direction, layout = rec.pending.pop(0), rec.layout(kind, a,
@@ -3099,12 +3168,13 @@ class Products:
         GA.GroupedMatmul.backward = staticmethod(gm_bwd)
 
 
-def hold_products(K, G, seen, dev):
-    """Each backward product (kind, direction, shapes, dtype, layout)
-    recorded in phase 15 against its plain version on seeded operands at
-    those shapes, stored in that layout (the second operand at a weight's
-    init scale), the GEMMs on the tile the planner gives their shape.
-    Returns the largest error per kind."""
+def hold_products(K, G, seen, dev, label="phase 15: the backward products "
+                  "of (a) and (e)"):
+    """Each product (kind, direction, shapes, dtype, layout) a
+    :class:`Products` recorded against its plain version on seeded
+    operands at those shapes, stored in that layout (the second operand at
+    a weight's init scale), the GEMMs on the tile the planner gives their
+    shape.  Returns the largest error per kind."""
     import torch
     from repro_torch import gemm
 
@@ -3129,11 +3199,9 @@ def hold_products(K, G, seen, dev):
         err[kind] = max(err[kind], e)
         del a, b
     torch.cuda.empty_cache()
-    print(f"phase 15: the {len(seen)} backward products (kind, direction, "
-          f"shapes, dtype, layout) of (a) and (e) match their plain "
-          f"versions (max "
-          f"|err| {err}; bf16 rtol = atol = 2e-2, f32 rtol 1e-5 / atol "
-          f"1e-4)")
+    print(f"{label}: {len(seen)} (kind, direction, shapes, dtype, layout) "
+          f"match their plain versions (max |err| {err}; bf16 rtol = atol "
+          f"= 2e-2, f32 rtol 1e-5 / atol 1e-4)")
     return err
 
 
@@ -3372,7 +3440,7 @@ def profile_train_step(lm, tcfg, pcfg, batch):
     from repro_torch.runtime.train_lib import (init_train_state,
                                                make_train_step)
 
-    params, opt = init_train_state(
+    params, _, opt, _ = init_train_state(
         lm, tcfg, torch.Generator(lm.device).manual_seed(5), pcfg)
     step = make_train_step(lm, tcfg, pcfg)
     params, opt, _ = step(params, opt, batch)
@@ -3588,8 +3656,8 @@ def training_phase(K, G, dev, out_dir, parent=None):
     before = dict(rec.backward)
     groutes_before = dict(rec.routes["grouped"])
     glayouts_before = dict(rec.layouts["grouped"])
-    params, opt = init_train_state(glm, tcfg,
-                                   torch.Generator(dev).manual_seed(2))
+    params, _, opt, _ = init_train_state(glm, tcfg,
+                                         torch.Generator(dev).manual_seed(2))
     step = make_train_step(glm, tcfg, pcfg)
     data = DataIterator(gcfg, gshape, seed=2)
     glosses = []
@@ -3696,6 +3764,498 @@ def training_phase(K, G, dev, out_dir, parent=None):
     del lm, tbatch
     torch.cuda.empty_cache()
     print(smi("name,power.limit"))
+    return res
+
+
+#: phase 16: Qwen2-1.5B at full width on meshes, 4 x 256 tokens, two steps
+#: (the learning rate of the first is 0) and one prefill and decode step
+MESH_RUN = dict(batch=4, seq=256, steps=2, decode_len=16, seed=16)
+#: (b): the loss of the two-rank step against (a)'s unsharded one
+MESH_LOSS_RTOL = 1e-2
+#: (b): seconds the two ranks may take (each builds Qwen2-1.5B and steps)
+MESH_RANK_DEADLINE = 600.0
+#: (c): expert parallelism on (b)'s ranks; the capacity factor of the JAX
+#: package's EP test, so that neither path drops a token, and the bf16
+#: kernels' bound (relative L2, output and each gradient)
+MESH_EP = dict(capacity_factor=64.0, rel_l2=2e-2)
+
+
+def free_port():
+    """A TCP port on localhost no one listens on now."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def digest(t):
+    """Two integer sums of ``t``'s bits (plain and position-weighted, mod
+    2**64): equal digests mean equal tensors unless by a coincidence."""
+    import torch
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    iv = t.detach().contiguous().view(ints[t.element_size()]).long() \
+        .flatten()
+    w = torch.arange(1, iv.numel() + 1, device=iv.device)
+    return torch.stack([iv.sum(), (iv * w).sum()]).cpu()
+
+
+def mesh_step_run(cfg, minfo, dev, batch):
+    """A prefill of the batch's tokens and one decode step of ``cfg``
+    under ``minfo`` (the ambient mesh, if any, installed by the caller),
+    then two FSDP + int8_ef steps: the logits, the metrics, the state's
+    digests and the second step's collectives."""
+    import torch
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.models.model import LM
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.runtime.train_lib import (init_train_state,
+                                               make_train_step)
+
+    tcfg = TrainConfig(lr=3e-3, warmup_steps=1, total_steps=10)
+    pcfg = ParallelConfig(fsdp=True, grad_compression="int8_ef")
+    lm = LM(cfg, minfo, device=dev)
+    params, _, opt, _ = init_train_state(
+        lm, tcfg, torch.Generator(dev).manual_seed(MESH_RUN["seed"]), pcfg)
+    out = {}
+    with torch.no_grad():     # before training: (b) starts from these
+        out["logits"], _ = lm.prefill(params, {"tokens": batch["tokens"]})
+        caches = lm.init_cache(MESH_RUN["batch"], MESH_RUN["decode_len"])
+        out["decode"], _ = lm.decode_step(params, caches,
+                                          batch["tokens"][:, :1], 0)
+    out["logits"], out["decode"] = (out["logits"].float().cpu(),
+                                    out["decode"].float().cpu())
+    del caches
+    step = make_train_step(lm, tcfg, pcfg)
+    torch.cuda.reset_peak_memory_stats()
+    out.update(metrics=[], ms=[])
+    for _ in range(MESH_RUN["steps"]):
+        sh.reset_collective_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        out["ms"].append(1e3 * (time.perf_counter() - t0))
+        out["metrics"].append(torch.stack([m["loss"], m["grad_norm"]])
+                              .float().cpu())
+    out["collectives"] = sh.collective_counts()
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["digests"] = [digest(t) for t in tree_leaves([params, opt])]
+    del params, opt, step, lm
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_phase(K, G, dev, out_dir):
+    """Phase 16: the multi-device layer on the card.  (a) a (1, 1) mesh
+    over a one-rank NCCL group: a prefill, a decode step and two FSDP +
+    int8_ef steps of Qwen2-1.5B at full width equal the unsharded path bit
+    for bit, every GEMM launch on wgmma; (b) two gloo ranks sharing the
+    card on a (1, 2) tensor-parallel mesh (:func:`mesh_rank`), held to
+    (a)'s unsharded results; (c) on the same ranks, granite's MoE block
+    expert-parallel against the whole block (:func:`mesh_rank_ep`).
+    Returns the results and the phase's GEMM and grouped launches, forward
+    and backward."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_batch
+    from repro_torch.gemm import autograd as GA
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.common import HOST_MESH
+    from repro_torch.runtime import sharding as sh
+
+    phase(16, "the multi-device layer: Qwen2-1.5B at full width on a "
+              "one-rank NCCL mesh and on two gloo ranks sharing the card")
+    print(smi("name,power.limit"))
+    cfg = get_config("qwen2-1.5b")
+    batch = {k: v.to(dev) for k, v in make_batch(
+        cfg, ShapeConfig("t", "train", MESH_RUN["seq"], MESH_RUN["batch"]),
+        0, seed=MESH_RUN["seed"]).items()}
+    res = {}
+    start = dict(K.LAUNCHES)
+
+    # -- (a) ---------------------------------------------------------------
+    rec = Products(K, G, GA).install()
+    gemms, unrecord = record_gemms(K)
+    try:
+        before = snapshot(K)
+        plain = mesh_step_run(cfg, HOST_MESH, dev, batch)
+        all_on_wgmma(K, "phase 16 (a)'s unsharded run", before)
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                                f"{free_port()}", rank=0, world_size=1)
+        before = snapshot(K)
+        try:
+            mesh = make_host_mesh(1, 1, "cuda")
+            with sh.use_mesh(mesh):
+                sharded = mesh_step_run(cfg, sh.mesh_info(mesh, fsdp=True),
+                                        dev, batch)
+        finally:
+            dist.destroy_process_group()
+        all_on_wgmma(K, "phase 16 (a)'s one-rank mesh run", before)
+    finally:
+        unrecord()
+        rec.restore()
+    # the launches of (a)'s runs, before the holds below add theirs
+    a_launches = {k: K.LAUNCHES[k] - start[k] for k in K.LAUNCHES}
+    a_backward = dict(rec.backward)
+    a_err = max_errors(hold_gemms_by_kernel(K, gemms, dev, "phase 16 (a)"),
+                  {"gemm_k_inner_bwd": hold_products(
+                      K, G, rec.seen, dev,
+                      "phase 16 (a): the backward products")["gemm"]})
+    for i, (p, s) in enumerate(zip(plain["metrics"], sharded["metrics"])):
+        print(f"(a) step {i + 1}: loss {float(p[0]):.6f} / "
+              f"{float(s[0]):.6f}, grad_norm {float(p[1]):.6f} / "
+              f"{float(s[1]):.6f} (unsharded / one-rank mesh); "
+              f"{plain['ms'][i]:.1f} / {sharded['ms'][i]:.1f} ms")
+    same = {
+        "state": all(torch.equal(a, b) for a, b in
+                     zip(plain["digests"], sharded["digests"], strict=True)),
+        "metrics": all(torch.equal(a, b) for a, b in
+                       zip(plain["metrics"], sharded["metrics"])),
+        "prefill logits": torch.equal(plain["logits"], sharded["logits"]),
+        "decode logits": torch.equal(plain["decode"], sharded["decode"])}
+    print(f"(a) one-rank NCCL mesh (FSDP + int8_ef) vs unsharded, bit for "
+          f"bit: {same}; {len(plain['digests'])} state leaves; peak "
+          f"{sharded['peak']:,} B (unsharded {plain['peak']:,} B)")
+    print(f"(a) collectives of one step: {sharded['collectives']}")
+    check(all(same.values()), f"phase 16 (a): the one-rank mesh differs "
+                              f"from the unsharded path: {same}")
+    check(plain["collectives"] == {}, "the unsharded path issued "
+                                      f"collectives: {plain['collectives']}")
+    res["a"] = {"bitwise": same, "ms": plain["ms"], "mesh_ms": sharded["ms"],
+                "peak": sharded["peak"], "plain_peak": plain["peak"],
+                "collectives": sharded["collectives"],
+                "loss": float(plain["metrics"][0][0]), "max_abs_err": a_err}
+
+    # -- (b) ---------------------------------------------------------------
+    ref = {"logits": plain["logits"], "loss": float(plain["metrics"][0][0])}
+    del plain, sharded
+    port = free_port()
+    t0 = time.perf_counter()
+    ctx = torch.multiprocessing.start_processes(
+        mesh_rank, args=(port, out_dir, ref, dev), nprocs=2, join=False,
+        start_method="spawn")
+    end = time.monotonic() + MESH_RANK_DEADLINE
+    try:
+        while not ctx.join(timeout=max(0.1, end - time.monotonic())):
+            check(time.monotonic() < end, f"phase 16 (b): the two ranks "
+                  f"passed their {MESH_RANK_DEADLINE:.0f} s deadline")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=30)
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"phase16_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    print(f"(b) two gloo ranks on cuda:0, a (1, 2) mesh, "
+          f"{time.perf_counter() - t0:.1f} s with the spawn")
+    print(f"(b) gloo on CUDA tensors: {ranks[0]['gloo_cuda']}")
+    for r in ranks:
+        print(f"  rank {r['rank']}: prefill logits "
+              f"{r['logits_rel_l2']:.4g} relative L2 of (a)'s (bound "
+              f"{BF16_LOGITS_RTOL}); step 1 loss {r['loss']:.6f} vs "
+              f"{ref['loss']:.6f} ({r['loss_rel']:.3g} relative, bound "
+              f"{MESH_LOSS_RTOL}); steps "
+              f"{', '.join(f'{t:.1f}' for t in r['step_ms'])} ms; peak "
+              f"{r['peak']:,} B; f32 {F32_STEP['layers']}-layer gradients: "
+              f"worst leaf {r['f32_worst_leaf']} at {r['f32_worst']:.3g} "
+              f"(bound {F32_STEP_REL_L2:g}); GEMM launches {r['launches']} "
+              f"by route {r['routes']} (backward {r['backward']})")
+        print(f"  rank {r['rank']} collectives of one step: "
+              f"{r['collectives']}")
+        print(f"  rank {r['rank']}: its products held against their plain "
+              f"versions at its shapes, max |err| {r['max_abs_err']}")
+        check(r["logits_rel_l2"] <= BF16_LOGITS_RTOL,
+              f"phase 16 (b) rank {r['rank']}: logits at "
+              f"{r['logits_rel_l2']:.4g} relative L2")
+        check(r["loss_rel"] <= MESH_LOSS_RTOL,
+              f"phase 16 (b) rank {r['rank']}: loss {r['loss']} vs "
+              f"{ref['loss']}")
+        check(r["f32_worst"] <= F32_STEP_REL_L2,
+              f"phase 16 (b) rank {r['rank']}: f32 gradient "
+              f"{r['f32_worst_leaf']} at {r['f32_worst']:.3g}")
+        check(r["routes"]["cuda_cores"] == 0 and r["routes"]["wgmma"] > 0,
+              f"phase 16 (b) rank {r['rank']}: GEMM routes {r['routes']}")
+        ep = r["ep"]
+        worst = max(ep["grad_rel_l2"], key=ep["grad_rel_l2"].get)
+        print(f"  rank {r['rank']} (c) expert parallelism, granite's MoE "
+              f"block at full width: y {ep['y_rel_l2']:.3g} relative L2 of "
+              f"apply_moe's, worst gradient {worst} "
+              f"{ep['grad_rel_l2'][worst]:.3g} (bound {MESH_EP['rel_l2']}); "
+              f"grouped launches {ep['grouped_launches']} by route "
+              f"{ep['grouped_routes']} (backward {ep['grouped_backward']}); "
+              f"collectives {ep['collectives']}")
+        check(ep["y_rel_l2"] <= MESH_EP["rel_l2"]
+              and ep["grad_rel_l2"][worst] <= MESH_EP["rel_l2"],
+              f"phase 16 (c) rank {r['rank']}: EP output "
+              f"{ep['y_rel_l2']:.3g}, gradient {worst} "
+              f"{ep['grad_rel_l2'][worst]:.3g} relative L2")
+        check(ep["grouped_launches"] > 0 and ep["grouped_routes"] == {
+            "wgmma": ep["grouped_launches"], "cuda_cores": 0},
+              f"phase 16 (c) rank {r['rank']}: grouped launches "
+              f"{ep['grouped_launches']} by route {ep['grouped_routes']}")
+        check(ep["collectives"].get("all_to_all over model", {})
+              .get("calls") == 4, f"phase 16 (c) rank {r['rank']}: "
+              f"collectives {ep['collectives']}: not two all-to-alls each "
+              f"way")
+    res["b"] = ranks
+    # the phase's bf16 launches by kernel, forward and backward, for the
+    # kernels line, and the largest errors of the products held at the
+    # shapes, tiles and layouts the phase ran them at
+    bwd = {k: a_backward[k] + sum(r["backward"][k] for r in ranks)
+           for k in K.LAUNCHES}
+    total = {k: a_launches[k] + sum(r["launches"][k] for r in ranks)
+             for k in K.LAUNCHES}
+    res["launches"] = {"forward": {k: total[k] - bwd[k] for k in total},
+                       "backward": bwd}
+    g_bwd = sum(r["ep"]["grouped_backward"] for r in ranks)
+    res["launches"]["grouped"] = {
+        "forward": sum(r["ep"]["grouped_launches"] for r in ranks) - g_bwd,
+        "backward": g_bwd}
+    res["max_abs_err"] = max_errors(a_err, *(r["max_abs_err"] for r in ranks))
+    print(f"phase 16 bf16 GEMM launches: {res['launches']}")
+    print(f"phase 16: every product held at the shapes it ran at, max |err| "
+          f"by kernel {res['max_abs_err']} ((a) {a_err}; "
+          + "; ".join(f"rank {r['rank']} {r['max_abs_err']}" for r in ranks)
+          + ")")
+    print(smi("name,power.limit"))
+    return res
+
+
+def gloo_cuda_probe():
+    """Which collectives this build's gloo takes on CUDA tensors: each is
+    tried once on the world group ("ok" or the error's first line).  Every
+    rank raises alike on an op gloo refuses, before any exchange.  Not
+    tried: a send or receive, which aborts the process (gloo's TCP pair
+    writes from the device pointer: "writev ... Bad address", seen with
+    torch 2.11.0+cu128)."""
+    import torch
+    import torch.distributed as dist
+    world = dist.get_world_size()
+    x = torch.arange(4.0, device="cuda")
+    ops = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(world)], x),
+        "reduce_scatter": lambda: dist.reduce_scatter(
+            torch.empty(4 // world, device="cuda"), list(x.chunk(world))),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty_like(x), x)}
+    out = {}
+    for name, op in ops.items():
+        try:
+            op()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except RuntimeError as err:
+            out[name] = str(err).strip().splitlines()[0][:160]
+    return out
+
+
+def mesh_rank(rank, port, out_dir, ref, dev):
+    """Phase 16 (b), one of two ranks sharing cuda:0 through gloo (NCCL
+    refuses two ranks on one device): a (1, 2) mesh, tensor parallelism
+    only.  Qwen2-1.5B at full width from (a)'s seed: the prefill's logits
+    (gathered over the vocabulary shards) and the first of two steps'
+    loss against (a)'s unsharded results, then an f32 two-layer model's
+    gradients against the unsharded ones on this rank.  Writes
+    ``phase16_rank<rank>.json`` to ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    try:
+        res = {"rank": rank, "gloo_cuda": gloo_cuda_probe()}
+        res.update(mesh_rank_run(ref, dev))
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"phase16_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def mesh_rank_run(ref, dev):
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import (ParallelConfig, ShapeConfig,
+                                          TrainConfig)
+    from repro_torch.data import make_batch
+    from repro_torch.gemm import autograd as GA
+    from repro_torch.interop import _flatten
+    from repro_torch.kernels import gemm as K
+    from repro_torch.kernels import grouped_gemm as G
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.common import HOST_MESH
+    from repro_torch.models.model import LM
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.runtime.train_lib import (init_train_state,
+                                               make_train_step)
+
+    cfg = get_config("qwen2-1.5b")
+    batch = {k: v.to(dev) for k, v in make_batch(
+        cfg, ShapeConfig("t", "train", MESH_RUN["seq"], MESH_RUN["batch"]),
+        0, seed=MESH_RUN["seed"]).items()}
+    mesh = make_host_mesh(1, 2, "cuda")
+    out = {}
+    rec = Products(K, G, GA).install()
+    gemms, unrecord = record_gemms(K)
+    try:
+        with sh.use_mesh(mesh):
+            lm = LM(cfg, sh.mesh_info(mesh), device=dev)
+            tcfg = TrainConfig(lr=3e-3, warmup_steps=1, total_steps=10)
+            pcfg = ParallelConfig()
+            params, _, opt, _ = init_train_state(
+                lm, tcfg, torch.Generator(dev).manual_seed(MESH_RUN["seed"]),
+                pcfg)
+            with torch.no_grad():
+                logits, _ = lm.prefill(params, {"tokens": batch["tokens"]})
+            out["logits_rel_l2"] = float(rel_l2(logits.float(),
+                                                ref["logits"].to(dev)))
+            step = make_train_step(lm, tcfg, pcfg)
+            torch.cuda.reset_peak_memory_stats()
+            out["step_ms"] = []
+            for i in range(MESH_RUN["steps"]):
+                sh.reset_collective_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, m = step(params, opt, batch)
+                torch.cuda.synchronize()
+                out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+                if i == 0:
+                    out["loss"] = float(m["loss"])
+            out["peak"] = torch.cuda.max_memory_allocated()
+            out["collectives"] = sh.collective_counts()
+            out["loss_rel"] = abs(out["loss"] - ref["loss"]) / abs(
+                ref["loss"])
+            del params, opt, step, lm, m
+            torch.cuda.empty_cache()
+    finally:
+        unrecord()
+        rec.restore()
+    out["launches"], out["routes"] = dict(K.LAUNCHES), dict(K.ROUTES)
+    out["backward"] = dict(rec.backward)
+    bwd_products = set(rec.seen)
+
+    # f32, two layers: the sharded gradients against the unsharded ones
+    fcfg = dataclasses.replace(cfg, n_layers=F32_STEP["layers"],
+                               block_pattern=cfg.block_pattern[
+                                   :F32_STEP["layers"]],
+                               compute_dtype="float32")
+    fbatch = {k: v.to(dev) for k, v in make_batch(
+        fcfg, ShapeConfig("t", "train", F32_STEP["seq"], F32_STEP["batch"]),
+        0, seed=7).items()}
+    grads = {}
+    gemms_f32, unrecord = record_gemms(K)
+    for name, minfo in (("plain", HOST_MESH), ("mesh", sh.mesh_info(mesh))):
+        with sh.use_mesh(mesh if name == "mesh" else None):
+            lm = LM(fcfg, minfo, device=dev)
+            lm.init(torch.Generator(dev).manual_seed(7))
+            lm.train_mode()
+            values = lm.shard() if name == "mesh" else lm.values()
+            loss, _ = lm.loss_fn(values, fbatch)
+            leaves = _flatten(values)
+            grads[name] = dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values()))))
+            specs = dict(_flatten(lm.specs()))
+            del lm, values, loss
+    unrecord()
+    worst, worst_path = 0.0, None
+    with sh.use_mesh(mesh):
+        for path, g in grads["mesh"].items():
+            want = sh.shard_tensor(grads["plain"][path], specs[path])
+            rel = float(rel_l2(g, want))
+            if rel >= worst:
+                worst, worst_path = rel, path
+    out["f32_worst"], out["f32_worst_leaf"] = worst, str(worst_path)
+    out["ep"] = mesh_rank_ep(mesh, dev)
+    # every product this rank ran, held at its shape, tile and layout
+    # (after the launch counts were taken)
+    where = f"phase 16 (b) rank {dist.get_rank()}"
+    out["max_abs_err"] = max_errors(
+        hold_gemms_by_kernel(K, gemms | gemms_f32, dev, where),
+        {"gemm_k_inner_bwd": hold_products(
+            K, G, bwd_products, dev, f"{where}: the backward products")[
+                "gemm"]},
+        {"grouped_gemm": out["ep"].pop("grouped_err"),
+         "grouped_gemm_bwd": out["ep"].pop("grouped_bwd_err")})
+    return out
+
+
+def mesh_rank_ep(mesh, dev):
+    """Phase 16 (c) on one of (b)'s ranks: granite-moe-3b-a800m's MoE
+    block at full width (40 experts top-8, expert d_ff 512), bf16, 4 x 256
+    tokens, capacity factor 64 (no token drops on either path): the
+    expert-parallel branch (each rank 20 experts, two all-to-alls, the
+    local experts on the grouped kernel) against ``apply_moe`` on the
+    whole block, forward and the gradients of sum(y^2) with respect to
+    the input and every parameter."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.gemm import autograd as GA
+    from repro_torch.kernels import gemm as K
+    from repro_torch.kernels import grouped_gemm as G
+    from repro_torch.models import moe
+    from repro_torch.runtime import sharding as sh
+
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                              capacity_factor=MESH_EP["capacity_factor"])
+    gen = torch.Generator(dev).manual_seed(MESH_RUN["seed"])
+    full = moe.init_moe(gen, cfg, sh.mesh_info(mesh), torch.bfloat16, dev)
+    x = torch.randn((MESH_RUN["batch"], MESH_RUN["seq"], cfg.d_model),
+                    generator=gen, device=dev).to(torch.bfloat16)
+    res = {}
+    G.reset_launch_counts()
+    rec = Products(K, G, GA).install()
+    try:
+        grads = {}
+        for name in ("plain", "ep"):
+            with sh.use_mesh(mesh if name == "ep" else None):
+                minfo = sh.mesh_info(mesh)
+                specs = moe.moe_specs(cfg, minfo)
+                p = {k: sh.shard_tensor(v, specs[k]).requires_grad_(True)
+                     for k, v in full.items()}
+                xin = x.clone().requires_grad_(True)
+                if name == "ep":
+                    sh.reset_collective_counts()
+                    y, _ = moe.apply_moe_ep(p, xin, cfg, minfo)
+                else:
+                    y, _ = moe.apply_moe(p, xin, cfg, None)
+                g = torch.autograd.grad(y.float().square().sum(),
+                                        [xin] + list(p.values()))
+                if name == "ep":
+                    res["collectives"] = sh.collective_counts()
+                grads[name] = (y.detach(), dict(zip(["x"] + list(p), g)))
+        specs["x"] = (None, None, None)
+        with sh.use_mesh(mesh):
+            res["y_rel_l2"] = float(rel_l2(grads["ep"][0].float(),
+                                           grads["plain"][0].float()))
+            res["grad_rel_l2"] = {
+                k: float(rel_l2(g.float(), sh.shard_tensor(
+                    grads["plain"][1][k], specs[k]).float()))
+                for k, g in grads["ep"][1].items()}
+    finally:
+        rec.restore()
+    res["grouped_launches"] = G.LAUNCHES["grouped_gemm"]
+    res["grouped_routes"] = dict(G.ROUTES)
+    res["grouped_backward"] = rec.backward["grouped_gemm"]
+    # both paths' grouped products at the shapes and layouts they ran
+    # (the expert-parallel ones: the local experts, (M_src, B) folded into
+    # C), held against the plain version
+    where = f"phase 16 (c) rank {dist.get_rank()}"
+    res["grouped_err"] = hold_products(
+        K, G, {p for p in rec.forward_seen if p[0] == "grouped"}, dev,
+        f"{where}: the forward grouped products")["grouped"]
+    res["grouped_bwd_err"] = hold_products(
+        K, G, {p for p in rec.seen if p[0] == "grouped"}, dev,
+        f"{where}: the backward grouped products")["grouped"]
     return res
 
 
@@ -4233,6 +4793,10 @@ def main(argv=None) -> int:
     deployment = deployment_phase(zamba)
     autoconf = autoconf_phase(K, dev, args.out, args.parent)
     training = training_phase(K, G, dev, args.out, args.parent)
+    meshes = mesh_phase(K, G, dev, args.out)
+    # phase 16's products were held at its own shapes: its errors join
+    # each kernel's
+    mesh_err = meshes["max_abs_err"]
 
     csrc = "src/repro_torch/kernels/csrc"
     kernels = []
@@ -4242,15 +4806,20 @@ def main(argv=None) -> int:
             ("f32", "_f32", "tile_gemm.cuh", core_rows["planner"])):
         kernels += [kernel_entry(f"{kname}{suffix}", f"{csrc}/{source}",
                                  f"src/repro/kernels/gemm.py:{line}",
-                                 main_path[tag]["launches"][kname],
-                                 main_path[tag]["err"][kname],
+                                 main_path[tag]["launches"][kname]
+                                 + (meshes["launches"]["forward"][kname]
+                                    if tag == "bf16" else 0),
+                                 max(main_path[tag]["err"][kname],
+                                     mesh_err.get(f"{kname}{suffix}", 0.0)),
                                  [r for r in timed if r["kernel"] == kname])
                     for kname, line in (("gemm_k_inner", 56),
                                         ("gemm_k_outer", 89))]
     kernels.append(kernel_entry(
         "grouped_gemm", f"{csrc}/grouped_gemm.cu",
-        "src/repro/kernels/grouped_gemm.py:37", served["grouped_gemm"],
-        grouped_err, [r for r in grouped_rows if r["served"]]))
+        "src/repro/kernels/grouped_gemm.py:37",
+        served["grouped_gemm"] + meshes["launches"]["grouped"]["forward"],
+        max(grouped_err, mesh_err["grouped_gemm"]),
+        [r for r in grouped_rows if r["served"]]))
     for kname, line in (("flash_attention", 68), ("rmsnorm", 29)):
         kernels.append(kernel_entry(
             kname, f"{csrc}/{kname}.cu",
@@ -4266,13 +4835,17 @@ def main(argv=None) -> int:
     kernels.append(kernel_entry(
         "gemm_k_inner_bwd", f"{csrc}/wgmma_gemm.cuh",
         "src/repro/kernels/gemm.py:56",
-        training["train"]["backward"]["gemm_k_inner"],
-        training["backward_err"]["gemm"], training["timing"]))
+        training["train"]["backward"]["gemm_k_inner"]
+        + meshes["launches"]["backward"]["gemm_k_inner"],
+        max(training["backward_err"]["gemm"], mesh_err["gemm_k_inner_bwd"]),
+        training["timing"]))
     kernels.append(kernel_entry(
         "grouped_gemm_bwd", f"{csrc}/grouped_gemm.cu",
         "src/repro/kernels/grouped_gemm.py:37",
-        training["moe"]["grouped_backward"],
-        training["backward_err"]["grouped"], training["grouped_timing"]))
+        training["moe"]["grouped_backward"]
+        + meshes["launches"]["grouped"]["backward"],
+        max(training["backward_err"]["grouped"],
+            mesh_err["grouped_gemm_bwd"]), training["grouped_timing"]))
     with open(os.path.join(args.out, "timings.json"), "w") as f:
         json.dump({"device": card, "power": smi("name,power.limit"),
                    "rows": rows, "old_tile_rows": old_rows,
@@ -4293,7 +4866,8 @@ def main(argv=None) -> int:
                    "transpose_rows": transpose_rows,
                    "main_path": main_path, "zamba": zamba,
                    "families": families, "deployment": deployment,
-                   "autoconf": autoconf, "training": training},
+                   "autoconf": autoconf, "training": training,
+                   "meshes": meshes},
                   f, indent=1)
     print(f"\n(GEMM times are sums over the five Qwen2-1.5B GEMMs at the "
           f"planner's tiles, by dtype "

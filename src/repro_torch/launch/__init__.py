@@ -1,2 +1,2 @@
 """Entry points of the port: ``python -m repro_torch.launch.serve`` and
-``python -m repro_torch.launch.train``."""
+``python -m repro_torch.launch.train``; ``mesh`` builds device meshes."""

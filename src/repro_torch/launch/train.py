@@ -53,7 +53,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100, batch: int = 8,
     pcfg = ParallelConfig(microbatches=microbatches)
     lm = LM(cfg, HOST_MESH, device=dev)
 
-    params, opt = init_train_state(
+    params, _, opt, _ = init_train_state(
         lm, tcfg, torch.Generator(device=dev).manual_seed(seed), pcfg)
     data = DataIterator(cfg, shape, seed=seed)
     step = 0

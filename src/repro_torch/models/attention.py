@@ -1,11 +1,20 @@
 """GQA attention with RoPE, prefix-LM masks and KV caches.
 
-The counterparts of ``repro.models.attention`` on one device: no head
-padding (``head_layout`` is the identity on a one-device mesh), KV heads
-repeated to the query heads for the full-sequence path, the blockwise
-online-softmax attention of the prefill, and the one-token decode against a
-bf16, f32 or int8 KV cache with per-slot positions.  The projections are
-``torch.einsum``, as the JAX package leaves them to XLA.
+The counterparts of ``repro.models.attention``: head padding for tensor
+parallelism (``head_layout``: query heads padded up to a multiple of the
+model axis, per KV group for GQA, zero-initialised so results are exact),
+KV heads repeated to the query heads for the full-sequence path, the
+blockwise online-softmax attention of the prefill, and the one-token
+decode against a bf16, f32 or int8 KV cache with per-slot positions.  The
+projections are ``torch.einsum``, as the JAX package leaves them to XLA.
+
+Under a mesh each rank holds its query heads (and its KV heads when they
+divide the model axis; else all of them, replicated): the query path
+starts at ``copy_to`` and the output projection ends at ``all_reduce``
+(row-parallel), where XLA's partitioner would put them.  Replicated KV
+heads are computed whole on every rank and pass ``copy_to`` before each
+rank picks the ones its query heads read, so their gradient sums the
+ranks' partial uses.
 
 Unlike the JAX package, ``decode_attention`` writes the new key and value
 into the caller's cache tensors in place (and returns the same dict):
@@ -17,26 +26,94 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.common import MeshInfo, dense_init, zeros_init
 from repro_torch.models.layers import apply_rope, rope_tables
+from repro_torch.runtime import sharding as sh
 
 NEG_INF = -1e30
 
 
 def head_layout(cfg, mesh: MeshInfo) -> tuple[int, int]:
-    """(hq, hkv): on one device the logical head counts, unpadded."""
-    return cfg.n_heads, cfg.n_kv_heads
+    """(hq_padded, hkv_padded) for TP.
+
+    * both divisible by the model axis -> no padding;
+    * MHA (kv == q heads) -> pad both to the axis multiple;
+    * GQA -> replicate KV, pad query heads *per KV group* so the grouping
+      ``q_head -> q_head // n_rep`` survives padding (n_rep stays integral).
+    Padded positions are zero-initialised in wq/bq/wo (and wk/wv for padded
+    KV), so forward results are exactly the unpadded model's.
+    """
+    tp = mesh.model
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    if hq % tp == 0 and (hkv % tp == 0 or hkv == hq):
+        return hq, hkv
+    if hkv == hq:                                   # MHA: pad both
+        h = tp * math.ceil(hq / tp)
+        return h, h
+    g = math.gcd(hkv, tp)
+    step = tp // g
+    r = hq // hkv                                   # reps per KV group
+    rp = step * math.ceil(r / step)
+    return hkv * rp, hkv
+
+
+def pad_q(w, cfg, mesh: MeshInfo, head_axis: int):
+    """``w`` with the logical query heads on ``head_axis``, zero heads
+    inserted at the end of each KV group (and zero groups appended if the
+    KV heads are padded too): logical head (g, i) lands at g * rp + i."""
+    hq0, hkv0 = cfg.n_heads, cfg.n_kv_heads
+    hq, hkv = head_layout(cfg, mesh)
+    if hq == hq0:
+        return w
+    r0, rp = hq0 // hkv0, hq // hkv
+    heads = torch.arange(hq0, device=w.device)
+    idx = (heads // r0) * rp + heads % r0
+    shape = list(w.shape)
+    shape[head_axis] = hq
+    out = torch.zeros(shape, dtype=w.dtype, device=w.device)
+    return out.index_copy(head_axis, idx, w)
+
+
+def pad_kv(w, cfg, mesh: MeshInfo, head_axis: int):
+    """``w`` with the logical KV heads on ``head_axis``, zero heads
+    appended up to the padded count."""
+    _, hkv = head_layout(cfg, mesh)
+    if hkv == cfg.n_kv_heads:
+        return w
+    pad = [0, 0] * (w.ndim - 1 - head_axis) + [0, hkv - cfg.n_kv_heads]
+    return F.pad(w, pad)
+
+
+def attention_specs(cfg, mesh: MeshInfo) -> dict:
+    """The specs of :func:`init_attention`'s leaves."""
+    hq, hkv = head_layout(cfg, mesh)
+    h_ax = mesh.shard_if(hq)                  # always shardable after padding
+    kv_ax = mesh.shard_if(hkv)                # may be None (replicated KV)
+    fsdp = mesh.fsdp_if(cfg.d_model)
+    specs = {"wq": (fsdp, h_ax, None), "wk": (fsdp, kv_ax, None),
+             "wv": (fsdp, kv_ax, None), "wo": (h_ax, None, fsdp)}
+    if cfg.qkv_bias:
+        specs.update(bq=(h_ax, None), bk=(kv_ax, None), bv=(kv_ax, None))
+    return specs
 
 
 def init_attention(gen, cfg, mesh: MeshInfo, dtype, device):
+    """Logical-shape weights drawn as on one device, then padded: the
+    logical parameters are the same whatever the mesh."""
     d, hd = cfg.d_model, cfg.head_dim
+    hq0, hkv0 = cfg.n_heads, cfg.n_kv_heads
     hq, hkv = head_layout(cfg, mesh)
     p = {
-        "wq": dense_init(gen, d, (d, hq, hd), dtype, device),
-        "wk": dense_init(gen, d, (d, hkv, hd), dtype, device),
-        "wv": dense_init(gen, d, (d, hkv, hd), dtype, device),
-        "wo": dense_init(gen, hq * hd, (hq, hd, d), dtype, device),
+        "wq": pad_q(dense_init(gen, d, (d, hq0, hd), dtype, device), cfg,
+                    mesh, 1),
+        "wk": pad_kv(dense_init(gen, d, (d, hkv0, hd), dtype, device), cfg,
+                     mesh, 1),
+        "wv": pad_kv(dense_init(gen, d, (d, hkv0, hd), dtype, device), cfg,
+                     mesh, 1),
+        "wo": pad_q(dense_init(gen, hq0 * hd, (hq0, hd, d), dtype, device),
+                    cfg, mesh, 0),
     }
     if cfg.qkv_bias:
         p["bq"] = zeros_init((hq, hd), dtype, device)
@@ -45,11 +122,13 @@ def init_attention(gen, cfg, mesh: MeshInfo, dtype, device):
     return p
 
 
-def _project_qkv(params, x, cfg, positions):
-    """x: (B, S, D) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd), with RoPE applied."""
+def _project_qkv(params, x, cfg, positions, x_kv=None):
+    """x: (B, S, D) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd), with RoPE applied;
+    k and v read ``x_kv`` where given (the replicated-KV path)."""
+    x_kv = x if x_kv is None else x_kv
     q = torch.einsum("bsd,dhe->bshe", x, params["wq"])
-    k = torch.einsum("bsd,dhe->bshe", x, params["wk"])
-    v = torch.einsum("bsd,dhe->bshe", x, params["wv"])
+    k = torch.einsum("bsd,dhe->bshe", x_kv, params["wk"])
+    v = torch.einsum("bsd,dhe->bshe", x_kv, params["wv"])
     if "bq" in params:
         q = q + params["bq"]
         k = k + params["bk"]
@@ -58,6 +137,47 @@ def _project_qkv(params, x, cfg, positions):
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
     return q, k, v
+
+
+def _tp_layout(cfg, mesh: MeshInfo):
+    """(h_ax, kv replicated under sharded query heads?, the kv head each
+    local query head reads or None): how this rank's heads line up."""
+    hq, hkv = head_layout(cfg, mesh)
+    h_ax = mesh.shard_if(hq)
+    tp = sh.axis_size(h_ax)
+    if tp == 1 or sh.axis_size(mesh.shard_if(hkv)) == tp:
+        return h_ax, False, None
+    hq_l = hq // tp
+    q0 = sh.axis_index(h_ax) * hq_l
+    return h_ax, True, (q0 + torch.arange(hq_l)) // (hq // hkv)
+
+
+def project_local(params, x, cfg, mesh: MeshInfo, positions):
+    """This rank's q, k and v for ``x`` (B, S, D) replicated over the model
+    axis: q of the local query heads; k and v of the local KV heads, or of
+    all of them where they are replicated."""
+    h_ax, replicated, _ = _tp_layout(cfg, mesh)
+    xq = sh.copy_to(x, h_ax)
+    return _project_qkv(params, xq, cfg, positions,
+                        x_kv=x if replicated else xq)
+
+
+def kv_for_local_heads(k, cfg, mesh: MeshInfo):
+    """``k`` (B, S, Hkv_local, hd) repeated to one KV head per local query
+    head (q_head -> q_head // n_rep)."""
+    h_ax, replicated, idx = _tp_layout(cfg, mesh)
+    if not replicated:
+        hq, hkv = head_layout(cfg, mesh)
+        return _repeat_kv(k, hq // hkv)
+    return sh.copy_to(k, h_ax).index_select(2, idx.to(k.device))
+
+
+def output_projection(out, params, cfg, mesh: MeshInfo):
+    """(B, S, Hq_local, hd) @ wo -> (B, S, D), summed over the model axis
+    (row-parallel)."""
+    hq, _ = head_layout(cfg, mesh)
+    y = torch.einsum("bshe,hed->bsd", out, params["wo"])
+    return sh.all_reduce(y, mesh.shard_if(hq))
 
 
 def _repeat_kv(k, n_rep: int):
@@ -113,6 +233,23 @@ def blockwise_attention(q, k, v, *, chunk: int, causal: bool,
 # ---------------------------------------------------------------------------
 
 
+def kv_cache_specs(cfg, mesh: MeshInfo, seq_shard: bool = False,
+                   batch_shard: bool = True) -> dict:
+    """The specs of :func:`init_kv_cache`'s leaves.  ``seq_shard`` turns on
+    SP for long decode (KV sequence axis over the data axis; batch is then
+    unsharded)."""
+    _, hkv = head_layout(cfg, mesh)
+    kv_ax = mesh.shard_if(hkv)
+    if seq_shard:
+        spec, sspec = (None, mesh.dp(), kv_ax, None), (None, mesh.dp(), kv_ax)
+    else:
+        bspec = mesh.dp() if batch_shard else None
+        spec, sspec = (bspec, None, kv_ax, None), (bspec, None, kv_ax)
+    if cfg.kv_cache_dtype == "int8":
+        return {"k": spec, "v": spec, "k_scale": sspec, "v_scale": sspec}
+    return {"k": spec, "v": spec}
+
+
 def init_kv_cache(cfg, mesh: MeshInfo, batch: int, max_len: int, dtype,
                   device):
     """Cache tensors for one attention layer.  With
@@ -145,15 +282,15 @@ def decode_attention(params, cache, x, cfg, mesh: MeshInfo, *, pos):
     """One-token decode.  x: (B, 1, D); pos: a scalar (every row at the same
     position) or a (B,) vector of per-slot positions (continuous batching).
 
-    Writes the new key/value at ``pos`` into ``cache`` in place and returns
-    (out (B, 1, D), cache).
+    Writes the new key/value at ``pos`` into ``cache`` (this rank's KV
+    heads) in place and returns (out (B, 1, D), cache).
     """
     b = x.shape[0]
     dev = x.device
     pos = torch.as_tensor(pos, device=dev).long()
     per_slot = pos.ndim == 1
     positions = pos[:, None] if per_slot else pos.expand(b, 1)
-    q, k_new, v_new = _project_qkv(params, x, cfg, positions)
+    q, k_new, v_new = project_local(params, x, cfg, mesh, positions)
     quant = "k_scale" in cache
     if quant:
         k_new, k_s = _quant_kv(k_new)          # (B,1,H,hd) int8, (B,1,H) f32
@@ -167,22 +304,25 @@ def decode_attention(params, cache, x, cfg, mesh: MeshInfo, *, pos):
         cache["v_scale"][rows, cols] = v_s[:, 0]
 
     hq = q.shape[2]
-    hkv = cache["k"].shape[2]
-    n_rep = hq // hkv
     skv = cache["k"].shape[1]
     scale = cfg.head_dim ** -0.5
-    qg = (q * scale).reshape(b, 1, hkv, n_rep, cfg.head_dim).float()
     if quant:
         kf = cache["k"].float() * cache["k_scale"][..., None]
         vf = cache["v"].float() * cache["v_scale"][..., None]
     else:
         kf = cache["k"].float()
         vf = cache["v"].float()
+    _, replicated, idx = _tp_layout(cfg, mesh)
+    if replicated:               # one KV head per local query head
+        kf = kf.index_select(2, idx.to(dev))
+        vf = vf.index_select(2, idx.to(dev))
+    hkv = kf.shape[2]
+    n_rep = hq // hkv
+    qg = (q * scale).reshape(b, 1, hkv, n_rep, cfg.head_dim).float()
     s = torch.einsum("bqhrd,bkhd->bhrqk", qg, kf)          # (B,Hkv,rep,1,Skv)
     valid = torch.arange(skv, device=dev)[None, :] <= positions  # (B, Skv)
     s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhrqk,bkhd->bqhrd", p, vf)
     out = out.reshape(b, 1, hq, cfg.head_dim).to(x.dtype)
-    out = torch.einsum("bshe,hed->bsd", out, params["wo"])
-    return out, cache
+    return output_projection(out, params, cfg, mesh), cache

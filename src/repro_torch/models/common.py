@@ -2,10 +2,12 @@
 
 The JAX package builds nested dicts of ``Param`` (an array plus its
 PartitionSpec) and splits them into value and spec trees for ``jit``.  The
-port runs on one device and eagerly, so a parameter is a plain tensor and a
-model's parameters are a nested dict of tensors in the JAX package's
-layout (same keys, same shapes, same axis order); :class:`ParamTree` holds
-such a dict as registered ``nn.Parameter``s of an ``nn.Module``.
+port runs eagerly, so a parameter is a plain tensor and a model's
+parameters are a nested dict of tensors in the JAX package's layout (same
+keys, same shapes, same axis order); :class:`ParamTree` holds such a dict
+as registered ``nn.Parameter``s of an ``nn.Module``.  The specs are a
+second tree of the same structure (``LM.specs``), built by each module's
+``*_specs`` function beside its ``init_*``.
 
 Initialisers draw from an explicit ``torch.Generator`` with the JAX
 package's distributions (fan-in-scaled normal, unit normal embeddings).
@@ -138,30 +140,42 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype,
 
 
 # ---------------------------------------------------------------------------
-# Mesh description (one device).
+# Mesh description and spec construction.
 # ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshInfo:
-    """Sizes of the logical mesh axes.  The port runs on one device, so
-    both axes are 1, nothing shards (``shard_if`` / ``fsdp_if`` return
-    None) and head and expert padding never applies; the multi-device
-    layouts come with the multi-device queue."""
-    data: int = 1
-    model: int = 1
+    """Sizes of the logical axes actually present on the mesh.
 
-    def __post_init__(self):
-        if self.data != 1 or self.model != 1:
-            raise NotImplementedError(
-                "the port runs on one device; meshes come with the "
-                "multi-device queue (ROADMAP queue 1 item 1)")
+    A pure description, equal field for field to the JAX package's: the
+    process groups live on the ``DeviceMesh`` that
+    ``runtime.sharding.use_mesh`` installs.  ``shard_if`` returns the axis
+    name only when it divides ``size`` -- non-divisible dims fall back to
+    replication rather than failing (e.g. paligemma's single KV head vs a
+    16-way model axis).  ``fsdp_if`` is the same rule for the data
+    (-parallel) axes when ZeRO-style parameter sharding is enabled.
+
+    A spec is a tuple with one entry per tensor axis: ``None``, an axis
+    name, or a tuple of axis names (the data axes of a multi-pod mesh), so
+    that it compares equal with ``tuple(PartitionSpec(...))``.
+    """
+    data: int = 1                  # combined DP size (pod x data)
+    model: int = 1
+    data_axes: tuple = ("data",)   # mesh axis names folded into DP
+    model_axis: str = "model"
+    fsdp: bool = False
+
+    def dp(self):
+        return self.data_axes if len(self.data_axes) > 1 else self.data_axes[0]
 
     def shard_if(self, size: int):
-        return None
+        return self.model_axis if size % self.model == 0 else None
 
     def fsdp_if(self, size: int):
-        return None
+        if not self.fsdp:
+            return None
+        return self.dp() if size % self.data == 0 else None
 
 
 HOST_MESH = MeshInfo(data=1, model=1)

@@ -15,6 +15,10 @@ import torch
 from repro_torch.models.common import MeshInfo, dense_init
 
 
+def frontend_specs(cfg, mesh: MeshInfo) -> dict:
+    return {} if cfg.frontend == "none" else {"proj": (None, None)}
+
+
 def init_frontend(gen, cfg, mesh: MeshInfo, dtype, device):
     if cfg.frontend == "none":
         return {}

@@ -4,6 +4,12 @@ The counterparts of ``repro.models.layers``, same functions on tensors.
 Every matmul-shaped operation routes through the unified plan/execute API
 (``repro_torch.gemm.matmul``): the planned CUDA kernels for CUDA tensors,
 their plain versions for CPU tensors.
+
+Under a mesh (``runtime.sharding``) the MLP is column- then row-parallel
+over ``d_ff`` (one all-reduce), the embedding table and the logits head
+are sharded over the vocabulary (a masked lookup plus an all-reduce; the
+logits stay vocab-sharded: :func:`cross_entropy` reduces over the shards
+for training, :func:`gather_logits` gathers them for serving).
 """
 from __future__ import annotations
 
@@ -12,17 +18,26 @@ import torch.nn.functional as F
 
 from repro_torch import gemm as gemm_api
 from repro_torch.models.common import (
+    HOST_MESH,
     MeshInfo,
     dense_init,
     embed_init,
     ones_init,
     zeros_init,
 )
+from repro_torch.runtime import sharding as sh
 
 
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
+
+
+def norm_specs(cfg, mesh: MeshInfo) -> dict:
+    specs = {"scale": (None,)}
+    if cfg.norm_type == "layernorm":
+        specs["bias"] = (None,)
+    return specs
 
 
 def init_norm(cfg, mesh: MeshInfo, dtype, device):
@@ -76,6 +91,16 @@ def apply_rope(x, sin, cos):
 # ---------------------------------------------------------------------------
 
 
+def mlp_specs(cfg, mesh: MeshInfo, d_ff: int | None = None) -> dict:
+    f = d_ff or cfg.d_ff
+    ff_ax = mesh.shard_if(f)
+    fsdp = mesh.fsdp_if(cfg.d_model)
+    specs = {"w_up": (fsdp, ff_ax), "w_down": (ff_ax, fsdp)}
+    if cfg.act in ("swiglu", "geglu"):
+        specs["w_gate"] = (fsdp, ff_ax)
+    return specs
+
+
 def init_mlp(gen, cfg, mesh: MeshInfo, dtype, device, d_ff: int | None = None):
     d, f = cfg.d_model, d_ff or cfg.d_ff
     p = {
@@ -92,7 +117,12 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def apply_mlp(params, x, cfg):
+def apply_mlp(params, x, cfg, mesh: MeshInfo = HOST_MESH):
+    """Under a mesh the weights hold this rank's share of ``d_ff`` (when
+    the model axis divides it): the products' sum comes out of one
+    all-reduce."""
+    ff_ax = mesh.shard_if(cfg.d_ff)
+    x = sh.copy_to(x, ff_ax)
     up = gemm_api.matmul(x, params["w_up"])
     if cfg.act == "swiglu":
         h = F.silu(gemm_api.matmul(x, params["w_gate"])) * up
@@ -100,12 +130,21 @@ def apply_mlp(params, x, cfg):
         h = _gelu(gemm_api.matmul(x, params["w_gate"])) * up
     else:
         h = _gelu(up)
-    return gemm_api.matmul(h, params["w_down"])
+    return sh.all_reduce(gemm_api.matmul(h, params["w_down"]), ff_ax)
 
 
 # ---------------------------------------------------------------------------
 # Embedding / logits
 # ---------------------------------------------------------------------------
+
+
+def embedding_specs(cfg, mesh: MeshInfo) -> dict:
+    vax = mesh.shard_if(cfg.padded_vocab)
+    fsdp = mesh.fsdp_if(cfg.d_model)
+    specs = {"table": (vax, fsdp)}
+    if not cfg.tie_embeddings:
+        specs["unembed"] = (fsdp, vax)
+    return specs
 
 
 def init_embedding(gen, cfg, mesh: MeshInfo, dtype, device):
@@ -117,8 +156,22 @@ def init_embedding(gen, cfg, mesh: MeshInfo, dtype, device):
     return p
 
 
-def embed_tokens(params, token_ids, cfg):
-    return params["table"][token_ids]
+def vocab_axis(cfg, mesh: MeshInfo):
+    return mesh.shard_if(cfg.padded_vocab)
+
+
+def embed_tokens(params, token_ids, cfg, mesh: MeshInfo = HOST_MESH):
+    """Under a mesh each rank looks up the ids its vocabulary shard holds,
+    zeros the rest, and the all-reduce sums the shards' rows."""
+    table = params["table"]
+    vax = vocab_axis(cfg, mesh)
+    if not sh.communicates(vax):
+        return table[token_ids]
+    rows = table.shape[0]
+    local = token_ids - sh.axis_index(vax) * rows
+    mine = (local >= 0) & (local < rows)
+    emb = table[local.clamp(0, rows - 1)]
+    return sh.all_reduce(torch.where(mine[..., None], emb, 0), vax)
 
 
 def head_matrix(params, cfg):
@@ -136,11 +189,13 @@ def head_matrix(params, cfg):
     return params["unembed"]
 
 
-def logits_head(params, x, cfg):
+def logits_head(params, x, cfg, mesh: MeshInfo = HOST_MESH):
     """x: (..., d) -> (..., padded_vocab); soft-capped if configured.  With
     tied embeddings the backward product ``dX = dlogits · table`` reads the
     table row-major and ``dTable`` comes out in the table's layout
-    (``gemm/autograd.py``)."""
+    (``gemm/autograd.py``).  Under a mesh the logits are this rank's
+    vocabulary shard (:func:`gather_logits` joins them)."""
+    x = sh.copy_to(x, vocab_axis(cfg, mesh))
     logits = gemm_api.matmul(x, head_matrix(params, cfg))
     if cfg.logit_softcap:
         c = cfg.logit_softcap
@@ -148,21 +203,62 @@ def logits_head(params, x, cfg):
     return logits
 
 
+def gather_logits(logits, cfg, mesh: MeshInfo = HOST_MESH):
+    """The vocabulary shards of :func:`logits_head` joined on every rank
+    (serving)."""
+    return sh.gather_from(logits, vocab_axis(cfg, mesh), -1)
+
+
+class _VocabLogSumExp(torch.autograd.Function):
+    """logsumexp over the last dim of logits sharded over ``names``: the
+    max and the sum of exponentials reduce over the shards.  On one shard
+    it computes what ``torch.logsumexp`` does, operation for operation,
+    and its backward is ``torch.logsumexp``'s."""
+
+    @staticmethod
+    def forward(ctx, x, names):
+        m = sh.all_reduce_(x.amax(-1, keepdim=True), names, op="max")
+        s = sh.all_reduce_((x - m).exp().sum(-1), names)
+        lse = s.log().add(m[..., 0])
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        return g[..., None] * (x - lse[..., None]).exp(), None
+
+
 def cross_entropy(logits, labels, vocab_size: int, z_coef: float = 1e-4,
-                  mask=None):
+                  mask=None, vocab_ax=None):
     """Next-token CE over the *logical* vocab (the padded tail masked out).
 
     logits: (B, S, Vp); labels: (B, S) int.  Returns the scalar mean loss
     (plus a small z-loss against logit drift) over unmasked positions, in
     f32.  The tail is set to -1e9 out of place, so autograd follows it.
+    With ``vocab_ax`` under a mesh the logits are this rank's vocabulary
+    shard (vocab-parallel cross-entropy: the logsumexp and the gold logit
+    reduce over the shards; the mean is over this rank's tokens).
     """
     logits = logits.float()
-    vp = logits.shape[-1]
-    if vp > vocab_size:
-        tail = torch.arange(vp, device=logits.device) >= vocab_size
-        logits = logits.masked_fill(tail, -1e9)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    if not sh.communicates(vocab_ax):
+        vp = logits.shape[-1]
+        if vp > vocab_size:
+            tail = torch.arange(vp, device=logits.device) >= vocab_size
+            logits = logits.masked_fill(tail, -1e9)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    else:
+        vl = logits.shape[-1]
+        first = sh.axis_index(vocab_ax) * vl
+        if vl * sh.axis_size(vocab_ax) > vocab_size:
+            cols = first + torch.arange(vl, device=logits.device)
+            logits = logits.masked_fill(cols >= vocab_size, -1e9)
+        lse = _VocabLogSumExp.apply(logits, sh.axis_names(vocab_ax))
+        local = labels.long() - first
+        mine = (local >= 0) & (local < vl)
+        gold = logits.gather(-1, local.clamp(0, vl - 1)[..., None])[..., 0]
+        gold = sh.all_reduce(torch.where(mine, gold, 0.0), vocab_ax)
     per_tok = (lse - gold) + z_coef * lse.square()
     if mask is None:
         return per_tok.mean()

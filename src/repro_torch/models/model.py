@@ -22,6 +22,16 @@ Two JAX habits change on the card:
   and cast a tree already in the compute dtype at no cost.
 * ``decode_step`` updates the caches in place (see ``attention.py``,
   ``ssm.py`` and ``xlstm.py``).
+
+Under a mesh (``runtime.sharding.use_mesh``) every rank holds the shards
+its specs give it (:meth:`LM.specs`, :meth:`LM.shard`): the attention,
+MLP, MoE and vocabulary layers issue their collectives themselves
+(``models/attention.py``, ``layers.py``, ``moe.py``), the MoE block takes
+the expert-parallel branch where the JAX package does, and a block's
+FSDP-sharded weights are all-gathered over the data axes as the block
+starts (inside its remat unit, so the backward gathers them again and
+reduce-scatters their gradients).  The recurrent blocks shard as their
+specs say (``models/ssm.py``, ``xlstm.py``).
 """
 from __future__ import annotations
 
@@ -37,7 +47,8 @@ from repro_torch.interop import require_device
 from repro_torch.models import attention as attn
 from repro_torch.models import frontends, layers, moe, ssm, xlstm
 from repro_torch.models.common import (HOST_MESH, MeshInfo, ParamTree,
-                                       cast_for_compute)
+                                       cast_for_compute, tree_map)
+from repro_torch.runtime import sharding as sh
 
 #: the block kinds ``LM`` builds
 KINDS = ("attn", "moe", "mamba2", "mlstm", "slstm", "shared_attn")
@@ -96,15 +107,42 @@ def _init_block(gen, kind: str, cfg, mesh, dtype, device):
     return p
 
 
-def _ffn(params, kind: str, x, cfg, mesh):
-    """The block's second half: returns (x, aux)."""
+def _block_specs(kind: str, cfg, mesh):
+    """The specs of :func:`_init_block`'s leaves."""
+    _check_kind(kind)
+    p = {"norm1": layers.norm_specs(cfg, mesh)}
+    if kind == "mamba2":
+        p["mamba"] = ssm.mamba2_specs(cfg, mesh)
+        return p
+    if kind == "mlstm":
+        p["mlstm"] = xlstm.mlstm_specs(cfg, mesh)
+        return p
+    if kind == "slstm":
+        p["slstm"] = xlstm.slstm_specs(cfg, mesh)
+        return p
+    p["attn"] = attn.attention_specs(cfg, mesh)
+    if kind == "moe":
+        p["norm2"] = layers.norm_specs(cfg, mesh)
+        p["moe"] = moe.moe_specs(cfg, mesh)
+    elif cfg.d_ff:
+        p["norm2"] = layers.norm_specs(cfg, mesh)
+        p["mlp"] = layers.mlp_specs(cfg, mesh)
+    return p
+
+
+def _ffn(params, kind: str, x, cfg, mesh, *, ep: bool = False):
+    """The block's second half: returns (x, aux).  ``ep``: the MoE block
+    may take the expert-parallel branch (the full-sequence forward)."""
     if kind == "moe":
         h2 = layers.apply_norm(params["norm2"], x, cfg)
-        y, aux = moe.apply_moe(params["moe"], h2, cfg, mesh)
+        if ep and moe.ep_applicable(cfg, mesh, h2.shape[1]):
+            y, aux = moe.apply_moe_ep(params["moe"], h2, cfg, mesh)
+        else:
+            y, aux = moe.apply_moe(params["moe"], h2, cfg, mesh)
         return x + y, aux
     if cfg.d_ff:
         h2 = layers.apply_norm(params["norm2"], x, cfg)
-        return x + layers.apply_mlp(params["mlp"], h2, cfg), 0.0
+        return x + layers.apply_mlp(params["mlp"], h2, cfg, mesh), 0.0
     return x, 0.0
 
 
@@ -113,23 +151,25 @@ def _apply_block(params, kind: str, x, cfg, mesh, *, prefix_len: int = 0):
     _check_kind(kind)
     h = layers.apply_norm(params["norm1"], x, cfg)
     if kind == "mamba2":
-        y, h_last, conv_tail = ssm.apply_mamba2(params["mamba"], h, cfg)
+        y, h_last, conv_tail = ssm.apply_mamba2(params["mamba"], h, cfg,
+                                                mesh)
         return x + y, 0.0, {"h": h_last, "conv": conv_tail}
     if kind == "mlstm":
-        y, h_last, conv_tail = xlstm.apply_mlstm(params["mlstm"], h, cfg)
+        y, h_last, conv_tail = xlstm.apply_mlstm(params["mlstm"], h, cfg,
+                                                 mesh)
         return x + y, 0.0, {"h": h_last, "conv": conv_tail}
     if kind == "slstm":
-        y, (hs, cs, ns) = xlstm.apply_slstm(params["slstm"], h, cfg)
+        y, (hs, cs, ns) = xlstm.apply_slstm(params["slstm"], h, cfg, mesh)
         return x + y, 0.0, {"h": hs, "c": cs, "n": ns}
     b, s, _ = h.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    q, k, v = attn._project_qkv(params["attn"], h, cfg, positions)
-    n_rep = q.shape[2] // k.shape[2]
+    q, k, v = attn.project_local(params["attn"], h, cfg, mesh, positions)
     out = attn.blockwise_attention(
-        q, attn._repeat_kv(k, n_rep), attn._repeat_kv(v, n_rep),
+        q, attn.kv_for_local_heads(k, cfg, mesh),
+        attn.kv_for_local_heads(v, cfg, mesh),
         chunk=cfg.attn_chunk, causal=True, prefix_len=prefix_len)
-    x = x + torch.einsum("bshe,hed->bsd", out, params["attn"]["wo"])
-    x, aux = _ffn(params, kind, x, cfg, mesh)
+    x = x + attn.output_projection(out, params["attn"], cfg, mesh)
+    x, aux = _ffn(params, kind, x, cfg, mesh, ep=True)
     return x, aux, {"k": k, "v": v}
 
 
@@ -137,18 +177,29 @@ def _decode_block(params, kind: str, cache, x, cfg, mesh, *, pos):
     _check_kind(kind)
     h = layers.apply_norm(params["norm1"], x, cfg)
     if kind == "mamba2":
-        y, cache = ssm.decode_mamba2(params["mamba"], cache, h, cfg)
+        y, cache = ssm.decode_mamba2(params["mamba"], cache, h, cfg, mesh)
         return x + y, cache
     if kind == "mlstm":
-        y, cache = xlstm.decode_mlstm(params["mlstm"], cache, h, cfg)
+        y, cache = xlstm.decode_mlstm(params["mlstm"], cache, h, cfg, mesh)
         return x + y, cache
     if kind == "slstm":
-        y, cache = xlstm.decode_slstm(params["slstm"], cache, h, cfg)
+        y, cache = xlstm.decode_slstm(params["slstm"], cache, h, cfg, mesh)
         return x + y, cache
     out, cache = attn.decode_attention(params["attn"], cache, h, cfg, mesh,
                                        pos=pos)
     x, _ = _ffn(params, kind, x + out, cfg, mesh)
     return x, cache
+
+
+def _block_cache_specs(kind: str, cfg, mesh, seq_shard: bool,
+                       batch_shard: bool):
+    if kind == "mamba2":
+        return ssm.mamba2_cache_specs(cfg, mesh, batch_shard)
+    if kind == "mlstm":
+        return xlstm.mlstm_cache_specs(cfg, mesh, batch_shard)
+    if kind == "slstm":
+        return xlstm.slstm_cache_specs(cfg, mesh, batch_shard)
+    return attn.kv_cache_specs(cfg, mesh, seq_shard, batch_shard)
 
 
 def _init_block_cache(kind: str, cfg, mesh, batch: int, max_len: int, dtype,
@@ -187,6 +238,7 @@ class LM(nn.Module):
         self.mesh = mesh
         self.device = require_device(device)
         self.params: ParamTree | None = None
+        self._specs: dict | None = None
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -196,30 +248,103 @@ class LM(nn.Module):
         return kind == "shared_attn" and self.cfg.shared_block
 
     # -- init ---------------------------------------------------------------
-    def init(self, generator: torch.Generator) -> dict:
+    def init(self, generator: torch.Generator, *, shard: bool = False
+             ) -> dict:
+        """Draw the parameters from ``generator``.  With ``shard`` (under
+        an ambient mesh) each part (the embedding, the frontend, each
+        block) is cut to this rank's shards as soon as it is drawn, so a
+        rank holds its shards and at most one full block at a time; the
+        shards equal those :meth:`shard` cuts from the full init."""
         cfg, mesh, dev = self.cfg, self.mesh, self.device
         dtype = getattr(torch, cfg.param_dtype)
         period, k, tail = factor_pattern(cfg.block_pattern)
+        specs = self.specs()
+
+        def cut(tree, spec):
+            return sh.shard_tree(tree, spec) if shard else tree
+
+        def block(kind, spec):
+            return cut(_init_block(generator, kind, cfg, mesh, dtype, dev),
+                       spec)
+
         p: dict[str, Any] = {
-            "embed": layers.init_embedding(generator, cfg, mesh, dtype, dev),
-            "final_norm": layers.init_norm(cfg, mesh, dtype, dev),
-            "frontend": frontends.init_frontend(generator, cfg, mesh, dtype,
-                                                dev),
+            "embed": cut(layers.init_embedding(generator, cfg, mesh, dtype,
+                                               dev), specs["embed"]),
+            "final_norm": cut(layers.init_norm(cfg, mesh, dtype, dev),
+                              specs["final_norm"]),
+            "frontend": cut(frontends.init_frontend(generator, cfg, mesh,
+                                                    dtype, dev),
+                            specs["frontend"]),
         }
         if cfg.shared_block:
             # one set of tied weights for every shared_attn site
-            p["shared"] = _init_block(generator, "attn", cfg, mesh, dtype,
-                                      dev)
-        p["stack"] = [{f"b{j}_{kind}": _init_block(generator, kind, cfg,
-                                                   mesh, dtype, dev)
+            p["shared"] = block("attn", specs["shared"])
+        p["stack"] = [{f"b{j}_{kind}": block(kind, specs["stack"][i][
+                           f"b{j}_{kind}"])
                        for j, kind in enumerate(period)
                        if not self._tied(kind)}
-                      for _ in range(k)]
-        p["tail"] = {f"t{j}_{kind}": _init_block(generator, kind, cfg, mesh,
-                                                 dtype, dev)
+                      for i in range(k)]
+        p["tail"] = {f"t{j}_{kind}": block(kind,
+                                           specs["tail"][f"t{j}_{kind}"])
                      for j, kind in enumerate(tail)}
         self.params = ParamTree(p)
         return self.values()
+
+    def specs(self) -> dict:
+        """The spec of every parameter, a tree of :meth:`values`'
+        structure (the JAX package's ``Param`` specs, with the period stack
+        a list: ``train_lib.stack_spec_periods`` gives the JAX layout).
+        Built once; do not modify it."""
+        if self._specs is None:
+            self._specs = self._build_specs()
+        return self._specs
+
+    def _build_specs(self) -> dict:
+        cfg, mesh = self.cfg, self.mesh
+        period, k, tail = factor_pattern(cfg.block_pattern)
+        p: dict[str, Any] = {
+            "embed": layers.embedding_specs(cfg, mesh),
+            "final_norm": layers.norm_specs(cfg, mesh),
+            "frontend": frontends.frontend_specs(cfg, mesh),
+        }
+        if cfg.shared_block:
+            p["shared"] = _block_specs("attn", cfg, mesh)
+        p["stack"] = [{f"b{j}_{kind}": _block_specs(kind, cfg, mesh)
+                       for j, kind in enumerate(period)
+                       if not self._tied(kind)}
+                      for _ in range(k)]
+        p["tail"] = {f"t{j}_{kind}": _block_specs(kind, cfg, mesh)
+                     for j, kind in enumerate(tail)}
+        return p
+
+    def shard(self) -> dict:
+        """Replace the (full) parameters by this rank's shards under the
+        ambient mesh, as :meth:`specs` cuts them; returns the new values."""
+        self.params = ParamTree(sh.shard_tree(self.values(), self.specs()),
+                                requires_grad=any(
+                                    p.requires_grad
+                                    for p in self.params.parameters()))
+        return self.values()
+
+    def _check_mesh(self) -> None:
+        """Under an ambient mesh, its axes must be the ones ``self.mesh``
+        describes."""
+        if sh.ambient_mesh() is None:
+            return
+        got = (sh.axis_size(self.mesh.data_axes),
+               sh.axis_size(self.mesh.model_axis))
+        if got != (self.mesh.data, self.mesh.model):
+            raise ValueError(f"the ambient mesh has (data, model) = {got}; "
+                             f"the model was built for {self.mesh}")
+
+    def _gathered(self, params, path):
+        """The parameters at ``path`` with their FSDP shards all-gathered
+        over the data axes (differentiable; a no-op without a mesh or
+        FSDP)."""
+        tree, specs = _get(params, path), _get(self.specs(), path)
+        if "head" in tree:      # the compute copy's view: not FSDP-sharded
+            specs = {**specs, "head": (None, None)}
+        return sh.gather_fsdp(tree, specs, self.mesh.data_axes)
 
     def train_mode(self, on: bool = True) -> "LM":
         """Make the parameters trainable (``requires_grad``), or frozen
@@ -243,11 +368,20 @@ class LM(nn.Module):
         unchanged, without copies."""
         params = self.values() if params is None else params
         out = cast_for_compute(params, self.compute_dtype)
-        if "head" not in out["embed"]:
+        if "head" not in out["embed"] and not self._fsdp_embed():
             out["embed"] = dict(out["embed"],
                                 head=layers.head_matrix(out["embed"],
                                                         self.cfg))
         return out
+
+    def _fsdp_embed(self) -> bool:
+        """Whether the embedding is FSDP-sharded under the ambient mesh:
+        the logits matrix then comes from the gathered table, per call."""
+        return any(sh.communicates(ax) and set(sh.axis_names(ax))
+                   <= set(self.mesh.data_axes)
+                   for spec in layers.embedding_specs(self.cfg,
+                                                      self.mesh).values()
+                   for ax in spec)
 
     # -- shared helpers -------------------------------------------------------
     def _layout(self):
@@ -263,10 +397,10 @@ class LM(nn.Module):
             path = ("tail", f"t{j}_{kind}")
             yield kind, path, path
 
-    def _embed_inputs(self, params, batch) -> tuple[torch.Tensor, int]:
+    def _embed_inputs(self, params, batch, embed) -> tuple[torch.Tensor, int]:
         """Returns (x (B, S, D) in the compute dtype, prefix_len): vision
         patches form a bidirectional prefix before the tokens, audio frames
-        replace them."""
+        replace them.  ``embed``: the (gathered) embedding parameters."""
         cfg = self.cfg
         parts = []
         prefix_len = 0
@@ -279,8 +413,8 @@ class LM(nn.Module):
             parts.append(frontends.apply_frontend(params["frontend"],
                                                   batch["frames"], cfg))
         if "tokens" in batch:
-            parts.append(layers.embed_tokens(params["embed"],
-                                             batch["tokens"], cfg))
+            parts.append(layers.embed_tokens(embed, batch["tokens"], cfg,
+                                             self.mesh))
         x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
         return x.to(self.compute_dtype), prefix_len
 
@@ -301,12 +435,19 @@ class LM(nn.Module):
             units.setdefault(cpath[:2] if cpath[0] == "stack" else cpath,
                              []).append((kind, ppath, cpath))
 
+        # a remat unit's recompute runs in the backward pass, on autograd's
+        # thread or after the caller's use_mesh block has closed: it
+        # installs the forward's mesh again to issue the same collectives
+        ambient = sh.ambient_mesh()
+
         def body(x, layers_):
             aux = 0.0
-            for kind, ppath, _ in layers_:
-                x, a, _ = _apply_block(_get(params, ppath), kind, x, cfg,
-                                       mesh, prefix_len=prefix_len)
-                aux = aux + a
+            with sh.use_mesh(ambient):
+                for kind, ppath, _ in layers_:
+                    x, a, _ = _apply_block(self._gathered(params, ppath),
+                                           kind, x, cfg, mesh,
+                                           prefix_len=prefix_len)
+                    aux = aux + a
             return x, aux
 
         aux_total = 0.0
@@ -330,17 +471,20 @@ class LM(nn.Module):
         included, is made inside, under autograd).  ``batch`` holds
         ``labels`` (B, S) and the inputs ``prefill`` takes, optionally a
         ``loss_mask``."""
-        cfg = self.cfg
+        cfg, mesh = self.cfg, self.mesh
+        self._check_mesh()
         params = self.compute_params(params)
-        x, prefix_len = self._embed_inputs(params, batch)
+        embed = self._gathered(params, ("embed",))
+        x, prefix_len = self._embed_inputs(params, batch, embed)
         x, aux = self._run_stack(params, x, prefix_len=prefix_len,
                                  remat=remat)
         x = layers.apply_norm(params["final_norm"], x, cfg)
         if prefix_len:
             x = x[:, prefix_len:]
-        logits = layers.logits_head(params["embed"], x, cfg)
+        logits = layers.logits_head(embed, x, cfg, mesh)
         loss = layers.cross_entropy(logits, batch["labels"], cfg.vocab_size,
-                                    mask=batch.get("loss_mask"))
+                                    mask=batch.get("loss_mask"),
+                                    vocab_ax=layers.vocab_axis(cfg, mesh))
         return loss + aux, {"ce_loss": loss, "aux_loss": aux}
 
     # -- serving: prefill -------------------------------------------------------
@@ -349,16 +493,18 @@ class LM(nn.Module):
         holds ``tokens`` (B, S), and for the frontends ``patches``
         (B, P, D) before them or ``frames`` (B, S, D) instead of them."""
         cfg, mesh = self.cfg, self.mesh
+        self._check_mesh()
         params = self.compute_params(params)
-        x, prefix_len = self._embed_inputs(params, batch)
+        embed = self._gathered(params, ("embed",))
+        x, prefix_len = self._embed_inputs(params, batch, embed)
         caches = self._empty_tree()
         for kind, ppath, cpath in self._layout():
-            x, _, cache = _apply_block(_get(params, ppath), kind, x, cfg,
-                                       mesh, prefix_len=prefix_len)
+            x, _, cache = _apply_block(self._gathered(params, ppath), kind,
+                                       x, cfg, mesh, prefix_len=prefix_len)
             _put(caches, cpath, cache)
         x = layers.apply_norm(params["final_norm"], x, cfg)
-        logits = layers.logits_head(params["embed"], x[:, -1:], cfg)
-        return logits[:, 0], caches
+        logits = layers.logits_head(embed, x[:, -1:], cfg, mesh)
+        return layers.gather_logits(logits, cfg, mesh)[:, 0], caches
 
     # -- serving: decode ---------------------------------------------------------
     def _empty_tree(self) -> dict:
@@ -368,31 +514,48 @@ class LM(nn.Module):
     def init_cache(self, batch: int, max_len: int) -> dict:
         """Decode state of ``batch`` slots: a KV cache of ``max_len``
         positions per attention layer (each ``shared_attn`` site its own),
-        the f32 recurrent state and conv tail per recurrent layer."""
+        the f32 recurrent state and conv tail per recurrent layer.  Under
+        an ambient mesh, this rank's shards of it (:meth:`cache_specs`:
+        ``batch`` is the global batch), allocated at their local shapes."""
         caches = self._empty_tree()
         for kind, _, path in self._layout():
             _put(caches, path, _init_block_cache(
                 kind, self.cfg, self.mesh, batch, max_len,
-                self.compute_dtype, self.device))
-        return caches
+                self.compute_dtype, torch.device("meta")))
+        # every cache starts at zero: the meta tree's shards give the shapes
+        return tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                              device=self.device),
+                        sh.shard_tree(caches, self.cache_specs()))
+
+    def cache_specs(self, *, seq_shard: bool = False,
+                    batch_shard: bool = True) -> dict:
+        """The spec of every cache leaf, a tree of :meth:`init_cache`'s
+        structure."""
+        specs = self._empty_tree()
+        for kind, _, path in self._layout():
+            _put(specs, path, _block_cache_specs(kind, self.cfg, self.mesh,
+                                                 seq_shard, batch_shard))
+        return specs
 
     def decode_step(self, params, caches, token, pos):
         """token: (B, 1) int, or (B, 1, D) frame embeddings for the audio
         frontend; pos: a scalar or a (B,) per-slot vector.  Returns
         (logits (B, Vp), caches), the caches updated in place."""
         cfg, mesh = self.cfg, self.mesh
+        self._check_mesh()
         params = self.compute_params(params)
+        embed = self._gathered(params, ("embed",))
         if token.ndim == 3:  # audio frames pass through the frontend
             x = frontends.apply_frontend(params["frontend"], token, cfg)
         else:
-            x = layers.embed_tokens(params["embed"], token, cfg)
+            x = layers.embed_tokens(embed, token, cfg, mesh)
         x = x.to(self.compute_dtype)
         for kind, ppath, cpath in self._layout():
-            x, _ = _decode_block(_get(params, ppath), kind,
+            x, _ = _decode_block(self._gathered(params, ppath), kind,
                                  _get(caches, cpath), x, cfg, mesh, pos=pos)
         x = layers.apply_norm(params["final_norm"], x, cfg)
-        logits = layers.logits_head(params["embed"], x, cfg)
-        return logits[:, 0], caches
+        logits = layers.logits_head(embed, x, cfg, mesh)
+        return layers.gather_logits(logits, cfg, mesh)[:, 0], caches
 
 
 def _get(tree, path):

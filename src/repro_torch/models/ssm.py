@@ -25,8 +25,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import (MeshInfo, dense_init, ones_init,
-                                       zeros_init)
+from repro_torch.models.common import (HOST_MESH, MeshInfo, dense_init,
+                                       ones_init, zeros_init)
+from repro_torch.runtime import sharding as sh
 
 
 def silu(x):
@@ -145,6 +146,17 @@ def causal_conv_step(cache, x_t, w, b):
 # ---------------------------------------------------------------------------
 
 
+def mamba2_specs(cfg, mesh: MeshInfo) -> dict:
+    in_ax = mesh.shard_if(cfg.d_inner)
+    h_ax = mesh.shard_if(cfg.ssm_heads)
+    fsdp = mesh.fsdp_if(cfg.d_model)
+    return {"w_z": (fsdp, in_ax), "w_x": (fsdp, in_ax),
+            "w_B": (fsdp, None), "w_C": (fsdp, None), "w_dt": (fsdp, h_ax),
+            "dt_bias": (h_ax,), "A_log": (h_ax,), "Dskip": (h_ax,),
+            "conv_w": (None, in_ax), "conv_b": (in_ax,),
+            "w_out": (in_ax, fsdp), "norm_scale": (in_ax,)}
+
+
 def init_mamba2(gen, cfg, mesh: MeshInfo, dtype, device):
     d, di, n, hh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     conv_ch = di  # conv over the x stream only (B/C kept conv-free)
@@ -167,25 +179,49 @@ def init_mamba2(gen, cfg, mesh: MeshInfo, dtype, device):
     }
 
 
-def _mamba2_inner(params, x, cfg):
-    z = torch.matmul(x, params["w_z"])
-    xs = torch.matmul(x, params["w_x"])
-    Bm = torch.matmul(x, params["w_B"])
-    Cm = torch.matmul(x, params["w_C"])
-    dt_raw = torch.matmul(x, params["w_dt"])
+def _tp_axis(cfg, mesh: MeshInfo):
+    """The model axis this block's inner width and heads shard over, or
+    None; refuses a mesh that shards only one of them (no local layout
+    keeps whole heads then)."""
+    in_ax, h_ax = mesh.shard_if(cfg.d_inner), mesh.shard_if(cfg.ssm_heads)
+    if in_ax != h_ax and sh.axis_size(mesh.model_axis) > 1:
+        raise NotImplementedError(
+            f"mamba2 on a model axis of {mesh.model}: it divides only one "
+            f"of d_inner {cfg.d_inner} and the {cfg.ssm_heads} heads")
+    return in_ax
+
+
+def _mamba2_inner(params, x, cfg, ax=None):
+    # under a mesh B and C come whole from replicated weights; each rank
+    # reads them for its own heads, so their weights' gradients are summed
+    xl = sh.copy_to(x, ax)
+    z = torch.matmul(xl, params["w_z"])
+    xs = torch.matmul(xl, params["w_x"])
+    Bm = torch.matmul(xl, sh.copy_to(params["w_B"], ax))
+    Cm = torch.matmul(xl, sh.copy_to(params["w_C"], ax))
+    dt_raw = torch.matmul(xl, params["w_dt"])
     return z, xs, Bm, Cm, dt_raw
 
 
-def _gated_out(params, y, z, cfg, b, s):
-    di = cfg.d_inner
-    y = y.reshape(b, s, di)
+def mean_square(yf, width: int, ax=None):
+    """The mean of ``yf``'s squares over its last dim, ``width`` wide in
+    all, of which this rank holds a slice when ``ax`` shards it (the sum
+    over the ranks' slices, its gradient summed back to every slice)."""
+    if not sh.communicates(ax):
+        return yf.square().mean(-1, keepdim=True)
+    total = sh.all_reduce(yf.square().sum(-1, keepdim=True), ax)
+    return sh.copy_to(total, ax) / width
+
+
+def _gated_out(params, y, z, cfg, b, s, ax=None):
+    y = y.reshape(b, s, -1)
     # grouped RMSNorm then gate (mamba2's norm-before-gate)
     yf = y.float()
-    ms = yf.square().mean(-1, keepdim=True)
+    ms = mean_square(yf, cfg.d_inner, ax)
     scale = params["norm_scale"].float()
     y = (yf * torch.rsqrt(ms + cfg.norm_eps) * scale).to(z.dtype)
     y = y * silu(z)
-    return torch.matmul(y, params["w_out"])
+    return sh.all_reduce(torch.matmul(y, params["w_out"]), ax)
 
 
 def _conv_tail(xs, k):
@@ -195,11 +231,13 @@ def _conv_tail(xs, k):
     return xs[:, s - k:, :] if s >= k else F.pad(xs, (0, 0, k - s, 0))
 
 
-def apply_mamba2(params, x, cfg):
+def apply_mamba2(params, x, cfg, mesh: MeshInfo = HOST_MESH):
     """Prefill path.  x: (B, S, D) -> (y, h_final, conv_tail)."""
     b, s, _ = x.shape
-    hh, p = cfg.ssm_heads, cfg.ssm_head_dim
-    z, xs, Bm, Cm, dt_raw = _mamba2_inner(params, x, cfg)
+    p = cfg.ssm_head_dim
+    ax = _tp_axis(cfg, mesh)
+    z, xs, Bm, Cm, dt_raw = _mamba2_inner(params, x, cfg, ax)
+    hh = xs.shape[-1] // p                                   # local heads
     xs_conv = silu(causal_conv(xs, params["conv_w"], params["conv_b"]))
     dt = F.softplus(dt_raw.float() + params["dt_bias"])
     a = -torch.exp(params["A_log"])[None, None, :] * dt      # (B,S,H)
@@ -209,8 +247,14 @@ def apply_mamba2(params, x, cfg):
     Ch = Cm[:, :, None, :].expand(b, s, hh, n)
     y, h_last = ssd_chunked(xh, a, dt, Bh, Ch, cfg.ssm_chunk)
     y = y + params["Dskip"][None, None, :, None] * xh.float()
-    out = _gated_out(params, y.to(x.dtype), z, cfg, b, s)
+    out = _gated_out(params, y.to(x.dtype), z, cfg, b, s, ax)
     return out, h_last, _conv_tail(xs, cfg.ssm_conv - 1)
+
+
+def mamba2_cache_specs(cfg, mesh: MeshInfo, batch_shard: bool = True) -> dict:
+    dp = mesh.dp() if batch_shard else None
+    return {"h": (dp, mesh.shard_if(cfg.ssm_heads), None, None),
+            "conv": (dp, None, mesh.shard_if(cfg.d_inner))}
 
 
 def init_mamba2_cache(cfg, mesh: MeshInfo, batch: int, dtype, device):
@@ -223,12 +267,14 @@ def init_mamba2_cache(cfg, mesh: MeshInfo, batch: int, dtype, device):
     }
 
 
-def decode_mamba2(params, cache, x, cfg):
+def decode_mamba2(params, cache, x, cfg, mesh: MeshInfo = HOST_MESH):
     """One-token decode.  x: (B, 1, D) -> (y (B,1,D), cache), the cache
     updated in place."""
     b = x.shape[0]
-    hh, p = cfg.ssm_heads, cfg.ssm_head_dim
-    z, xs, Bm, Cm, dt_raw = _mamba2_inner(params, x, cfg)
+    p = cfg.ssm_head_dim
+    ax = _tp_axis(cfg, mesh)
+    z, xs, Bm, Cm, dt_raw = _mamba2_inner(params, x, cfg, ax)
+    hh = xs.shape[-1] // p
     xc, conv_new = causal_conv_step(cache["conv"], xs,
                                     params["conv_w"], params["conv_b"])
     xc = silu(xc)
@@ -240,7 +286,7 @@ def decode_mamba2(params, cache, x, cfg):
     Ch = Cm[:, 0, None, :].expand(b, hh, n)
     y, h_new = ssd_decode_step(cache["h"], xh, a, dt, Bh, Ch)
     y = y + params["Dskip"][None, :, None] * xh.float()
-    out = _gated_out(params, y[:, None].to(x.dtype), z, cfg, b, 1)
+    out = _gated_out(params, y[:, None].to(x.dtype), z, cfg, b, 1, ax)
     cache["h"].copy_(h_new)
     cache["conv"].copy_(conv_new)
     return out, cache

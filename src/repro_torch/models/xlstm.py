@@ -16,6 +16,15 @@ The counterpart of ``repro.models.xlstm``; every product is a plain
 ``torch.matmul`` / ``torch.einsum``, as the JAX package computes them.
 The decode functions write the new state into the caller's cache tensors
 in place.
+
+Under a mesh the specs shard the mLSTM's inner width and the sLSTM's
+feed-forward width over the model axis; the recurrences stay whole on
+every rank.  mLSTM: the up and gate projections are column-parallel, the
+convolution runs on this rank's channels, q, k, v and the gates are
+row-parallel products whose sums one all-reduce each completes, the
+normalised read-out is cut back to this rank's channels for the gate and
+the row-parallel down projection.  sLSTM: its feed-forward is an MLP
+sharded as ``layers.apply_mlp`` is.
 """
 from __future__ import annotations
 
@@ -24,9 +33,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import (MeshInfo, dense_init, ones_init,
-                                       zeros_init)
+from repro_torch.models.common import (HOST_MESH, MeshInfo, dense_init,
+                                       ones_init, zeros_init)
 from repro_torch.models.layers import _gelu
+from repro_torch.runtime import sharding as sh
 from repro_torch.models.ssm import (
     _conv_tail,
     causal_conv,
@@ -40,6 +50,16 @@ from repro_torch.models.ssm import (
 # ---------------------------------------------------------------------------
 # mLSTM block
 # ---------------------------------------------------------------------------
+
+
+def mlstm_specs(cfg, mesh: MeshInfo) -> dict:
+    in_ax = mesh.shard_if(cfg.mlstm_inner)
+    fsdp = mesh.fsdp_if(cfg.d_model)
+    return {"w_up": (fsdp, in_ax), "w_z": (fsdp, in_ax),
+            "w_q": (in_ax, None), "w_k": (in_ax, None), "w_v": (in_ax, None),
+            "w_i": (in_ax, None), "w_f": (in_ax, None), "f_bias": (None,),
+            "conv_w": (None, in_ax), "conv_b": (in_ax,),
+            "norm_scale": (in_ax,), "w_down": (in_ax, fsdp)}
 
 
 def init_mlstm(gen, cfg, mesh: MeshInfo, dtype, device):
@@ -63,22 +83,25 @@ def init_mlstm(gen, cfg, mesh: MeshInfo, dtype, device):
     return p
 
 
-def _mlstm_qkvif(params, xc, cfg, b, s):
+def _mlstm_qkvif(params, xc, cfg, b, s, ax=None):
     hh = cfg.lstm_heads
     p = cfg.mlstm_inner // hh
-    q = torch.matmul(xc, params["w_q"]).reshape(b, s, hh, p)
+
+    def proj(name):          # row-parallel under a mesh: sum the ranks'
+        return sh.all_reduce(torch.matmul(xc, params[name]), ax)
+
+    q = proj("w_q").reshape(b, s, hh, p)
     # the scale is a bf16 constant in JAX's bf16 product (a weak-typed
     # Python float); a Python float here would multiply in f32
     scale = torch.full((), p ** -0.5, dtype=xc.dtype, device=xc.device)
-    k = torch.matmul(xc, params["w_k"]).reshape(b, s, hh, p) * scale
-    v = torch.matmul(xc, params["w_v"]).reshape(b, s, hh, p)
-    i_gate = torch.sigmoid(torch.matmul(xc, params["w_i"]).float())
-    logf = -F.softplus(
-        -(torch.matmul(xc, params["w_f"]).float() + params["f_bias"]))
+    k = proj("w_k").reshape(b, s, hh, p) * scale
+    v = proj("w_v").reshape(b, s, hh, p)
+    i_gate = torch.sigmoid(proj("w_i").float())
+    logf = -F.softplus(-(proj("w_f").float() + params["f_bias"]))
     return q, k, v, i_gate, logf
 
 
-def _mlstm_out(params, y_ext, z, cfg, b, s):
+def _mlstm_out(params, y_ext, z, cfg, b, s, ax=None):
     p = cfg.mlstm_inner // cfg.lstm_heads
     y = y_ext[..., :p]
     norm = y_ext[..., p:p + 1]
@@ -87,9 +110,10 @@ def _mlstm_out(params, y_ext, z, cfg, b, s):
     yf = y.float()
     ms = yf.square().mean(-1, keepdim=True)
     scale = params["norm_scale"].float()
-    y = (yf * torch.rsqrt(ms + cfg.norm_eps) * scale).to(z.dtype)
+    y = sh.scatter_to(yf * torch.rsqrt(ms + cfg.norm_eps), ax, -1)
+    y = (y * scale).to(z.dtype)
     y = y * silu(z)
-    return torch.matmul(y, params["w_down"])
+    return sh.all_reduce(torch.matmul(y, params["w_down"]), ax)
 
 
 def _with_ones(v):
@@ -98,17 +122,25 @@ def _with_ones(v):
                                     device=v.device)], dim=-1)
 
 
-def apply_mlstm(params, x, cfg):
+def apply_mlstm(params, x, cfg, mesh: MeshInfo = HOST_MESH):
     """x: (B, S, D) -> (y, state, conv_tail)."""
     b, s, _ = x.shape
-    xin = torch.matmul(x, params["w_up"])
-    z = torch.matmul(x, params["w_z"])
+    ax = mesh.shard_if(cfg.mlstm_inner)
+    xl = sh.copy_to(x, ax)
+    xin = torch.matmul(xl, params["w_up"])
+    z = torch.matmul(xl, params["w_z"])
     xc = silu(causal_conv(xin, params["conv_w"], params["conv_b"]))
-    q, k, v, i_gate, logf = _mlstm_qkvif(params, xc, cfg, b, s)
+    q, k, v, i_gate, logf = _mlstm_qkvif(params, xc, cfg, b, s, ax)
     y_ext, h_last = ssd_chunked(_with_ones(v), logf, i_gate, k, q,
                                 cfg.xlstm_chunk)
-    out = _mlstm_out(params, y_ext.float(), z, cfg, b, s)
+    out = _mlstm_out(params, y_ext.float(), z, cfg, b, s, ax)
     return out, h_last, _conv_tail(xin, cfg.ssm_conv - 1)
+
+
+def mlstm_cache_specs(cfg, mesh: MeshInfo, batch_shard: bool = True) -> dict:
+    dp = mesh.dp() if batch_shard else None
+    return {"h": (dp, None, None, None),
+            "conv": (dp, None, mesh.shard_if(cfg.mlstm_inner))}
 
 
 def init_mlstm_cache(cfg, mesh: MeshInfo, batch: int, dtype, device):
@@ -122,18 +154,20 @@ def init_mlstm_cache(cfg, mesh: MeshInfo, batch: int, dtype, device):
     }
 
 
-def decode_mlstm(params, cache, x, cfg):
+def decode_mlstm(params, cache, x, cfg, mesh: MeshInfo = HOST_MESH):
     b = x.shape[0]
-    xin = torch.matmul(x, params["w_up"])
-    z = torch.matmul(x, params["w_z"])
+    ax = mesh.shard_if(cfg.mlstm_inner)
+    xl = sh.copy_to(x, ax)
+    xin = torch.matmul(xl, params["w_up"])
+    z = torch.matmul(xl, params["w_z"])
     xc, conv_new = causal_conv_step(cache["conv"], xin,
                                     params["conv_w"], params["conv_b"])
     xc = silu(xc)
-    q, k, v, i_gate, logf = _mlstm_qkvif(params, xc, cfg, b, 1)
+    q, k, v, i_gate, logf = _mlstm_qkvif(params, xc, cfg, b, 1, ax)
     v_ext = _with_ones(v)[:, 0]                              # (B,H,P+1)
     y_ext, h_new = ssd_decode_step(cache["h"], v_ext, logf[:, 0],
                                    i_gate[:, 0], k[:, 0], q[:, 0])
-    out = _mlstm_out(params, y_ext[:, None].float(), z, cfg, b, 1)
+    out = _mlstm_out(params, y_ext[:, None].float(), z, cfg, b, 1, ax)
     cache["h"].copy_(h_new)
     cache["conv"].copy_(conv_new)
     return out, cache
@@ -142,6 +176,14 @@ def decode_mlstm(params, cache, x, cfg):
 # ---------------------------------------------------------------------------
 # sLSTM block
 # ---------------------------------------------------------------------------
+
+
+def slstm_specs(cfg, mesh: MeshInfo) -> dict:
+    fsdp = mesh.fsdp_if(cfg.d_model)
+    ff_ax = mesh.shard_if(2 * cfg.d_model)
+    return {"w_in": (fsdp, None, None), "r": (None, None, None, None),
+            "bias": (None, None), "f_bias": (None,), "w_ff1": (fsdp, ff_ax),
+            "w_ff2": (ff_ax, fsdp)}
 
 
 def init_slstm(gen, cfg, mesh: MeshInfo, dtype, device):
@@ -181,13 +223,15 @@ def _slstm_cell(params, cfg, wx_t, state, r):
     return h_new, c_new, n_new
 
 
-def _slstm_ffn(params, y):
+def _slstm_ffn(params, y, cfg, mesh: MeshInfo):
     # post-MLP (GeLU, tanh form as jax.nn.gelu), as in the xLSTM sLSTM block
-    return torch.matmul(_gelu(torch.matmul(y, params["w_ff1"])),
-                        params["w_ff2"])
+    ff_ax = mesh.shard_if(2 * cfg.d_model)
+    y = sh.copy_to(y, ff_ax)
+    return sh.all_reduce(torch.matmul(
+        _gelu(torch.matmul(y, params["w_ff1"])), params["w_ff2"]), ff_ax)
 
 
-def apply_slstm(params, x, cfg):
+def apply_slstm(params, x, cfg, mesh: MeshInfo = HOST_MESH):
     """x: (B, S, D) -> (y, final_state).  Sequential over time."""
     b, s, d = x.shape
     wx = torch.einsum("bsd,dge->bsge", x, params["w_in"])   # (B,S,4,D)
@@ -199,7 +243,12 @@ def apply_slstm(params, x, cfg):
         state = _slstm_cell(params, cfg, wx[:, t], state, r)
         hs.append(state[0])
     y = torch.stack(hs, dim=1).to(x.dtype)                  # (B,S,D)
-    return _slstm_ffn(params, y), state
+    return _slstm_ffn(params, y, cfg, mesh), state
+
+
+def slstm_cache_specs(cfg, mesh: MeshInfo, batch_shard: bool = True) -> dict:
+    dp = mesh.dp() if batch_shard else None
+    return {"h": (dp, None), "c": (dp, None), "n": (dp, None)}
 
 
 def init_slstm_cache(cfg, mesh: MeshInfo, batch: int, dtype, device):
@@ -208,11 +257,11 @@ def init_slstm_cache(cfg, mesh: MeshInfo, batch: int, dtype, device):
             for key in ("h", "c", "n")}
 
 
-def decode_slstm(params, cache, x, cfg):
+def decode_slstm(params, cache, x, cfg, mesh: MeshInfo = HOST_MESH):
     wx = torch.einsum("bsd,dge->bsge", x, params["w_in"])[:, 0]
     state = (cache["h"], cache["c"], cache["n"])
     h, c, n = _slstm_cell(params, cfg, wx, state, params["r"].float())
-    y = _slstm_ffn(params, h[:, None, :].to(x.dtype))
+    y = _slstm_ffn(params, h[:, None, :].to(x.dtype), cfg, mesh)
     for key, val in zip(("h", "c", "n"), (h, c, n)):
         cache[key].copy_(val)
     return y, cache

@@ -43,21 +43,28 @@ def init_opt_state(params, cfg: AdamWConfig) -> dict:
                                 device=tree_leaves(params)[0].device)}
 
 
+def opt_state_specs(param_specs) -> dict:
+    """Moments shard exactly like their parameters."""
+    return {"m": param_specs, "v": param_specs, "step": ()}
+
+
 def global_norm(tree) -> torch.Tensor:
     sq = [x.float().square().sum() for x in tree_leaves(tree)]
     return torch.stack(sq).sum().sqrt()
 
 
 def adamw_update(grads, opt_state, params, lr, cfg: AdamWConfig,
-                 ranks=None):
+                 ranks=None, gnorm=None):
     """One AdamW step.  Returns (params, opt_state, metrics); ``params``
     and the moments are updated in place, ``opt_state["step"]`` is a new
     tensor.  ``lr`` is a float or a 0-d tensor.  Weight decay applies to
     leaves of rank 2 or more; ``ranks`` (a tree like ``params``) gives the
     rank the rule reads where it is not the leaf's own (the trainer's
-    stacked layers, see ``train_lib.decay_ranks``)."""
+    stacked layers, see ``train_lib.decay_ranks``).  ``gnorm``: the global
+    gradient norm where ``grads`` holds only this rank's shards (default:
+    :func:`global_norm` of ``grads``)."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
              if cfg.grad_clip > 0 else 1.0)
     stepf = step.float()

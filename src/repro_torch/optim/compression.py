@@ -5,23 +5,25 @@ The counterpart of ``repro.optim.compression``.  ``compress_tree`` /
 tensor; the quantisation error is fed back into the next step's gradient
 (error feedback), which keeps Adam's convergence (Karimireddy et al.,
 2019).  The train step applies the round trip when
-``ParallelConfig.grad_compression == "int8_ef"``: numerically it is the
-signal the optimizer would see after a compressed all-reduce.  That
-collective (the JAX package's ``psum_compressed``) comes with the
-multi-device queue.
+``ParallelConfig.grad_compression == "int8_ef"``: on one rank numerically
+the signal the optimizer would see after a compressed all-reduce, and
+over a data group of more ranks :func:`psum_compressed`, that all-reduce.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models.common import tree_map, tree_zip
+from repro_torch.runtime import sharding as sh
 
 
-def quantize_int8(x):
+def quantize_int8(x, amax=None):
     """x: a float tensor -> (int8 values, f32 scale).  Symmetric,
-    per tensor."""
+    per tensor: ``amax`` is the tensor's max |x| (``x``'s own by default;
+    a shard passes its whole tensor's)."""
     xf = x.float()
-    scale = xf.abs().max().clamp_min(1e-12) / 127.0
+    amax = xf.abs().max() if amax is None else amax
+    scale = amax.clamp_min(1e-12) / 127.0
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -47,6 +49,28 @@ def decompress_tree(qtree, like):
     """(q, scale) leaves -> tensors in the dtype of ``like``'s leaves."""
     return tree_zip(lambda qs, g: dequantize_int8(*qs).to(g.dtype), qtree,
                     like, is_leaf=_is_pair)
+
+
+def psum_compressed(grads, error_buf, group):
+    """Error-feedback int8 all-reduce over ``group`` (a spec axis: a name
+    or a tuple of names of the ambient mesh).  The int8 payloads are summed
+    in int32 (no overflow for the group sizes used here), the scales are
+    summed and divided by the group size (they are near-equal), and the
+    sum is dequantised with the mean scale.  Each rank keeps its own error
+    buffer.  Returns (the summed gradients, the new error buffer)."""
+    n = sh.axis_size(group)
+
+    def one(g, e):
+        corrected = g.float() + e
+        q, s = quantize_int8(corrected)
+        local_deq = dequantize_int8(q, s)
+        q_sum = sh.all_reduce_(q.to(torch.int32), group)
+        s_mean = sh.all_reduce_(s.clone(), group) / n
+        return (q_sum.float() * s_mean).to(g.dtype), corrected - local_deq
+
+    pairs = tree_zip(one, grads, error_buf)
+    return (tree_map(lambda t: t[0], pairs, is_leaf=_is_pair),
+            tree_map(lambda t: t[1], pairs, is_leaf=_is_pair))
 
 
 def init_error_buffer(params):

@@ -8,9 +8,7 @@ bf16.  ``quantize_params`` maps every large floating matrix to a
 ``dequantize_params`` restores a compute-dtype tree.  Small tensors (norm
 scales, biases) and integer tensors stay as they are.
 
-The JAX package's ``quantized_specs`` maps sharding specs onto the
-quantised tree; the port has no specs until the multi-device queue, so it
-has no counterpart yet.
+``quantized_specs`` maps a spec tree onto the quantised tree.
 """
 from __future__ import annotations
 
@@ -18,7 +16,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.models.common import tree_map, tree_paths
+from repro_torch.models.common import tree_map, tree_paths, tree_zip
 
 #: the size from which a floating matrix is quantised
 MIN_SIZE = 1 << 14
@@ -50,6 +48,18 @@ def quantize_params(values, min_size: int = MIN_SIZE):
         qv = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
         return QuantizedTensor(qv, scale)
     return tree_map(q, values)
+
+
+def quantized_specs(values, specs, min_size: int = MIN_SIZE):
+    """The spec tree of ``quantize_params(values)``: a quantised leaf's
+    int8 data keeps its spec, its scale (one per axis-0 channel) shards
+    like axis 0."""
+    def q(x, s):
+        if not _quantizable(x, min_size):
+            return s
+        return QuantizedTensor(s, (s[0] if len(s) else None,)
+                               + (None,) * (x.ndim - 1))
+    return tree_zip(q, values, specs)
 
 
 def dequantize_params(tree, dtype):

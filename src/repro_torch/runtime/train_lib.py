@@ -1,6 +1,6 @@
 """The training step: ``(params, opt_state, batch) -> updated``.
 
-The counterpart of ``repro.runtime.train_lib`` on one device, eagerly:
+The counterpart of ``repro.runtime.train_lib``, eagerly:
 
 * microbatch gradient accumulation (``ParallelConfig.microbatches``) is a
   Python loop that sums f32 gradients, where the JAX package runs a
@@ -16,6 +16,23 @@ metrics ``loss``, ``lr``, ``grad_norm``, ``ce_loss`` and ``aux_loss``, all
 0-d tensors on the parameters' device: a step reads nothing back to the
 host.  The parameter leaves must be leaf tensors; the step makes them
 trainable (``requires_grad``) if they are not.
+
+Under an ambient mesh (``runtime.sharding.use_mesh``) the parameters, the
+moments and the batch are this rank's shards (``init_train_state`` cuts
+them; ``sharding.batch_specs`` says how the batch splits), and the
+forward and backward issue the tensor-parallel and FSDP collectives
+themselves.  The step then averages the gradients over the data axes:
+an FSDP-sharded leaf's were already summed over them by the backward's
+reduce-scatter; every other leaf's are all-reduced, with
+``grad_compression == "int8_ef"`` by ``psum_compressed`` (int8 payloads,
+each rank's own error buffer).  Under int8_ef an FSDP leaf, synchronised
+in full precision by the scatter, takes the JAX package's round trip on
+the synchronised gradient: its shards share one scale (the max over them,
+all-reduced), and each keeps its shard of the error buffer.  The clipping
+norm sums each leaf's squares over the axes that shard it, and the
+metrics are averaged over the data axes.  On a one-rank mesh every
+collective is the identity and the step is the unsharded one, bit for
+bit.
 """
 from __future__ import annotations
 
@@ -31,12 +48,17 @@ from repro_torch.optim import (
     adamw_update,
     init_opt_state,
     lr_schedule,
+    opt_state_specs,
 )
 from repro_torch.optim.compression import (
     compress_tree,
     decompress_tree,
+    dequantize_int8,
     init_error_buffer,
+    psum_compressed,
+    quantize_int8,
 )
+from repro_torch.runtime import sharding as sh
 
 
 def make_adamw_config(cfg: ModelConfig, tcfg: TrainConfig) -> AdamWConfig:
@@ -66,6 +88,17 @@ def stack_periods(tree: dict) -> dict:
                                       periods[0], *periods[1:])}
 
 
+def stack_spec_periods(specs: dict) -> dict:
+    """A spec tree in the JAX package's layout: the periods' specs (equal
+    from period to period) become one spec a leaf with a leading ``None``
+    for the period axis."""
+    periods = specs.get("stack")
+    if not periods:
+        return specs
+    return {**specs, "stack": tree_map(lambda s: (None,) + s, periods[0],
+                                       is_leaf=sh.is_spec)}
+
+
 def unstack_periods(tree: dict) -> dict:
     """The inverse of :func:`stack_periods`."""
     stacked = tree.get("stack")
@@ -88,19 +121,80 @@ def _unflatten(tree, leaves):
     return tree_map(lambda _: next(it), tree)
 
 
+def _data_sync(lm: LM, grads: dict, err):
+    """The gradients averaged over the data axes of the ambient mesh (see
+    the module's docstring), and the new error buffer (``err`` is None
+    without int8_ef)."""
+    dp, data_axes = lm.mesh.dp(), set(lm.mesh.data_axes)
+    n = sh.axis_size(dp)
+
+    def fsdp(spec):
+        return bool(data_axes & set(sh.spec_axes(spec)))
+
+    if err is None:
+        return tree_zip(lambda g, s: (g if fsdp(s) else sh.all_reduce_(g, dp))
+                        / n, grads, lm.specs()), None
+
+    def one(g, e, spec):
+        if fsdp(spec):
+            # the reduce-scatter synchronised it in full precision: the
+            # JAX package's round trip on the synchronised gradient, one
+            # scale for the whole tensor (its max over the shards)
+            corrected = (g / n).float() + e
+            amax = sh.all_reduce_(corrected.abs().max(), sh.spec_axes(spec),
+                                  "max")
+            q, s = quantize_int8(corrected, amax)
+            deq = dequantize_int8(q, s)
+            return deq.to(g.dtype), corrected - deq
+        g_sum, e_new = psum_compressed(g, e, dp)
+        return g_sum / n, e_new
+
+    # one scale a tensor of the JAX package's layout (as on one rank)
+    pairs = tree_zip(one, stack_periods(grads), stack_periods(err),
+                     stack_spec_periods(lm.specs()))
+    return (unstack_periods(tree_map(lambda t: t[0], pairs,
+                                     is_leaf=_is_pair)),
+            unstack_periods(tree_map(lambda t: t[1], pairs,
+                                     is_leaf=_is_pair)))
+
+
+def _is_pair(x) -> bool:
+    return isinstance(x, tuple)
+
+
+def sharded_global_norm(grads: dict, specs: dict) -> torch.Tensor:
+    """The global norm of a tree of shards: each leaf's sum of squares
+    summed over the axes that shard it (one all-reduce per set of axes),
+    the total in leaf order as ``optim.global_norm`` takes it."""
+    sq = [g.float().square().sum() for g in tree_leaves(grads)]
+    by_axes: dict = {}
+    for i, spec in enumerate(tree_leaves(specs)):
+        if sh.communicates(sh.spec_axes(spec)):
+            by_axes.setdefault(frozenset(sh.spec_axes(spec)), []).append(i)
+    for axes, idx in by_axes.items():
+        summed = sh.all_reduce_(torch.stack([sq[i] for i in idx]),
+                                tuple(sorted(axes)))
+        for j, i in enumerate(idx):
+            sq[i] = summed[j]
+    return torch.stack(sq).sum().sqrt()
+
+
 def make_train_step(lm: LM, tcfg: TrainConfig, pcfg: ParallelConfig
                     ) -> Callable:
     """Returns ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)``.  With ``pcfg.grad_compression == "int8_ef"`` the
-    opt state must carry an error buffer (see :func:`init_train_state`)."""
+    opt state must carry an error buffer (see :func:`init_train_state`).
+    The step runs under the mesh that is ambient when it is called."""
     ocfg = make_adamw_config(lm.cfg, tcfg)
     remat = pcfg.remat
+    int8_ef = pcfg.grad_compression == "int8_ef"
 
     def grads_of(params, leaves, mb):
         loss, metrics = lm.loss_fn(params, mb, remat=remat)
         grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), {k: torch.as_tensor(v).detach()
-                               for k, v in metrics.items()}, grads
+        return loss.detach(), {
+            k: torch.as_tensor(v, device=loss.device).detach()
+            for k, v in metrics.items()}, grads
 
     def train_step(params, opt_state, batch):
         leaves = tree_leaves(params)
@@ -126,49 +220,67 @@ def make_train_step(lm: LM, tcfg: TrainConfig, pcfg: ParallelConfig
             else:
                 loss, metrics, grads = grads_of(params, leaves, batch)
         grads = _unflatten(params, grads)
-        if pcfg.grad_compression == "int8_ef":
+        gnorm = None
+        ebuf = opt_state.get("err") if int8_ef else None
+        if sh.ambient_mesh() is not None:
+            grads, ebuf = _data_sync(lm, grads, ebuf)
+            gnorm = sharded_global_norm(grads, lm.specs())
+            dp = lm.mesh.dp()
+            loss, metrics = (
+                sh.all_reduce_(loss.clone(), dp) / sh.axis_size(dp),
+                {k_: sh.all_reduce_(v.clone(), dp) / sh.axis_size(dp)
+                 for k_, v in metrics.items()})
+        elif int8_ef:
             # int8 + error feedback on the gradient the optimizer sees (on
-            # a fleet the quantisation rides the cross-pod all-reduce).  One
+            # a fleet the quantisation rides the data all-reduce).  One
             # scale a tensor of the JAX package's layout: the periods of a
             # stacked leaf share it.
             stacked = stack_periods(grads)
-            qtree, ebuf = compress_tree(stacked,
-                                        stack_periods(opt_state["err"]))
+            qtree, ebuf = compress_tree(stacked, stack_periods(ebuf))
             grads = unstack_periods(decompress_tree(qtree, stacked))
             ebuf = unstack_periods(ebuf)
         lr = lr_schedule(opt_state["step"], base_lr=tcfg.lr,
                          warmup=tcfg.warmup_steps, total=tcfg.total_steps)
         params, new_opt, om = adamw_update(grads, opt_state, params, lr,
-                                           ocfg, decay_ranks(params))
-        if pcfg.grad_compression == "int8_ef":
+                                           ocfg, decay_ranks(params), gnorm)
+        if int8_ef:
             new_opt["err"] = ebuf
         return params, new_opt, {"loss": loss, "lr": lr, **om, **metrics}
 
     return train_step
 
 
-def init_train_state(lm: LM, tcfg: TrainConfig, generator: torch.Generator,
-                     pcfg: ParallelConfig | None = None):
-    """(param values, opt state): ``lm`` initialised from ``generator`` and
-    made trainable, its values the tree the step trains.  The JAX
-    package's spec trees have no counterpart on one device."""
-    values = lm.init(generator)
-    lm.train_mode()
+def _state(lm: LM, values: dict, tcfg: TrainConfig,
+           pcfg: ParallelConfig | None):
+    specs = lm.specs()
     opt = init_opt_state(values, make_adamw_config(lm.cfg, tcfg))
+    ospecs = opt_state_specs(specs)
     if pcfg is not None and pcfg.grad_compression == "int8_ef":
         opt["err"] = init_error_buffer(values)
-    return values, opt
+        ospecs = {**ospecs, "err": specs}
+    return values, specs, opt, ospecs
+
+
+def init_train_state(lm: LM, tcfg: TrainConfig, generator: torch.Generator,
+                     pcfg: ParallelConfig | None = None):
+    """(param values, param specs, opt state, opt specs): ``lm``
+    initialised from ``generator`` and made trainable, its values the tree
+    the step trains.  Under an ambient mesh every rank draws the
+    parameters from the same generator, block by block, and keeps its
+    shards of each (``LM.init(shard=True)``); the opt state is built on
+    the shards.  The specs are in the port's layout
+    (``stack_spec_periods`` gives the JAX one)."""
+    values = lm.init(generator, shard=sh.ambient_mesh() is not None)
+    lm.train_mode()
+    return _state(lm, values, tcfg, pcfg)
 
 
 def abstract_train_state(lm: LM, tcfg: TrainConfig,
                          pcfg: ParallelConfig | None = None):
-    """The state's shapes and dtypes as ``meta`` tensors (no storage), for
-    the dry-run path and for ``CheckpointManager.restore``'s ``like``."""
+    """The state's global shapes and dtypes as ``meta`` tensors (no
+    storage) with its spec trees, for the dry-run path and for
+    ``CheckpointManager.restore``'s ``like``."""
     meta = LM(lm.cfg, lm.mesh, device="meta")
     with torch.device("meta"):
         values = meta.init(torch.Generator())
-    ocfg = make_adamw_config(lm.cfg, tcfg)
-    opt = init_opt_state(values, ocfg)
-    if pcfg is not None and pcfg.grad_compression == "int8_ef":
-        opt["err"] = init_error_buffer(values)
-    return values, opt
+    return _state(meta, values, tcfg, pcfg)

@@ -199,11 +199,13 @@ def test_a_jax_checkpoint_resumes_in_the_port_and_steps_like_the_reference(
     lm = LM(_f32(get_config("qwen2-1.5b", smoke=True)), HOST_MESH,
             device="cpu")
     tcfg = TrainConfig(**TCFG)
-    like = dict(zip(("params", "opt"), abstract_train_state(lm, tcfg)))
+    av, _, ao, _ = abstract_train_state(lm, tcfg)
+    like = {"params": av, "opt": ao}
     step, state, extra = CheckpointManager(d).restore_latest(like)
     assert step == 2 and extra["data"] == {"step": 2, "seed": 2}
     assert int(state["opt"]["step"]) == 2
-    params, opt = init_train_state(lm, tcfg, torch.Generator().manual_seed(9))
+    params, _, opt, _ = init_train_state(lm, tcfg,
+                                         torch.Generator().manual_seed(9))
     with torch.no_grad():
         for dst, src in zip(tree_leaves([params, opt]),
                             tree_leaves([state["params"], state["opt"]]),

@@ -377,37 +377,20 @@ def test_full_width_granite_shapes_have_tiles_the_kernels_take():
                         check_tile(t, tag)
 
 
-def _queue_one_items():
-    """ROADMAP.md's queue 1 as {item number: its text}."""
-    with open(os.path.join(ROOT, "ROADMAP.md")) as f:
-        text = f.read()
-    queue = text.split("### Queue 1", 1)[1].split("\n### ", 1)[0]
-    items = {}
-    for line in queue.splitlines():
-        head = line.split(".", 1)
-        if head[0].isdigit() and len(head) > 1:
-            items[int(head[0])] = line
-        elif items and line.startswith("   "):
-            items[max(items)] += line
-    return items
-
-
-def _cited(message):
-    return int(message.split("queue 1 item ")[1].split(")")[0])
-
-
-def _refusals():
-    """The port's not-ported refusals and the ROADMAP topic each names."""
-    return [("mesh", "Multi-device")]
-
-
-@pytest.mark.parametrize("what,topic", _refusals())
-def test_not_ported_refusals_cite_the_roadmap_item_that_holds_them(what,
-                                                                   topic):
-    """A refusal names the ROADMAP queue-1 item that will port the module
-    (the items were renumbered, and the messages followed)."""
+def test_mesh_info_builds_and_follows_the_jax_divisibility_rule():
+    """MeshInfo is the JAX package's description: a mesh builds, and
+    shard_if / fsdp_if shard a dim only when the axis divides it."""
+    from repro.models.common import MeshInfo as JMeshInfo
     from repro_torch.models.common import MeshInfo
 
-    with pytest.raises(NotImplementedError) as err:
-        MeshInfo(data=2)
-    assert topic in _queue_one_items()[_cited(str(err.value))]
+    for kw in ({"data": 2}, {"data": 2, "model": 4, "fsdp": True},
+               {"data": 32, "model": 16, "data_axes": ("pod", "data"),
+                "fsdp": True}):
+        mi, jmi = MeshInfo(**kw), JMeshInfo(**kw)
+        assert dataclasses.asdict(mi) == dataclasses.asdict(jmi)
+        assert mi.dp() == jmi.dp()
+        for size in (1, 2, 3, 4, 6, 16, 28, 32, 151936):
+            assert mi.shard_if(size) == jmi.shard_if(size)
+            assert mi.fsdp_if(size) == jmi.fsdp_if(size)
+    assert MeshInfo(data=2).fsdp_if(8) is None           # FSDP off
+    assert MeshInfo(model=4).shard_if(6) is None          # 4 does not divide 6

@@ -73,8 +73,9 @@ def _both(arch, compression="none"):
                                                jpcfg))
     lm = LM(cfg, HOST_MESH, device="cpu")
     pcfg = ParallelConfig(grad_compression=compression)
-    params, opt = init_train_state(lm, TrainConfig(**tcfg),
-                                   torch.Generator().manual_seed(0), pcfg)
+    params, _, opt, _ = init_train_state(lm, TrainConfig(**tcfg),
+                                         torch.Generator().manual_seed(0),
+                                         pcfg)
     params = load_jax_params(lm, jax.tree.map(np.array, jp))
     step = make_train_step(lm, TrainConfig(**tcfg), pcfg)
     return jstep, jp, jo, step, params, opt
@@ -156,8 +157,9 @@ def test_resume_reproduces_uninterrupted_run(tmp_path):
 
     def fresh():
         lm = LM(cfg, HOST_MESH, device="cpu")
-        return (lm,) + init_train_state(lm, tcfg,
-                                        torch.Generator().manual_seed(0))
+        params, _, opt, _ = init_train_state(lm, tcfg,
+                                             torch.Generator().manual_seed(0))
+        return lm, params, opt
 
     lm_a, p0, o0 = fresh()
     pa, oa = run(6, p0, o0, lm_a)
@@ -168,7 +170,8 @@ def test_resume_reproduces_uninterrupted_run(tmp_path):
     mgr.save(3, {"params": pb, "opt": ob},
              extra={"data": {"step": 3, "seed": 3}})
     lm_c = LM(cfg, HOST_MESH, device="cpu")
-    like = dict(zip(("params", "opt"), abstract_train_state(lm_c, tcfg)))
+    av, _, ao, _ = abstract_train_state(lm_c, tcfg)
+    like = {"params": av, "opt": ao}
     _, state, extra = mgr.restore_latest(like)
     pc, oc = run(3, state["params"], state["opt"], lm_c,
                  start=extra["data"]["step"])
@@ -188,7 +191,8 @@ def test_microbatched_grads_match_full_batch():
 
     def one(k):
         lm = LM(cfg, HOST_MESH, device="cpu")
-        p, o = init_train_state(lm, tcfg, torch.Generator().manual_seed(1))
+        p, _, o, _ = init_train_state(lm, tcfg,
+                                      torch.Generator().manual_seed(1))
         _, o, m = make_train_step(lm, tcfg, ParallelConfig(
             microbatches=k))(p, o, batch)
         return o, m
@@ -216,8 +220,8 @@ def test_train_with_int8_ef_compression_converges():
 
     def run(pcfg):
         lm = LM(cfg, HOST_MESH, device="cpu")
-        p, o = init_train_state(lm, tcfg, torch.Generator().manual_seed(0),
-                                pcfg)
+        p, _, o, _ = init_train_state(lm, tcfg,
+                                      torch.Generator().manual_seed(0), pcfg)
         step = make_train_step(lm, tcfg, pcfg)
         it = DataIterator(cfg, shape, seed=11)
         losses = []
@@ -250,8 +254,9 @@ def test_abstract_train_state_is_meta_and_matches_the_real_one():
     tcfg = TrainConfig()
     pcfg = ParallelConfig(grad_compression="int8_ef")
     lm = LM(cfg, HOST_MESH, device="cpu")
-    av, ao = abstract_train_state(lm, tcfg, pcfg)
-    v, o = init_train_state(lm, tcfg, torch.Generator().manual_seed(0), pcfg)
+    av, _, ao, _ = abstract_train_state(lm, tcfg, pcfg)
+    v, _, o, _ = init_train_state(lm, tcfg, torch.Generator().manual_seed(0),
+                                  pcfg)
     assert all(t.device.type == "meta" for t in tree_leaves([av, ao]))
     for a, b in zip(tree_leaves([av, ao]), tree_leaves([v, o]), strict=True):
         assert a.shape == b.shape and a.dtype == b.dtype
