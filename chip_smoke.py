@@ -11,8 +11,10 @@ non-zero.  It drives six paths of the port: the paper's GEMM loop
 attention and norm entry points on that model's activations (phase 9),
 serving zamba2-1.2b at full width (phase 11), Qwen2-1.5B
 autoconfigured, served and replayed (phase 14), Qwen2-1.5B trained
-at full width (phase 15) and the multi-device layer (phase 16), beside the
-other model families (phase 12) and the deployment report (phase 13).
+at full width (phase 15), the multi-device layer (phase 16) and its
+sequence-sharded long decode (phase 16 (d)), beside the other model
+families (phase 12), the deployment report (phase 13) and the dry run's
+accounting of phase 16's step (phase 17).
 Phases:
 
 1. build   — compile every source of ``src/repro_torch/kernels/csrc/`` for
@@ -322,7 +324,33 @@ Phases:
              sum(y^2) within 2e-2 relative L2.  The pipeline's sends and
              receives have no gloo CUDA path (a send of a CUDA tensor
              aborts the rank) and one card holds no two NCCL ranks: the
-             CPU tests hold it.
+             CPU tests hold it.  (d) zamba2-1.2b's long_500k decode
+             (``serve_plan``'s sequence-sharded branch for a batch of 1)
+             at full width in f32, its 6 attention sites' K/V seeded at
+             all 524,288 positions chunk by chunk (8.59 GB a site), the
+             Mamba2 states and conv tails seeded, no prefill: the
+             script's process decodes unsharded on the card at positions
+             262,143, 262,144 and 524,287 (the two sides of the ranks'
+             boundary, where at the first one rank holds no visible key,
+             and the last), frees the 51.5 GB cache, then two gloo ranks
+             on cuda:0 decode the same steps on a (2, 1) mesh with the
+             caches' sequence axis over data (25.8 GB a rank): logits
+             finite and within 1e-3 relative L2 (phase 11's f32 bound),
+             the same greedy tokens, three all-reduces over data a step
+             at each attention site, every GEMM launch on the CUDA cores
+             and held against its plain version at its shape and tile; ms
+             a step and peak memory per rank are printed.
+17. dry run — in a child process (its fake default group cannot live
+             beside phase 16's): ``launch.dryrun.run_cell`` at phase 16
+             (a)'s cell (Qwen2-1.5B, a (1, 1) mesh, FSDP + int8_ef, 4 x
+             256 tokens) must count the collectives (a) measured in a
+             step, by op and axis, in calls and bytes, and (a)'s state and
+             batch as its argument bytes; its flops are printed beside the
+             2 m n k of the GEMMs (a)'s step launched and its roofline
+             bound (``core/roofline.py``, on the h100 manifest) beside
+             (a)'s step time; then ``roofline_probe.probe_cell(
+             "qwen2-1.5b", "train_4k")`` on the 16x16 mesh and zamba2-
+             1.2b's long_500k cell on 2x16x16, with their seconds.
 
 With tied embeddings and random weights, the token's own embedding
 dominates the last hidden state, so greedy decoding echoes the input token
@@ -341,7 +369,8 @@ phase 7 the grouped kernel and at least one GEMM kernel, phases 9 and 10
 and backward and (in (e)) the grouped kernel forward and backward, phase
 16 ``gemm_k_inner`` and (in (c)) the grouped kernel on the wgmma route
 (their launches, forward and backward, are added to ``gemm_k_inner``'s,
-``gemm_k_inner_bwd``'s, ``grouped_gemm``'s and ``grouped_gemm_bwd``'s).  The
+``gemm_k_inner_bwd``'s, ``grouped_gemm``'s and ``grouped_gemm_bwd``'s),
+phase 16 (d) ``gemm_k_inner`` in f32 (added to ``gemm_k_inner_f32``'s).  The
 line before the last is the ``{"kernels": [...]}`` record (the GEMM
 kernels three times, each timed at its dtype's planner tiles: bf16 from
 ``wgmma_gemm.cuh``, int8, ``*_int8``, from ``wgmma_s8.cuh``, and f32,
@@ -2395,17 +2424,19 @@ def tree_bytes(tree, skip=()):
 
 
 def record_gemms(K):
-    """Wraps ``K.gemm`` (what the ``cuda`` backend's ``execute`` calls) to
-    record every (m, n, k, tile, dtype tag, layout) it runs, the layout
-    the operands' wgmma transpose bits (``K.wgmma_layout``: the tied
-    logits head's B is the table's ``.t()``).  Returns (the set, a
-    function that restores ``K.gemm``)."""
-    seen = set()
+    """Wraps ``K.gemm`` (what the ``cuda`` backend's ``execute`` calls,
+    forward and backward products alike) to record every (m, n, k, tile,
+    dtype tag, layout) it runs, the layout the operands' wgmma transpose
+    bits (``K.wgmma_layout``: the tied logits head's B is the table's
+    ``.t()``).  Returns (a ``collections.Counter`` of those keys: how
+    often each ran, a function that restores ``K.gemm``)."""
+    import collections
+    seen = collections.Counter()
     inner = K.gemm
 
     def gemm(a, b, c=None, *, tile):
-        seen.add((a.shape[0], b.shape[1], a.shape[1], tile,
-                  K._tag(a.dtype), K.wgmma_layout(a, b)))
+        seen[(a.shape[0], b.shape[1], a.shape[1], tile, K._tag(a.dtype),
+              K.wgmma_layout(a, b))] += 1
         return inner(a, b, c, tile=tile)
 
     def restore():
@@ -3778,6 +3809,8 @@ MESH_RANK_DEADLINE = 600.0
 #: package's EP test, so that neither path drops a token, and the bf16
 #: kernels' bound (relative L2, output and each gradient)
 MESH_EP = dict(capacity_factor=64.0, rel_l2=2e-2)
+#: (a)'s parallelism, which phase 17's dry run of the same step takes too
+MESH_PARALLEL = dict(fsdp=True, grad_compression="int8_ef")
 
 
 def free_port():
@@ -3803,16 +3836,18 @@ def mesh_step_run(cfg, minfo, dev, batch):
     """A prefill of the batch's tokens and one decode step of ``cfg``
     under ``minfo`` (the ambient mesh, if any, installed by the caller),
     then two FSDP + int8_ef steps: the logits, the metrics, the state's
-    digests and the second step's collectives."""
+    digests and bytes, the second step's collectives and its GEMM
+    launches' operations."""
     import torch
     from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.kernels import gemm as K
     from repro_torch.models.model import LM
     from repro_torch.runtime import sharding as sh
     from repro_torch.runtime.train_lib import (init_train_state,
                                                make_train_step)
 
     tcfg = TrainConfig(lr=3e-3, warmup_steps=1, total_steps=10)
-    pcfg = ParallelConfig(fsdp=True, grad_compression="int8_ef")
+    pcfg = ParallelConfig(**MESH_PARALLEL)
     lm = LM(cfg, minfo, device=dev)
     params, _, opt, _ = init_train_state(
         lm, tcfg, torch.Generator(dev).manual_seed(MESH_RUN["seed"]), pcfg)
@@ -3827,17 +3862,24 @@ def mesh_step_run(cfg, minfo, dev, batch):
     del caches
     step = make_train_step(lm, tcfg, pcfg)
     torch.cuda.reset_peak_memory_stats()
-    out.update(metrics=[], ms=[])
+    out.update(metrics=[], ms=[], state_bytes=tree_bytes([params, opt]))
     for _ in range(MESH_RUN["steps"]):
         sh.reset_collective_counts()
+        calls, unrecord = record_gemms(K)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, opt, m = step(params, opt, batch)
-        torch.cuda.synchronize()
+        try:
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+        finally:
+            unrecord()
         out["ms"].append(1e3 * (time.perf_counter() - t0))
         out["metrics"].append(torch.stack([m["loss"], m["grad_norm"]])
                               .float().cpu())
+    # the last step's: its collectives and its GEMM launches' 2 m n k
     out["collectives"] = sh.collective_counts()
+    out["gemm_flops"] = sum(2 * m_ * n_ * k_ * c for (m_, n_, k_, *_), c
+                            in calls.items())
     out["peak"] = torch.cuda.max_memory_allocated()
     out["digests"] = [digest(t) for t in tree_leaves([params, opt])]
     del params, opt, step, lm
@@ -3926,6 +3968,8 @@ def mesh_phase(K, G, dev, out_dir):
     res["a"] = {"bitwise": same, "ms": plain["ms"], "mesh_ms": sharded["ms"],
                 "peak": sharded["peak"], "plain_peak": plain["peak"],
                 "collectives": sharded["collectives"],
+                "state_bytes": sharded["state_bytes"],
+                "gemm_flops": sharded["gemm_flops"],
                 "loss": float(plain["metrics"][0][0]), "max_abs_err": a_err}
 
     # -- (b) ---------------------------------------------------------------
@@ -4257,6 +4301,337 @@ def mesh_rank_ep(mesh, dev):
         K, G, {p for p in rec.seen if p[0] == "grouped"}, dev,
         f"{where}: the backward grouped products")["grouped"]
     return res
+
+
+#: phase 16 (d): zamba2-1.2b's long_500k decode at full width in f32, the
+#: KV caches' sequence axis split over two data ranks (``serve_plan``'s
+#: branch for a batch of 1): decode steps at the two sides of the ranks'
+#: boundary (at 262,143 rank 1 holds no visible key) and at the last
+#: position, from a cache seeded at every position (no 500k prefill)
+LONG_RUN = dict(arch="zamba2-1.2b", max_len=524288,
+                positions=(262143, 262144, 524287), token=11, seed=26,
+                chunk=8192)
+#: (d): seconds the two ranks may take (each builds zamba2, fills 25.8 GB
+#: of cache and decodes)
+LONG_RANK_DEADLINE = 600.0
+
+
+def long_config():
+    """zamba2-1.2b at full width with f32 compute and KV cache (phase
+    11's f32: its bf16 logits of 38 random layers are chaotic)."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(LONG_RUN["arch"]),
+                               compute_dtype="float32",
+                               kv_cache_dtype="float32")
+
+
+def fill_long_cache(caches, specs):
+    """Seeds every leaf of ``caches`` (this rank's shards under ``specs``
+    on the ambient mesh; the whole tree without one): each attention
+    site's K and V chunk by chunk of ``LONG_RUN["chunk"]`` positions, each
+    chunk from a generator of its own, so that a rank holding positions
+    [r S/n, (r+1) S/n) draws there what one process drawing them all
+    does; the Mamba2 states and conv tails whole (replicated), at 0.1."""
+    import zlib
+    import torch
+    from repro_torch.models.common import tree_paths
+    from repro_torch.runtime import sharding as sh
+
+    spec_of = dict(tree_paths(specs))
+    chunk = LONG_RUN["chunk"]
+    for path, t in tree_paths(caches):
+        base = zlib.crc32("/".join(map(str, path)).encode()) * 1000 \
+            + LONG_RUN["seed"]
+        if path[-1] not in ("k", "v"):
+            gen = torch.Generator(t.device).manual_seed(base)
+            t.copy_(0.1 * torch.randn(t.shape, generator=gen,
+                                      device=t.device))
+            continue
+        first = sh.axis_index(spec_of[path][1]) * t.shape[1]
+        for g0 in range(first, first + t.shape[1], chunk):
+            gen = torch.Generator(t.device).manual_seed(base + g0 // chunk)
+            t[:, g0 - first:g0 - first + chunk] = torch.randn(
+                (t.shape[0], chunk) + tuple(t.shape[2:]), generator=gen,
+                device=t.device)
+
+
+def long_decode_run(minfo, dev, seq_shard):
+    """LONG_RUN's greedy decode steps of ``long_config()`` under
+    ``minfo`` (the ambient mesh, if any, installed by the caller): the
+    weights from LONG_RUN's seed, the cache seeded
+    (:func:`fill_long_cache`), sequence-sharded with ``seq_shard``.
+    Returns each step's logits (on the host) and token, ms per step, the
+    peak memory, the collectives and the GEMM launches by kernel and by
+    route."""
+    import torch
+    from repro_torch.kernels import gemm as K
+    from repro_torch.models.model import LM
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.runtime.serve_lib import make_decode_step
+
+    lm = LM(long_config(), minfo, device=dev)
+    lm.init(torch.Generator(dev).manual_seed(LONG_RUN["seed"]),
+            shard=sh.ambient_mesh() is not None)
+    params = lm.compute_params()
+    flags = dict(seq_shard=seq_shard, batch_shard=not seq_shard)
+    caches = lm.init_cache(1, LONG_RUN["max_len"], **flags)
+    fill_long_cache(caches, lm.cache_specs(**flags))
+    decode = make_decode_step(lm, seq_shard=seq_shard)
+    out = {"logits": [], "tokens": [], "ms": [],
+           "cache_bytes": tree_bytes(caches)}
+    tok = LONG_RUN["token"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sh.reset_collective_counts()
+    launches, routes = dict(K.LAUNCHES), dict(K.ROUTES)
+    with torch.no_grad():
+        for pos in LONG_RUN["positions"]:
+            t0 = time.perf_counter()
+            nxt, logits, caches = decode(params, caches, torch.tensor(
+                [[tok]], device=dev), pos)
+            torch.cuda.synchronize()
+            out["ms"].append(1e3 * (time.perf_counter() - t0))
+            out["logits"].append(logits[0].cpu())
+            tok = int(nxt[0, 0])
+            out["tokens"].append(tok)
+    out["launches"] = {k: K.LAUNCHES[k] - launches[k] for k in K.LAUNCHES}
+    out["routes"] = {r: K.ROUTES[r] - routes[r] for r in K.ROUTES}
+    out["collectives"] = sh.collective_counts()
+    out["peak"] = torch.cuda.max_memory_allocated()
+    del lm, params, caches, decode
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_decode_phase(K, dev, out_dir):
+    """Phase 16 (d): the sequence-sharded long decode.  The script's own
+    process decodes unsharded on the card first (one 51.5 GB f32 cache),
+    frees it, then two gloo ranks sharing cuda:0 decode on a (2, 1) mesh
+    with the cache's sequence axis over data (:func:`long_rank`), each
+    held to the unsharded logits (``F32_LOGITS_RTOL`` relative L2, the
+    same greedy tokens).  Every GEMM launch of both runs is held against
+    its plain version at its shape and tile.  Returns the results, the
+    launches by kernel and the largest errors."""
+    import torch
+    from repro_torch.models.common import HOST_MESH
+
+    phase("16 (d)", "zamba2-1.2b long_500k at full width in f32: the "
+                    "sequence-sharded decode on two gloo ranks against one "
+                    "card")
+    print(smi("name,power.limit"))
+    before = snapshot(K)
+    gemms, unrecord = record_gemms(K)
+    t0 = time.perf_counter()
+    try:
+        ref = long_decode_run(HOST_MESH, dev, seq_shard=False)
+    finally:
+        unrecord()
+    route_check(K, "phase 16 (d)'s unsharded decode", "f32", before)
+    print(f"(d) unsharded, one card: {len(LONG_RUN['positions'])} decode "
+          f"steps at {LONG_RUN['positions']} of {LONG_RUN['max_len']:,}: "
+          f"{', '.join(f'{t:.1f}' for t in ref['ms'])} ms; tokens "
+          f"{ref['tokens']}; cache {ref['cache_bytes']:,} B, peak "
+          f"{ref['peak']:,} B ({time.perf_counter() - t0:.1f} s with the "
+          f"build and the fill)")
+    port = free_port()
+    t0 = time.perf_counter()
+    ctx = torch.multiprocessing.start_processes(
+        long_rank, args=(port, out_dir, {"logits": ref["logits"],
+                                         "tokens": ref["tokens"]}, dev),
+        nprocs=2, join=False, start_method="spawn")
+    end = time.monotonic() + LONG_RANK_DEADLINE
+    try:
+        while not ctx.join(timeout=max(0.1, end - time.monotonic())):
+            check(time.monotonic() < end, f"phase 16 (d): the two ranks "
+                  f"passed their {LONG_RANK_DEADLINE:.0f} s deadline")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=30)
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"phase16d_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    print(f"(d) two gloo ranks on cuda:0, a (2, 1) mesh, the KV caches' "
+          f"sequence axis over data, {time.perf_counter() - t0:.1f} s with "
+          f"the spawn")
+    sites = long_config().block_pattern.count("shared_attn")
+    for r in ranks:
+        worst = max(r["logits_rel_l2"])
+        calls = r["collectives"].get("all_reduce over data", {}).get(
+            "calls", 0)
+        print(f"  rank {r['rank']}: logits {r['logits_rel_l2']} relative "
+              f"L2 of the unsharded run's (bound {F32_LOGITS_RTOL}), all "
+              f"finite {r['finite']}; tokens {r['tokens']}; steps "
+              f"{', '.join(f'{t:.1f}' for t in r['ms'])} ms; cache "
+              f"{r['cache_bytes']:,} B, peak {r['peak']:,} B; GEMM launches "
+              f"{r['launches']} by route {r['routes']}")
+        print(f"  rank {r['rank']} collectives of the {len(r['ms'])} "
+              f"steps: {r['collectives']}")
+        print(f"  rank {r['rank']}: its GEMMs held against their plain "
+              f"versions at its shapes and tiles, max |err| "
+              f"{r['max_abs_err']}")
+        check(r["finite"] and worst <= F32_LOGITS_RTOL,
+              f"phase 16 (d) rank {r['rank']}: logits {r['logits_rel_l2']} "
+              f"relative L2 (finite: {r['finite']})")
+        check(r["tokens"] == ref["tokens"], f"phase 16 (d) rank "
+              f"{r['rank']}: tokens {r['tokens']}, unsharded {ref['tokens']}")
+        check(r["routes"]["wgmma"] == 0 and r["routes"]["cuda_cores"] > 0
+              and r["routes"]["cuda_cores"] == sum(r["launches"].values()),
+              f"phase 16 (d) rank {r['rank']}: f32 GEMM launches "
+              f"{r['launches']} by route {r['routes']}")
+        check(calls == 3 * sites * len(LONG_RUN["positions"]),
+              f"phase 16 (d) rank {r['rank']}: {calls} all-reduces over "
+              f"data, not 3 a step at each of the {sites} attention sites")
+    err = max_errors(hold_gemms_by_kernel(K, gemms, dev,
+                                          "phase 16 (d), unsharded"),
+                     *(r["max_abs_err"] for r in ranks))
+    launches = {k: ref["launches"][k] + sum(r["launches"][k] for r in ranks)
+                for k in K.LAUNCHES}
+    print(f"phase 16 (d) f32 GEMM launches: {launches}; every product held "
+          f"at the shapes it ran at, max |err| by kernel {err}")
+    print(smi("name,power.limit"))
+    return {"unsharded": {k: v for k, v in ref.items() if k != "logits"},
+            "ranks": ranks, "launches": launches, "max_abs_err": err}
+
+
+def long_rank(rank, port, out_dir, ref, dev):
+    """Phase 16 (d), one of two ranks sharing cuda:0 through gloo: the
+    sequence-sharded decode (:func:`long_decode_run`) held to the
+    unsharded run's logits and tokens ``ref``, and its GEMMs to their
+    plain versions.  Writes ``phase16d_rank<rank>.json`` to ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import gemm as K
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime import sharding as sh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    try:
+        mesh = make_host_mesh(2, 1, "cuda")
+        gemms, unrecord = record_gemms(K)
+        try:
+            with sh.use_mesh(mesh):
+                res = long_decode_run(sh.mesh_info(mesh), dev,
+                                      seq_shard=True)
+        finally:
+            unrecord()
+        logits = res.pop("logits")
+        res.update(rank=rank, finite=all(bool(torch.isfinite(x).all())
+                                         for x in logits),
+                   logits_rel_l2=[rel_l2(x, w) for x, w in
+                                  zip(logits, ref["logits"])],
+                   max_abs_err=hold_gemms_by_kernel(
+                       K, gemms, dev, f"phase 16 (d) rank {rank}"))
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"phase16d_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+#: phase 17: seconds the dry-run child may take
+DRYRUN_DEADLINE = 600.0
+
+
+def dryrun_phase(meshes, out_dir):
+    """Phase 17: the dry run (``launch/dryrun.py``) on the card's machine,
+    in a child process (:func:`dryrun_child`: its fake default group
+    cannot live beside phase 16's groups).  (i) Phase 16 (a)'s cell,
+    Qwen2-1.5B on one rank, FSDP + int8_ef, 4 x 256 tokens: its
+    collectives by op and axis must equal, in calls and bytes, those (a)
+    measured in a step, and its argument bytes (a)'s state and batch;
+    its flops are printed beside the 2 m n k of the GEMMs (a)'s step
+    launched, its roofline bound beside (a)'s step time.  (ii)
+    ``probe_cell("qwen2-1.5b", "train_4k")`` on the 16x16 mesh and
+    zamba2-1.2b's long_500k cell on 2x16x16, printed with their seconds."""
+    import torch
+    from repro_torch.configs import get_config, input_specs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.roofline import from_record
+    from repro_torch.launch.roofline_probe import model_flops
+
+    phase(17, "the dry run on fake ranks (child process), beside phase 16 "
+              "(a)'s measured step")
+    t0 = time.perf_counter()
+    ctx = torch.multiprocessing.start_processes(
+        dryrun_child, args=(out_dir,), nprocs=1, join=False,
+        start_method="spawn")
+    end = time.monotonic() + DRYRUN_DEADLINE
+    try:
+        while not ctx.join(timeout=max(0.1, end - time.monotonic())):
+            check(time.monotonic() < end, f"phase 17: the dry run passed "
+                  f"its {DRYRUN_DEADLINE:.0f} s deadline")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=30)
+    with open(os.path.join(out_dir, "phase17.json")) as f:
+        res = json.load(f)
+    print(f"phase 17's child: {time.perf_counter() - t0:.1f} s with the "
+          f"spawn")
+    cell, a = res["cell"], meshes["a"]
+    shape = ShapeConfig(**res["shape"])
+    qwen = get_config("qwen2-1.5b")
+    batch = sum(t.numel() * t.element_size()
+                for t in input_specs(qwen, shape).values())
+    print(f"(i) {cell['arch']} {cell['mesh']} FSDP + int8_ef, "
+          f"{shape.global_batch} x {shape.seq_len} tokens, "
+          f"{cell['compile_seconds']} s: collectives {cell['collectives']}")
+    print(f"(i) phase 16 (a) measured: {a['collectives']}")
+    print(f"(i) argument bytes {cell['argument_size_in_bytes']:,} (dry run) "
+          f"vs {a['state_bytes'] + batch:,} ((a)'s state {a['state_bytes']:,}"
+          f" + the batch's {batch:,})")
+    rep = from_record(cell, model_flops(qwen, shape))
+    print(f"(i) flops {cell['flops']:.6g} (dry run, every matrix product) "
+          f"vs {a['gemm_flops']:.6g} (2 m n k of (a)'s GEMM launches in a "
+          f"step), ratio {cell['flops'] / max(a['gemm_flops'], 1):.4f}; bytes "
+          f"{cell['bytes_accessed']:.6g}; roofline bound "
+          f"{1e3 * rep.step_time:.4f} ms ({rep.dominant}; compute "
+          f"{1e3 * rep.t_compute:.4f}, memory {1e3 * rep.t_memory:.4f}, "
+          f"collective {1e3 * rep.t_collective:.4f}) vs (a)'s one-rank mesh "
+          f"steps {', '.join(f'{t:.1f}' for t in a['mesh_ms'])} ms")
+    check(cell["collectives"] == a["collectives"], "phase 17 (i): the dry "
+          "run's collectives differ from phase 16 (a)'s measured ones")
+    check(cell["argument_size_in_bytes"] == a["state_bytes"] + batch,
+          "phase 17 (i): the dry run's argument bytes differ from (a)'s "
+          "state and batch")
+    probe, long_ = res["probe"], res["long"]
+    print(f"(ii) probe_cell(qwen2-1.5b, train_4k) on {probe['mesh']}, "
+          f"{res['probe_s']:.1f} s: {json.dumps(probe)}")
+    print(f"(ii) run_cell(zamba2-1.2b, long_500k, multi_pod=True), "
+          f"{res['long_s']:.1f} s: "
+          f"{json.dumps({k: v for k, v in long_.items() if k != 'collectives'})}"
+          f"; collectives {long_['collectives']}")
+    return res
+
+
+def dryrun_child(_, out_dir):
+    """Phase 17's child: the dry-run cells, written to ``phase17.json``
+    under ``out_dir``.  Imports no CUDA path: the dry run's tensors are
+    fake CPU tensors."""
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig
+    from repro_torch.launch import dryrun, roofline_probe
+
+    shape = ShapeConfig("train_4k", "train", MESH_RUN["seq"],
+                        MESH_RUN["batch"])
+    res = {"shape": dataclasses.asdict(shape)}
+    res["cell"] = dryrun.run_cell(
+        "qwen2-1.5b", "train_4k", False,
+        pcfg=ParallelConfig(**MESH_PARALLEL), shape=shape,
+        mesh_shape=(1, 1))
+    t0 = time.perf_counter()
+    res["probe"] = roofline_probe.probe_cell("qwen2-1.5b", "train_4k")
+    res["probe_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["long"] = dryrun.run_cell("zamba2-1.2b", "long_500k", True)
+    res["long_s"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "phase17.json"), "w") as f:
+        json.dump(res, f)
 
 
 def kernel_entry(name, source, replaces, launches, max_err, rows):
@@ -4794,9 +5169,11 @@ def main(argv=None) -> int:
     autoconf = autoconf_phase(K, dev, args.out, args.parent)
     training = training_phase(K, G, dev, args.out, args.parent)
     meshes = mesh_phase(K, G, dev, args.out)
+    long_decode = long_decode_phase(K, dev, args.out)
+    dry = dryrun_phase(meshes, args.out)
     # phase 16's products were held at its own shapes: its errors join
     # each kernel's
-    mesh_err = meshes["max_abs_err"]
+    mesh_err = max_errors(meshes["max_abs_err"], long_decode["max_abs_err"])
 
     csrc = "src/repro_torch/kernels/csrc"
     kernels = []
@@ -4808,7 +5185,9 @@ def main(argv=None) -> int:
                                  f"src/repro/kernels/gemm.py:{line}",
                                  main_path[tag]["launches"][kname]
                                  + (meshes["launches"]["forward"][kname]
-                                    if tag == "bf16" else 0),
+                                    if tag == "bf16" else 0)
+                                 + (long_decode["launches"][kname]
+                                    if tag == "f32" else 0),
                                  max(main_path[tag]["err"][kname],
                                      mesh_err.get(f"{kname}{suffix}", 0.0)),
                                  [r for r in timed if r["kernel"] == kname])
@@ -4867,7 +5246,8 @@ def main(argv=None) -> int:
                    "main_path": main_path, "zamba": zamba,
                    "families": families, "deployment": deployment,
                    "autoconf": autoconf, "training": training,
-                   "meshes": meshes},
+                   "meshes": meshes, "long_decode": long_decode,
+                   "dryrun": dry},
                   f, indent=1)
     print(f"\n(GEMM times are sums over the five Qwen2-1.5B GEMMs at the "
           f"planner's tiles, by dtype "

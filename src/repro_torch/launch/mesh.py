@@ -10,14 +10,16 @@ announces a cluster).
 from __future__ import annotations
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
     """16x16 single-pod (256 ranks) or 2x16x16 multi-pod (512 ranks) of
-    cards."""
+    cards; ``device_type="cpu"`` for the dry run's fake group
+    (``launch/dryrun.py``), which touches no card."""
     from torch.distributed.device_mesh import init_device_mesh
 
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return init_device_mesh("cuda", shape, mesh_dim_names=axes)
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
 def make_host_mesh(data: int = 1, model: int = 1, device_type: str = "cuda"):

@@ -278,12 +278,20 @@ def _quant_kv(x):
     return q.to(torch.int8), scale
 
 
-def decode_attention(params, cache, x, cfg, mesh: MeshInfo, *, pos):
+def decode_attention(params, cache, x, cfg, mesh: MeshInfo, *, pos,
+                     seq_shard: bool = False):
     """One-token decode.  x: (B, 1, D); pos: a scalar (every row at the same
     position) or a (B,) vector of per-slot positions (continuous batching).
 
     Writes the new key/value at ``pos`` into ``cache`` (this rank's KV
     heads) in place and returns (out (B, 1, D), cache).
+
+    ``seq_shard`` (under an ambient mesh): the cache's sequence axis is
+    split over the data axes (``kv_cache_specs(seq_shard=True)``), rank
+    ``r`` of ``n`` holding positions ``[r S/n, (r+1) S/n)``.  Only the
+    owner of ``pos`` writes the new key and value; each rank scores its
+    keys at their global positions and the ranks combine their softmax
+    statistics (:func:`_combine_shards`).
     """
     b = x.shape[0]
     dev = x.device
@@ -295,16 +303,28 @@ def decode_attention(params, cache, x, cfg, mesh: MeshInfo, *, pos):
     if quant:
         k_new, k_s = _quant_kv(k_new)          # (B,1,H,hd) int8, (B,1,H) f32
         v_new, v_s = _quant_kv(v_new)
+    seq_ax = mesh.dp() if seq_shard and sh.communicates(mesh.dp()) else None
+    skv = cache["k"].shape[1]
+    first = sh.axis_index(seq_ax) * skv
     rows = torch.arange(b, device=dev)
-    cols = positions[:, 0]
-    cache["k"][rows, cols] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, cols] = v_new[:, 0].to(cache["v"].dtype)
+    cols = positions[:, 0] - first
+    new = {"k": k_new[:, 0], "v": v_new[:, 0]}
     if quant:
-        cache["k_scale"][rows, cols] = k_s[:, 0]
-        cache["v_scale"][rows, cols] = v_s[:, 0]
+        new.update(k_scale=k_s[:, 0], v_scale=v_s[:, 0])
+    if seq_ax is None:
+        for name, t in new.items():
+            cache[name][rows, cols] = t.to(cache[name].dtype)
+    else:
+        # only the owner of pos writes: the others write back what they
+        # hold (no data-dependent shapes, so a dry run traces it too)
+        mine = (cols >= 0) & (cols < skv)
+        cols = cols.clamp(0, skv - 1)
+        for name, t in new.items():
+            keep = mine.reshape((b,) + (1,) * (t.ndim - 1))
+            cache[name][rows, cols] = torch.where(
+                keep, t.to(cache[name].dtype), cache[name][rows, cols])
 
     hq = q.shape[2]
-    skv = cache["k"].shape[1]
     scale = cfg.head_dim ** -0.5
     if quant:
         kf = cache["k"].float() * cache["k_scale"][..., None]
@@ -320,9 +340,32 @@ def decode_attention(params, cache, x, cfg, mesh: MeshInfo, *, pos):
     n_rep = hq // hkv
     qg = (q * scale).reshape(b, 1, hkv, n_rep, cfg.head_dim).float()
     s = torch.einsum("bqhrd,bkhd->bhrqk", qg, kf)          # (B,Hkv,rep,1,Skv)
-    valid = torch.arange(skv, device=dev)[None, :] <= positions  # (B, Skv)
+    kv_pos = first + torch.arange(skv, device=dev)
+    valid = kv_pos[None, :] <= positions                   # (B, Skv)
     s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhrqk,bkhd->bqhrd", p, vf)
+    if seq_ax is None:
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhrqk,bkhd->bqhrd", p, vf)
+    else:
+        out = _combine_shards(s, vf, seq_ax)
     out = out.reshape(b, 1, hq, cfg.head_dim).to(x.dtype)
     return output_projection(out, params, cfg, mesh), cache
+
+
+def _combine_shards(s, vf, ax):
+    """softmax(s) @ v over keys split across the ranks of ``ax``: s
+    (B, Hkv, rep, 1, Skv_local) masked with the finite ``NEG_INF``, vf
+    (B, Skv_local, Hkv, hd).  Each rank keeps its max ``m``, its sum of
+    exponentials ``l`` and its weighted values ``acc`` in f32; the ranks
+    all-reduce the max, rescale by ``exp(m_r - m)`` and all-reduce ``l``
+    and ``acc``.  A rank whose every key lies past ``pos`` has uniform
+    local weights, which the rescale zeroes (with ``-inf`` masks its
+    ``exp`` would be NaN).  Returns (B, 1, Hkv, rep, hd)."""
+    m_r = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m_r)
+    m = sh.all_reduce_(m_r.clone(), ax, "max")
+    corr = torch.exp(m_r - m)
+    l = sh.all_reduce_(p.sum(-1, keepdim=True) * corr, ax)
+    acc = sh.all_reduce_(torch.einsum("bhrqk,bkhd->bqhrd", p, vf)
+                         * corr[..., 0].permute(0, 3, 1, 2)[..., None], ax)
+    return acc / l[..., 0].permute(0, 3, 1, 2)[..., None]

@@ -229,8 +229,25 @@ class _VocabLogSumExp(torch.autograd.Function):
         return g[..., None] * (x - lse[..., None]).exp(), None
 
 
+class _MaskedMean(torch.autograd.Function):
+    """The global masked mean over the data ranks: the ranks' masked sums
+    ``num`` all-reduced over ``names``, over ``den`` (their all-reduced
+    mask count).  Its backward scales this rank's gradient by ``n / den``
+    (``n`` ranks), so that the train step's average of the ranks'
+    gradients is the gradient of the global mean."""
+
+    @staticmethod
+    def forward(ctx, num, den, names):
+        ctx.den, ctx.n = den, sh.axis_size(names)
+        return sh.all_reduce_(num.clone(), names) / den
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.n / ctx.den, None, None
+
+
 def cross_entropy(logits, labels, vocab_size: int, z_coef: float = 1e-4,
-                  mask=None, vocab_ax=None):
+                  mask=None, vocab_ax=None, data_ax=None):
     """Next-token CE over the *logical* vocab (the padded tail masked out).
 
     logits: (B, S, Vp); labels: (B, S) int.  Returns the scalar mean loss
@@ -238,7 +255,12 @@ def cross_entropy(logits, labels, vocab_size: int, z_coef: float = 1e-4,
     f32.  The tail is set to -1e9 out of place, so autograd follows it.
     With ``vocab_ax`` under a mesh the logits are this rank's vocabulary
     shard (vocab-parallel cross-entropy: the logsumexp and the gold logit
-    reduce over the shards; the mean is over this rank's tokens).
+    reduce over the shards).  Without a mask the mean is over this rank's
+    tokens (the data ranks hold equal shares; the train step averages
+    them).  With a mask and ``data_ax`` under a mesh it is the global
+    masked mean over the data ranks, as on one device (the JAX package's):
+    every rank returns it, and its gradient is scaled for the step's
+    average (:class:`_MaskedMean`).
     """
     logits = logits.float()
     if not sh.communicates(vocab_ax):
@@ -263,4 +285,8 @@ def cross_entropy(logits, labels, vocab_size: int, z_coef: float = 1e-4,
     if mask is None:
         return per_tok.mean()
     mask = mask.float()
-    return (per_tok * mask).sum() / mask.sum().clamp_min(1.0)
+    if not sh.communicates(data_ax):
+        return (per_tok * mask).sum() / mask.sum().clamp_min(1.0)
+    den = sh.all_reduce_(mask.sum(), data_ax).clamp_min(1.0)
+    return _MaskedMean.apply((per_tok * mask).sum(), den,
+                             sh.axis_names(data_ax))

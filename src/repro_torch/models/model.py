@@ -173,7 +173,8 @@ def _apply_block(params, kind: str, x, cfg, mesh, *, prefix_len: int = 0):
     return x, aux, {"k": k, "v": v}
 
 
-def _decode_block(params, kind: str, cache, x, cfg, mesh, *, pos):
+def _decode_block(params, kind: str, cache, x, cfg, mesh, *, pos,
+                  seq_shard: bool = False):
     _check_kind(kind)
     h = layers.apply_norm(params["norm1"], x, cfg)
     if kind == "mamba2":
@@ -186,7 +187,7 @@ def _decode_block(params, kind: str, cache, x, cfg, mesh, *, pos):
         y, cache = xlstm.decode_slstm(params["slstm"], cache, h, cfg, mesh)
         return x + y, cache
     out, cache = attn.decode_attention(params["attn"], cache, h, cfg, mesh,
-                                       pos=pos)
+                                       pos=pos, seq_shard=seq_shard)
     x, _ = _ffn(params, kind, x + out, cfg, mesh)
     return x, cache
 
@@ -484,7 +485,8 @@ class LM(nn.Module):
         logits = layers.logits_head(embed, x, cfg, mesh)
         loss = layers.cross_entropy(logits, batch["labels"], cfg.vocab_size,
                                     mask=batch.get("loss_mask"),
-                                    vocab_ax=layers.vocab_axis(cfg, mesh))
+                                    vocab_ax=layers.vocab_axis(cfg, mesh),
+                                    data_ax=mesh.dp())
         return loss + aux, {"ce_loss": loss, "aux_loss": aux}
 
     # -- serving: prefill -------------------------------------------------------
@@ -511,12 +513,16 @@ class LM(nn.Module):
         period, k, _ = factor_pattern(self.cfg.block_pattern)
         return {"stack": [{} for _ in range(k)], "tail": {}}
 
-    def init_cache(self, batch: int, max_len: int) -> dict:
+    def init_cache(self, batch: int, max_len: int, *,
+                   seq_shard: bool = False, batch_shard: bool = True) -> dict:
         """Decode state of ``batch`` slots: a KV cache of ``max_len``
         positions per attention layer (each ``shared_attn`` site its own),
         the f32 recurrent state and conv tail per recurrent layer.  Under
-        an ambient mesh, this rank's shards of it (:meth:`cache_specs`:
-        ``batch`` is the global batch), allocated at their local shapes."""
+        an ambient mesh, this rank's shards of it (:meth:`cache_specs`
+        with the same flags: ``batch`` is the global batch), allocated at
+        their local shapes; with ``seq_shard`` the KV caches' sequence
+        axis is split over the data axes (decode them with
+        ``decode_step(..., seq_shard=True)``)."""
         caches = self._empty_tree()
         for kind, _, path in self._layout():
             _put(caches, path, _init_block_cache(
@@ -525,7 +531,8 @@ class LM(nn.Module):
         # every cache starts at zero: the meta tree's shards give the shapes
         return tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
                                               device=self.device),
-                        sh.shard_tree(caches, self.cache_specs()))
+                        sh.shard_tree(caches, self.cache_specs(
+                            seq_shard=seq_shard, batch_shard=batch_shard)))
 
     def cache_specs(self, *, seq_shard: bool = False,
                     batch_shard: bool = True) -> dict:
@@ -537,10 +544,13 @@ class LM(nn.Module):
                                                  seq_shard, batch_shard))
         return specs
 
-    def decode_step(self, params, caches, token, pos):
+    def decode_step(self, params, caches, token, pos, *,
+                    seq_shard: bool = False):
         """token: (B, 1) int, or (B, 1, D) frame embeddings for the audio
         frontend; pos: a scalar or a (B,) per-slot vector.  Returns
-        (logits (B, Vp), caches), the caches updated in place."""
+        (logits (B, Vp), caches), the caches updated in place.
+        ``seq_shard``: the caches come from ``init_cache(...,
+        seq_shard=True)`` (``attention.decode_attention``)."""
         cfg, mesh = self.cfg, self.mesh
         self._check_mesh()
         params = self.compute_params(params)
@@ -552,7 +562,8 @@ class LM(nn.Module):
         x = x.to(self.compute_dtype)
         for kind, ppath, cpath in self._layout():
             x, _ = _decode_block(self._gathered(params, ppath), kind,
-                                 _get(caches, cpath), x, cfg, mesh, pos=pos)
+                                 _get(caches, cpath), x, cfg, mesh, pos=pos,
+                                 seq_shard=seq_shard)
         x = layers.apply_norm(params["final_norm"], x, cfg)
         logits = layers.logits_head(embed, x, cfg, mesh)
         return layers.gather_logits(logits, cfg, mesh)[:, 0], caches

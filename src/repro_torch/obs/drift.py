@@ -11,7 +11,7 @@ pair, keyed by the machine's ``geometry_fingerprint()`` (the identity
 rolling window of ratios per key.
 
 Status vocabulary (surfaced in ``perf_report()["drift"]``,
-``SimReport.drift`` and the JAX package's ``python -m repro.obs drift``):
+``SimReport.drift`` and ``python -m repro_torch.obs drift``):
 
 * ``ok``    — too few samples, or |median ratio − 1| ≤ ``warn_drift``;
 * ``warn``  — drift above ``warn_drift`` but within ``max_drift``:

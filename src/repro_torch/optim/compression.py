@@ -5,9 +5,11 @@ The counterpart of ``repro.optim.compression``.  ``compress_tree`` /
 tensor; the quantisation error is fed back into the next step's gradient
 (error feedback), which keeps Adam's convergence (Karimireddy et al.,
 2019).  The train step applies the round trip when
-``ParallelConfig.grad_compression == "int8_ef"``: on one rank numerically
-the signal the optimizer would see after a compressed all-reduce, and
-over a data group of more ranks :func:`psum_compressed`, that all-reduce.
+``ParallelConfig.grad_compression == "int8_ef"``, on the gradient
+synchronised over the data ranks, as the JAX package's step does
+(``runtime/train_lib.py``).  :func:`psum_compressed` is the JAX package's
+compressed all-reduce itself (int8 payloads, each rank's own scale and
+error buffer); the step does not use it.
 """
 from __future__ import annotations
 

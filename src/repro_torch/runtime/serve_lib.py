@@ -23,14 +23,17 @@ def make_prefill_step(lm: LM) -> Callable:
     return prefill_step
 
 
-def make_decode_step(lm: LM) -> Callable:
+def make_decode_step(lm: LM, *, seq_shard: bool = False) -> Callable:
     """decode_step(params, caches, token, pos) -> (next_token (B, 1),
     logits (B, Vp) f32, caches), greedy.  Sampling masks the padded vocab
-    tail."""
+    tail.  ``seq_shard``: the caches' sequence axis is split over the
+    data axes (``serve_plan``'s long decode; ``LM.init_cache(...,
+    seq_shard=True, batch_shard=False)``)."""
     vocab = lm.cfg.vocab_size
 
     def decode_step(params, caches, token, pos):
-        logits, caches = lm.decode_step(params, caches, token, pos)
+        logits, caches = lm.decode_step(params, caches, token, pos,
+                                        seq_shard=seq_shard)
         logits = logits.float()
         if logits.shape[-1] > vocab:
             logits[..., vocab:] = -1e9
@@ -46,7 +49,8 @@ def abstract_cache(lm: LM, batch: int, max_len: int, *, seq_shard=False,
     spec tree (the dry-run path)."""
     meta = LM(lm.cfg, lm.mesh, device="meta")
     with torch.device("meta"), use_mesh(None):    # global shapes
-        values = meta.init_cache(batch, max_len)
+        values = meta.init_cache(batch, max_len, seq_shard=seq_shard,
+                                 batch_shard=batch_shard)
     return values, meta.cache_specs(seq_shard=seq_shard,
                                     batch_shard=batch_shard)
 

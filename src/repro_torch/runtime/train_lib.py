@@ -23,12 +23,16 @@ them; ``sharding.batch_specs`` says how the batch splits), and the
 forward and backward issue the tensor-parallel and FSDP collectives
 themselves.  The step then averages the gradients over the data axes:
 an FSDP-sharded leaf's were already summed over them by the backward's
-reduce-scatter; every other leaf's are all-reduced, with
-``grad_compression == "int8_ef"`` by ``psum_compressed`` (int8 payloads,
-each rank's own error buffer).  Under int8_ef an FSDP leaf, synchronised
-in full precision by the scatter, takes the JAX package's round trip on
-the synchronised gradient: its shards share one scale (the max over them,
-all-reduced), and each keeps its shard of the error buffer.  The clipping
+reduce-scatter; every other leaf's are all-reduced in full precision.
+Under int8_ef every leaf then takes the JAX package's round trip on the
+synchronised gradient: one scale a tensor of the JAX package's layout
+(the max over the leaf's shards, all-reduced over the axes that shard
+it) and one error buffer, equal on every data rank (each rank keeps its
+shard of it).  ``optim.psum_compressed``, which quantises each rank's
+own gradient, is not the step's: at the mean of the ranks' scales it
+inflates the payloads of a rank whose gradient is far below another's.
+With a ``loss_mask`` the loss is the global masked mean
+(``layers.cross_entropy``).  The clipping
 norm sums each leaf's squares over the axes that shard it, and the
 metrics are averaged over the data axes.  On a one-rank mesh every
 collective is the identity and the step is the unsharded one, bit for
@@ -55,7 +59,6 @@ from repro_torch.optim.compression import (
     decompress_tree,
     dequantize_int8,
     init_error_buffer,
-    psum_compressed,
     quantize_int8,
 )
 from repro_torch.runtime import sharding as sh
@@ -136,18 +139,18 @@ def _data_sync(lm: LM, grads: dict, err):
                         / n, grads, lm.specs()), None
 
     def one(g, e, spec):
-        if fsdp(spec):
-            # the reduce-scatter synchronised it in full precision: the
-            # JAX package's round trip on the synchronised gradient, one
-            # scale for the whole tensor (its max over the shards)
-            corrected = (g / n).float() + e
-            amax = sh.all_reduce_(corrected.abs().max(), sh.spec_axes(spec),
-                                  "max")
-            q, s = quantize_int8(corrected, amax)
-            deq = dequantize_int8(q, s)
-            return deq.to(g.dtype), corrected - deq
-        g_sum, e_new = psum_compressed(g, e, dp)
-        return g_sum / n, e_new
+        # the JAX package's round trip on the synchronised gradient: sum
+        # it in full precision (an FSDP leaf's reduce-scatter already did),
+        # then one scale for the whole tensor (its max over the shards) and
+        # one error buffer, equal on every data rank
+        if not fsdp(spec):
+            g = sh.all_reduce_(g, dp)
+        corrected = (g / n).float() + e
+        amax = sh.all_reduce_(corrected.abs().max(), sh.spec_axes(spec),
+                              "max")
+        q, s = quantize_int8(corrected, amax)
+        deq = dequantize_int8(q, s)
+        return deq.to(g.dtype), corrected - deq
 
     # one scale a tensor of the JAX package's layout (as on one rank)
     pairs = tree_zip(one, stack_periods(grads), stack_periods(err),
@@ -191,7 +194,10 @@ def make_train_step(lm: LM, tcfg: TrainConfig, pcfg: ParallelConfig
 
     def grads_of(params, leaves, mb):
         loss, metrics = lm.loss_fn(params, mb, remat=remat)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss does not read (the audio frontend's token table)
+        # gets a zero gradient, as jax.grad gives it
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
         return loss.detach(), {
             k: torch.as_tensor(v, device=loss.device).detach()
             for k, v in metrics.items()}, grads

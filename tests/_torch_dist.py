@@ -52,6 +52,17 @@ def run_group(fn, world: int, tmp_path, *args, deadline: float = DEADLINE):
     assert all(not p.is_alive() for p in ctx.processes)
 
 
+def run_alone(fn, *args, deadline: float = DEADLINE):
+    """``fn(*args)`` in one spawned process of its own (no default group:
+    the dry run opens its fake one there), its result returned."""
+    import concurrent.futures
+    import multiprocessing
+
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        return pool.submit(fn, *args).result(timeout=deadline)
+
+
 def _entry(rank, fn, world, store, args):
     torch.set_num_threads(1)
     dist.init_process_group(
@@ -232,16 +243,16 @@ def fsdp_train(rank, world, data, model, values, batches, want_grads,
 def int8_sync(lm, grads, want_grads):
     """Under int8_ef, ``train_lib._data_sync`` of this rank's first-step
     gradients ``grads``, twice (the second time with the first's error
-    buffer), in the JAX package's stacked layout.  An FSDP leaf against
-    the JAX package's round trip on the synchronised gradient, made here
-    from the single-device gradients ``want_grads`` (one scale for the
-    whole tensor: the max over its shards): the dequantised gradient and
-    the error buffer agree within one quantum (a rounding tie apart), and
-    to 1e-3 of a quantum on all but 1 % of the leaf's elements.  Any other
-    leaf equals ``psum_compressed`` over the data axis on the same
-    inputs."""
+    buffer), in the JAX package's stacked layout.  Every leaf, FSDP or
+    not, against the JAX package's round trip on the synchronised
+    gradient, made here from the single-device gradients ``want_grads``
+    (one scale for the whole tensor: the max over its shards): the
+    dequantised gradient and the error buffer agree within one quantum (a
+    rounding tie apart), and to 1e-3 of a quantum on all but 1 % of the
+    leaf's elements."""
     from repro_torch.optim import (dequantize_int8, init_error_buffer,
-                                   psum_compressed, quantize_int8)
+                                   quantize_int8)
+    from repro_torch.models.common import tree_map
     from repro_torch.runtime import sharding as sh
     from repro_torch.runtime import train_lib
 
@@ -251,21 +262,16 @@ def int8_sync(lm, grads, want_grads):
     mean = stacked(train_lib._unflatten(
         grads, [torch.from_numpy(want_grads[p]) for p in _flat(grads)]))
     specs = _flat_specs(train_lib.stack_spec_periods(lm.specs()))
-    mine = stacked(grads)
     err = init_error_buffer(grads)
     n_fsdp = 0
     for round_ in range(2):
-        synced, new_err = train_lib._data_sync(lm, grads, err)
+        # (the sync all-reduces the gradients in place)
+        synced, new_err = train_lib._data_sync(
+            lm, tree_map(torch.clone, grads), err)
         got_g, got_e = stacked(synced), stacked(new_err)
-        e_local = stacked(err)
         e_full = stacked(sh.gather_tree(err, lm.specs()))
         for path, spec in specs.items():
-            if "data" not in sh.spec_axes(spec):
-                g, e = psum_compressed(mine[path], e_local[path], "data")
-                assert torch.equal(got_g[path], g / sh.axis_size("data")) \
-                    and torch.equal(got_e[path], e), (path, round_ + 1)
-                continue
-            n_fsdp += 1
+            n_fsdp += "data" in sh.spec_axes(spec)
             corrected = mean[path] + e_full[path]
             q, s = quantize_int8(corrected)
             for what, got, want in (
@@ -279,6 +285,199 @@ def int8_sync(lm, grads, want_grads):
                     (tag, int((d > 1e-3 * s).sum()), d.numel())
         err = new_err
     assert n_fsdp
+
+
+def masked_dp(rank, world, values, batch, want_loss, want_grads):
+    """qwen2-1.5b smoke on a (2, 1) data-parallel mesh, a ``loss_mask``
+    that leaves the ranks different numbers of tokens: each rank's CE
+    loss is the global masked mean (f32 1e-5) and the gradients averaged
+    over the data axis are its gradients (1e-5 relative L2 a leaf), both
+    as one device computes them on the whole batch."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.runtime import train_lib
+
+    mesh = _mesh(2, 1)
+    with sh.use_mesh(mesh):
+        lm = _lm(_cfg("qwen2-1.5b"), sh.mesh_info(mesh), values)
+        params = lm.train_mode().shard()
+        local = {k: _rows(torch.from_numpy(v), sh) for k, v in batch.items()}
+        _, m = lm.loss_fn(params, local, remat="none")
+        _close(m["ce_loss"].detach(), want_loss,
+               f"masked CE loss, rank {rank}")
+        grads = torch.autograd.grad(m["ce_loss"], tree_leaves(params))
+        synced, _ = train_lib._data_sync(
+            lm, train_lib._unflatten(params, list(grads)), None)
+        for path, g in _flat(synced).items():
+            assert _rel_l2(g, want_grads[path]) <= 1e-5, \
+                (rank, path, _rel_l2(g, want_grads[path]))
+
+
+def int8_ef_dp(rank, world, values, batches, want_metrics, want_params):
+    """qwen2-1.5b smoke on a (2, 1) data-parallel mesh, int8_ef, two
+    steps (the error buffer carried into the second): rank 1's tokens
+    weigh 1e-3 of rank 0's in the ``loss_mask``, so its gradient of every
+    leaf is about 1e-3 of rank 0's.  The losses and gradient norms equal
+    the single-device int8_ef steps' on the whole batch within 1e-5, and
+    the parameters after them within 1e-4 relative L2 a leaf
+    (:func:`fsdp_train`'s bounds)."""
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.optim import init_error_buffer, init_opt_state
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.runtime import train_lib
+
+    mesh = _mesh(2, 1)
+    cfg = _cfg("qwen2-1.5b")
+    tcfg = TrainConfig(lr=3e-3, warmup_steps=1, total_steps=10)
+    with sh.use_mesh(mesh):
+        lm = _lm(cfg, sh.mesh_info(mesh), values)
+        params = lm.train_mode().shard()
+        opt = init_opt_state(params, train_lib.make_adamw_config(cfg, tcfg))
+        opt["err"] = init_error_buffer(params)
+        step = train_lib.make_train_step(
+            lm, tcfg, ParallelConfig(grad_compression="int8_ef"))
+        for i, batch in enumerate(batches):
+            local = {k: _rows(torch.from_numpy(v), sh)
+                     for k, v in batch.items()}
+            params, opt, m = step(params, opt, local)
+            _close(torch.stack([m["loss"], m["grad_norm"]]).detach(),
+                   want_metrics[i], f"step {i + 1} loss and grad_norm, "
+                                    f"rank {rank}")
+    for path, p in _flat(params).items():
+        assert _rel_l2(p.detach(), want_params[path]) <= 1e-4, \
+            (rank, path, _rel_l2(p.detach(), want_params[path]))
+
+
+def seq_sharded_decode(rank, world, values, cache, steps, want_logits,
+                       want_cache):
+    """zamba2 smoke on a (2, 1) mesh, the KV caches' sequence axis split
+    over the data axis (``serve_plan``'s long decode) and every cache
+    leaf seeded (``cache``, the whole tree): greedy decode steps at
+    ``steps`` (token, position) pairs give the unsharded decode's logits
+    (f32 1e-5), finite on a rank whose every key lies past the position;
+    only the owner of a position writes it, so each rank's cache ends as
+    its shard of the unsharded one (f32 1e-5: the layers after the first
+    attention site see its output in another sum order); each attention
+    site issues its three
+    all-reduces over data a step (max, sum of weights, weighted values)."""
+    from repro_torch.runtime import serve_lib
+    from repro_torch.runtime import sharding as sh
+
+    mesh = _mesh(2, 1)
+    with sh.use_mesh(mesh):
+        lm = _lm(_cfg("zamba2-1.2b"), sh.mesh_info(mesh), values)
+        params = lm.shard()
+        caches = lm.init_cache(1, 16, seq_shard=True, batch_shard=False)
+        specs = lm.cache_specs(seq_shard=True, batch_shard=False)
+        for path, t in _flat(sh.shard_tree(
+                tree_map_np(cache, caches), specs)).items():
+            _flat(caches)[path].copy_(t)
+        decode = serve_lib.make_decode_step(lm, seq_shard=True)
+        sh.reset_collective_counts()
+        with torch.no_grad():
+            for (tok, pos), want in zip(steps, want_logits):
+                _, logits, caches = decode(params, caches,
+                                           torch.tensor([[tok]]), pos)
+                assert torch.isfinite(logits).all(), (rank, pos)
+                _close(logits, want, f"seq-sharded decode at {pos}, rank "
+                                     f"{rank}")
+        counts = sh.collective_counts()
+        sites = lm.cfg.block_pattern.count("shared_attn")
+        assert counts["all_reduce over data"]["calls"] \
+            == 3 * sites * len(steps), counts
+        want = _flat(sh.shard_tree(tree_map_np(want_cache, caches), specs))
+        for path, t in _flat(caches).items():
+            _close(t, want[path], f"cache {path}, rank {rank}")
+
+
+def tree_map_np(tree, like):
+    """The numpy tree ``tree`` as tensors in ``like``'s structure."""
+    from repro_torch.models.common import tree_zip
+
+    return tree_zip(lambda a, t: torch.from_numpy(np.asarray(a)), tree, like)
+
+
+def dry_cell(kwargs):
+    """``launch.dryrun.run_cell(**kwargs)`` (run it through
+    :func:`run_alone`)."""
+    from repro_torch.launch import dryrun
+
+    return dryrun.run_cell(**kwargs)
+
+
+def probe_vs_direct(arch, shape_name, cfg, shape, mesh_shape):
+    """``roofline_probe.probe_cell`` and a direct dry run of the
+    full-depth config at the probe's attention chunk (run it through
+    :func:`run_alone`)."""
+    from repro_torch.launch import dryrun, roofline_probe
+
+    probe = roofline_probe.probe_cell(arch, shape_name, cfg=cfg, shape=shape,
+                                      mesh_shape=mesh_shape)
+    full = dataclasses.replace(cfg, attn_chunk=max(shape.seq_len,
+                                                   cfg.attn_chunk))
+    direct = dryrun.run_cell(arch, shape_name, False, cfg=full, shape=shape,
+                             mesh_shape=mesh_shape)
+    return probe, direct
+
+
+def real_cell(rank, world, kwargs, want):
+    """The step a dry-run record ``want`` counted (``kwargs`` are its
+    ``run_cell`` arguments: cfg, shape, pcfg, mesh_shape), run for real on
+    these gloo ranks at the same local shapes, from a seeded state and
+    batch: its collectives (calls and bytes by op and axis), its flops
+    (``FlopCounterMode``) and the bytes of its inputs and outputs equal
+    the record's."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import input_specs
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.dryrun import tree_bytes
+    from repro_torch.models.model import LM
+    from repro_torch.runtime import serve_lib
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.runtime.train_lib import (init_train_state,
+                                               make_train_step)
+
+    cfg, shape, pcfg = kwargs["cfg"], kwargs["shape"], kwargs["pcfg"]
+    mesh = _mesh(*kwargs["mesh_shape"])
+    with sh.use_mesh(mesh):
+        minfo = sh.mesh_info(mesh, fsdp=pcfg.fsdp)
+        lm = LM(cfg, minfo, device="cpu")
+        tcfg = TrainConfig()
+        params, _, opt, _ = init_train_state(
+            lm, tcfg, torch.Generator().manual_seed(0), pcfg)
+        gen = torch.Generator().manual_seed(1)
+        bspecs = sh.batch_specs(cfg, shape, minfo)
+        batch = {}
+        for k, v in input_specs(cfg, shape).items():
+            full = (torch.randn(v.shape, generator=gen).to(v.dtype)
+                    if v.is_floating_point() else
+                    torch.randint(0, cfg.vocab_size, v.shape, generator=gen,
+                                  dtype=v.dtype))
+            batch[k] = sh.shard_tensor(full, bspecs[k])
+        if shape.kind == "train":
+            args, run = (params, opt, batch), make_train_step(lm, tcfg, pcfg)
+        elif shape.kind == "prefill":
+            args, run = (params, batch), torch.no_grad()(lm.prefill)
+        else:
+            plan = serve_lib.serve_plan(cfg, shape, minfo)
+            seq_shard = plan["seq_shard"] and pcfg.seq_shard_long_kv
+            caches = lm.init_cache(shape.global_batch, shape.seq_len,
+                                   seq_shard=seq_shard,
+                                   batch_shard=plan["batch_shard"])
+            args = (params, caches, batch["token"],
+                    torch.zeros((), dtype=torch.int32))
+            run = torch.no_grad()(serve_lib.make_decode_step(
+                lm, seq_shard=seq_shard))
+        arg_bytes = tree_bytes(args)
+        sh.reset_collective_counts()
+        with FlopCounterMode(display=False) as flops:
+            out = run(*args)
+        got = {"collectives": sh.collective_counts(),
+               "flops": float(flops.get_total_flops()),
+               "argument_size_in_bytes": arg_bytes,
+               "output_size_in_bytes": tree_bytes(out)}
+    assert got == {k: want[k] for k in got}, (rank, got, want)
 
 
 def _flat_specs(specs):

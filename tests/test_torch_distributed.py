@@ -24,7 +24,13 @@ atol = 1e-5, gradients 1e-5 relative L2 a leaf.
   on four ranks;
 * a one-rank mesh: the FSDP + int8_ef step, prefill and decode equal the
   unsharded path bit for bit (the card's phase 16 (a) in miniature);
-* a tensor-parallel step on ``(1, 2)`` and its collectives.
+* a tensor-parallel step on ``(1, 2)`` and its collectives;
+* on ``(2, 1)``, data parallel: a ``loss_mask`` leaving the ranks 3 and
+  61 of their 64 tokens gives the global masked mean and its gradients,
+  and two int8_ef steps in which one rank's gradients are about 1e-3 of
+  the other's equal the single-device int8_ef steps;
+* the sequence-sharded long decode on ``(2, 1)`` (zamba2 smoke, every
+  cache leaf seeded): the unsharded decode's logits and cache.
 """
 import dataclasses
 import functools
@@ -47,7 +53,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ParallelConfig, TrainConfig
 from repro_torch.models import moe
 from repro_torch.models.common import (HOST_MESH, MeshInfo, tree_leaves,
-                                       tree_paths)
+                                       tree_map, tree_paths)
 from repro_torch.models.model import LM
 from repro_torch.optim import dequantize_int8, init_opt_state, quantize_int8
 from repro_torch.runtime import train_lib
@@ -300,3 +306,104 @@ def test_tensor_parallel_step_and_its_collectives(tmp_path):
     np.testing.assert_allclose(float(loss), float(jloss), rtol=RTOL)
     W.run_group(W.tp_step_collectives, 2, tmp_path, values, batch,
                 loss.detach().numpy(), grads)
+
+
+def _dp_case(seed):
+    """qwen2-1.5b smoke in f32: the carried values, a single-device port
+    holding them, and 4 x 32 random tokens (rows 0-1 data rank 0's, rows
+    2-3 rank 1's)."""
+    cfg = _f32(get_config("qwen2-1.5b", smoke=True))
+    jcfg = _f32(jget_config("qwen2-1.5b", smoke=True))
+    values = _jvalues(jcfg, JHOST_MESH, seed)
+    lm = LM(cfg, HOST_MESH, device="cpu")
+    interop.load_jax_params(lm, values)
+    return cfg, jcfg, values, lm, _tokens(cfg, (4, 32), seed)
+
+
+def test_loss_mask_is_the_global_masked_mean_over_data_ranks(tmp_path):
+    _, jcfg, values, lm, tokens = _dp_case(7)
+    mask = np.zeros((4, 32), np.float32)
+    mask[0, [3, 17, 30]] = 1.0                 # rank 0: 3 of its 64 tokens
+    mask[2:].reshape(-1)[:61] = 1.0            # rank 1: 61 of 64
+    batch = {"tokens": tokens, "labels": np.roll(tokens, -1, axis=1),
+             "loss_mask": mask}
+    params = lm.train_mode().values()
+    _, m = lm.loss_fn(params, {k: torch.from_numpy(v)
+                               for k, v in batch.items()}, remat="none")
+    grads = dict(zip(_flat(params), (g.numpy() for g in torch.autograd.grad(
+        m["ce_loss"], tree_leaves(params)))))
+    _, jm = JLM(jcfg, JHOST_MESH).loss_fn(
+        values, {k: jnp.asarray(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(m["ce_loss"]), float(jm["ce_loss"]),
+                               rtol=RTOL)
+    W.run_group(W.masked_dp, 2, tmp_path, values, batch,
+                m["ce_loss"].detach().numpy(), grads)
+
+
+def test_int8_ef_over_two_data_ranks_equals_one_device(tmp_path):
+    cfg, jcfg, values, lm, tokens = _dp_case(8)
+    rng = np.random.default_rng(8)
+    mask = np.ones((4, 32), np.float32)
+    mask[2:] = 1e-3                            # rank 1's gradients ~1e-3
+    batches = [{"tokens": t, "labels": np.roll(t, -1, axis=1),
+                "loss_mask": mask}
+               for t in (tokens, rng.integers(0, cfg.vocab_size, (4, 32)))]
+    tcfg = TrainConfig(lr=3e-3, warmup_steps=1, total_steps=10)
+    pcfg = ParallelConfig(grad_compression="int8_ef")
+    params, _, opt, _ = train_lib._state(lm, lm.train_mode().values(), tcfg,
+                                         pcfg)
+    step = train_lib.make_train_step(lm, tcfg, pcfg)
+    metrics = []
+    for b in batches:
+        params, opt, m = step(params, opt, {k: torch.from_numpy(v)
+                                            for k, v in b.items()})
+        metrics.append(torch.stack([m["loss"], m["grad_norm"]]).numpy())
+    # the single-device masked loss is the JAX package's
+    _, jm = JLM(jcfg, JHOST_MESH).loss_fn(
+        values, {k: jnp.asarray(v) for k, v in batches[0].items()})
+    np.testing.assert_allclose(metrics[0][0], float(jm["ce_loss"]),
+                               rtol=RTOL)
+    W.run_group(W.int8_ef_dp, 2, tmp_path, values, batches, metrics,
+                _flat(params))
+
+
+def test_seq_sharded_decode_equals_the_unsharded_decode(tmp_path):
+    """Positions 7 and 8 lie on both sides of the two ranks' boundary (at
+    7 rank 1 holds no visible key), 15 is the last; the unsharded port
+    is held to the JAX package's ``decode_step`` on the same weights and
+    cache at the families' decode tolerance (rtol = atol = 1e-4)."""
+    from repro.runtime import serve_lib as jserve_lib
+    from repro_torch.runtime import serve_lib
+
+    cfg = _f32(get_config("zamba2-1.2b", smoke=True))
+    jcfg = _f32(jget_config("zamba2-1.2b", smoke=True))
+    values = _jvalues(jcfg, JHOST_MESH, 9)
+    lm = LM(cfg, HOST_MESH, device="cpu")
+    interop.load_jax_params(lm, values)
+    rng = np.random.default_rng(9)
+    caches = lm.init_cache(1, 16)
+    for t in tree_leaves(caches):
+        t.copy_(torch.from_numpy(rng.standard_normal(t.shape)
+                                 .astype(np.float32) * 0.5))
+    seeded = tree_map(lambda t: t.numpy().copy(), caches)
+    jlm = JLM(jcfg, JHOST_MESH)
+    jc, _ = split_params(jlm.init_cache(1, 16))
+    jc = jax.tree.map(lambda a, b: jnp.asarray(b.reshape(a.shape)), jc,
+                      _np(train_lib.stack_periods(
+                          tree_map(torch.clone, caches))))
+    decode = serve_lib.make_decode_step(lm)
+    jdecode = jserve_lib.make_decode_step(jlm)
+    tok, steps, logits = 3, [], []
+    with torch.no_grad():
+        for pos in (7, 8, 15):
+            steps.append((tok, pos))
+            nxt, lg, caches = decode(lm.values(), caches,
+                                     torch.tensor([[tok]]), pos)
+            _, jl, jc = jdecode(values, jc, jnp.array([[tok]]),
+                                jnp.array(pos))
+            np.testing.assert_allclose(lg.numpy(), np.asarray(jl),
+                                       rtol=1e-4, atol=1e-4)
+            logits.append(lg.numpy())
+            tok = int(nxt[0, 0])
+    W.run_group(W.seq_sharded_decode, 2, tmp_path, values, seeded, steps,
+                logits, tree_map(lambda t: t.numpy(), caches))

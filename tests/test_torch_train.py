@@ -88,7 +88,7 @@ def _jbatch(arch, i):
 
 @pytest.mark.parametrize("arch,compression", [
     ("qwen2-1.5b", "none"), ("granite-moe-3b-a800m", "none"),
-    ("qwen2-1.5b", "int8_ef")])
+    ("qwen2-1.5b", "int8_ef"), ("musicgen-medium", "none")])
 def test_three_steps_match_the_reference(arch, compression):
     jstep, jp, jo, step, params, opt = _both(arch, compression)
     for i in range(3):
