@@ -28,7 +28,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import MeshInfo, dense_init, zeros_init
+from repro_torch.models.common import (WHOLE, Cut, MeshInfo, dense_init,
+                                       zeros_init)
 from repro_torch.models.layers import apply_rope, rope_tables
 from repro_torch.runtime import sharding as sh
 
@@ -99,26 +100,31 @@ def attention_specs(cfg, mesh: MeshInfo) -> dict:
     return specs
 
 
-def init_attention(gen, cfg, mesh: MeshInfo, dtype, device):
-    """Logical-shape weights drawn as on one device, then padded: the
-    logical parameters are the same whatever the mesh."""
+def init_attention(gen, cfg, mesh: MeshInfo, dtype, device,
+                   cut: Cut = WHOLE):
+    """Logical-shape weights drawn as on one device, then padded (and then
+    cut): the logical parameters are the same whatever the mesh."""
     d, hd = cfg.d_model, cfg.head_dim
     hq0, hkv0 = cfg.n_heads, cfg.n_kv_heads
     hq, hkv = head_layout(cfg, mesh)
+
+    def padded(key, pad, axis):
+        return cut.of(key, lambda w: pad(w, cfg, mesh, axis))
+
     p = {
-        "wq": pad_q(dense_init(gen, d, (d, hq0, hd), dtype, device), cfg,
-                    mesh, 1),
-        "wk": pad_kv(dense_init(gen, d, (d, hkv0, hd), dtype, device), cfg,
-                     mesh, 1),
-        "wv": pad_kv(dense_init(gen, d, (d, hkv0, hd), dtype, device), cfg,
-                     mesh, 1),
-        "wo": pad_q(dense_init(gen, hq0 * hd, (hq0, hd, d), dtype, device),
-                    cfg, mesh, 0),
+        "wq": dense_init(gen, d, (d, hq0, hd), dtype, device,
+                         padded("wq", pad_q, 1)),
+        "wk": dense_init(gen, d, (d, hkv0, hd), dtype, device,
+                         padded("wk", pad_kv, 1)),
+        "wv": dense_init(gen, d, (d, hkv0, hd), dtype, device,
+                         padded("wv", pad_kv, 1)),
+        "wo": dense_init(gen, hq0 * hd, (hq0, hd, d), dtype, device,
+                         padded("wo", pad_q, 0)),
     }
     if cfg.qkv_bias:
-        p["bq"] = zeros_init((hq, hd), dtype, device)
-        p["bk"] = zeros_init((hkv, hd), dtype, device)
-        p["bv"] = zeros_init((hkv, hd), dtype, device)
+        p["bq"] = cut("bq", zeros_init((hq, hd), dtype, device))
+        p["bk"] = cut("bk", zeros_init((hkv, hd), dtype, device))
+        p["bv"] = cut("bv", zeros_init((hkv, hd), dtype, device))
     return p
 
 
@@ -226,6 +232,23 @@ def blockwise_attention(q, k, v, *, chunk: int, causal: bool,
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)                 # (B, Sq, H, hd)
+
+
+def apply_attention(params, x, cfg, mesh: MeshInfo, *, positions=None,
+                    prefix_len: int = 0):
+    """Full-sequence (training / prefill) attention.  x: (B, S, D)
+    replicated over the model axis -> (B, S, D), the heads' parts summed
+    over it.  The model's block (``model._apply_block``) composes the same
+    functions and also keeps k and v for the cache."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = project_local(params, x, cfg, mesh, positions)
+    out = blockwise_attention(q, kv_for_local_heads(k, cfg, mesh),
+                              kv_for_local_heads(v, cfg, mesh),
+                              chunk=cfg.attn_chunk, causal=True,
+                              prefix_len=prefix_len)
+    return output_projection(out, params, cfg, mesh)
 
 
 # ---------------------------------------------------------------------------

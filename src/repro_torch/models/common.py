@@ -117,11 +117,65 @@ def tree_copy_(dst, src) -> None:
 # ---------------------------------------------------------------------------
 
 
+class Cut:
+    """What an initialiser keeps of each leaf it draws, by the leaf's key.
+
+    ``Cut()`` keeps every leaf whole.  ``Cut(specs, sh)`` keeps this
+    rank's part of leaf ``key`` under ``specs[key]`` on the ambient mesh,
+    ``sh`` being ``runtime.sharding`` (passed in: that module imports this
+    one).  ``LM.init(shard=True)`` hands one to every initialiser, so that
+    no leaf outlives its draw whole: a dense leaf is cut in f32 as it is
+    drawn, before it is scaled and cast (:func:`dense_init`), and a stack
+    of experts is drawn and cut one expert at a time
+    (``moe.init_moe``).  Cutting a draw and then scaling and casting it
+    gives the bits that cutting the finished leaf gives.
+    """
+
+    def __init__(self, specs=None, sh=None):
+        self.specs, self._sh = specs, sh
+
+    def at(self, key) -> "Cut":
+        """The cut of the subtree ``key``."""
+        return self if self.specs is None else Cut(self.specs[key],
+                                                   self._sh)
+
+    def __call__(self, key, x):
+        """What is kept of leaf ``key``, given whole as ``x``."""
+        return x if self.specs is None else self._sh.shard_tensor(
+            x, self.specs[key])
+
+    def of(self, key, pad=None):
+        """The cut of leaf ``key`` as a function of its f32 draw, which
+        ``pad`` (if given) first takes to the leaf's padded shape."""
+        def cut(x):
+            return self(key, x if pad is None else pad(x))
+        return cut
+
+    def rows(self, key, n: int):
+        """(the indices along dim 0 of leaf ``key``, ``n`` long, that are
+        kept; the cut of one slice along it, None for whole)."""
+        if self.specs is None:
+            return range(n), None
+        spec = self.specs[key]
+        per = n // self._sh.axis_size(spec[0])
+        i = self._sh.axis_index(spec[0])
+        return (range(i * per, (i + 1) * per),
+                lambda x: self._sh.shard_tensor(x, spec[1:]))
+
+
+#: keeps every leaf whole
+WHOLE = Cut()
+
+
 def dense_init(gen: torch.Generator, d_in: int, shape: tuple, dtype,
-               device) -> torch.Tensor:
-    """Fan-in-scaled normal init (the shape's contraction dim is d_in)."""
+               device, cut=None) -> torch.Tensor:
+    """Fan-in-scaled normal init (the shape's contraction dim is d_in).
+    ``cut`` (a function, see :meth:`Cut.of`) takes the f32 draw to the
+    part that is kept before it is scaled and cast."""
     std = d_in ** -0.5
     v = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    if cut is not None:
+        v = cut(v)
     return (v * std).to(dtype)
 
 
@@ -134,9 +188,10 @@ def ones_init(shape: tuple, dtype, device) -> torch.Tensor:
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype,
-               device) -> torch.Tensor:
-    return torch.randn((vocab, d), generator=gen, dtype=torch.float32,
-                       device=device).to(dtype)
+               device, cut=None) -> torch.Tensor:
+    v = torch.randn((vocab, d), generator=gen, dtype=torch.float32,
+                    device=device)
+    return (v if cut is None else cut(v)).to(dtype)
 
 
 # ---------------------------------------------------------------------------

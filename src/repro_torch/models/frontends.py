@@ -12,18 +12,20 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.common import MeshInfo, dense_init
+from repro_torch.models.common import WHOLE, Cut, MeshInfo, dense_init
 
 
 def frontend_specs(cfg, mesh: MeshInfo) -> dict:
     return {} if cfg.frontend == "none" else {"proj": (None, None)}
 
 
-def init_frontend(gen, cfg, mesh: MeshInfo, dtype, device):
+def init_frontend(gen, cfg, mesh: MeshInfo, dtype, device,
+                  cut: Cut = WHOLE):
     if cfg.frontend == "none":
         return {}
     d = cfg.d_model
-    return {"proj": dense_init(gen, d, (d, d), dtype, device)}
+    return {"proj": dense_init(gen, d, (d, d), dtype, device,
+                               cut.of("proj"))}
 
 
 def apply_frontend(params, embeddings, cfg):

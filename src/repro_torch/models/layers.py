@@ -19,6 +19,8 @@ import torch.nn.functional as F
 from repro_torch import gemm as gemm_api
 from repro_torch.models.common import (
     HOST_MESH,
+    WHOLE,
+    Cut,
     MeshInfo,
     dense_init,
     embed_init,
@@ -40,10 +42,10 @@ def norm_specs(cfg, mesh: MeshInfo) -> dict:
     return specs
 
 
-def init_norm(cfg, mesh: MeshInfo, dtype, device):
-    p = {"scale": ones_init((cfg.d_model,), dtype, device)}
+def init_norm(cfg, mesh: MeshInfo, dtype, device, cut: Cut = WHOLE):
+    p = {"scale": cut("scale", ones_init((cfg.d_model,), dtype, device))}
     if cfg.norm_type == "layernorm":
-        p["bias"] = zeros_init((cfg.d_model,), dtype, device)
+        p["bias"] = cut("bias", zeros_init((cfg.d_model,), dtype, device))
     return p
 
 
@@ -101,14 +103,17 @@ def mlp_specs(cfg, mesh: MeshInfo, d_ff: int | None = None) -> dict:
     return specs
 
 
-def init_mlp(gen, cfg, mesh: MeshInfo, dtype, device, d_ff: int | None = None):
+def init_mlp(gen, cfg, mesh: MeshInfo, dtype, device, d_ff: int | None = None,
+             cut: Cut = WHOLE):
     d, f = cfg.d_model, d_ff or cfg.d_ff
     p = {
-        "w_up": dense_init(gen, d, (d, f), dtype, device),
-        "w_down": dense_init(gen, f, (f, d), dtype, device),
+        "w_up": dense_init(gen, d, (d, f), dtype, device, cut.of("w_up")),
+        "w_down": dense_init(gen, f, (f, d), dtype, device,
+                             cut.of("w_down")),
     }
     if cfg.act in ("swiglu", "geglu"):
-        p["w_gate"] = dense_init(gen, d, (d, f), dtype, device)
+        p["w_gate"] = dense_init(gen, d, (d, f), dtype, device,
+                                 cut.of("w_gate"))
     return p
 
 
@@ -147,12 +152,14 @@ def embedding_specs(cfg, mesh: MeshInfo) -> dict:
     return specs
 
 
-def init_embedding(gen, cfg, mesh: MeshInfo, dtype, device):
+def init_embedding(gen, cfg, mesh: MeshInfo, dtype, device,
+                   cut: Cut = WHOLE):
     v = cfg.padded_vocab
-    p = {"table": embed_init(gen, v, cfg.d_model, dtype, device)}
+    p = {"table": embed_init(gen, v, cfg.d_model, dtype, device,
+                             cut.of("table"))}
     if not cfg.tie_embeddings:
         p["unembed"] = dense_init(gen, cfg.d_model, (cfg.d_model, v), dtype,
-                                  device)
+                                  device, cut.of("unembed"))
     return p
 
 

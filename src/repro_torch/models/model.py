@@ -46,8 +46,8 @@ from repro_torch.gemm import autograd as gemm_autograd
 from repro_torch.interop import require_device
 from repro_torch.models import attention as attn
 from repro_torch.models import frontends, layers, moe, ssm, xlstm
-from repro_torch.models.common import (HOST_MESH, MeshInfo, ParamTree,
-                                       cast_for_compute, tree_map)
+from repro_torch.models.common import (HOST_MESH, WHOLE, Cut, MeshInfo,
+                                       ParamTree, cast_for_compute, tree_map)
 from repro_torch.runtime import sharding as sh
 
 #: the block kinds ``LM`` builds
@@ -85,25 +85,33 @@ def factor_pattern(pattern: tuple) -> tuple[tuple, int, tuple]:
 # ---------------------------------------------------------------------------
 
 
-def _init_block(gen, kind: str, cfg, mesh, dtype, device):
+def _init_block(gen, kind: str, cfg, mesh, dtype, device, cut=WHOLE):
     _check_kind(kind)
-    p = {"norm1": layers.init_norm(cfg, mesh, dtype, device)}
+    p = {"norm1": layers.init_norm(cfg, mesh, dtype, device,
+                                   cut.at("norm1"))}
     if kind == "mamba2":
-        p["mamba"] = ssm.init_mamba2(gen, cfg, mesh, dtype, device)
+        p["mamba"] = ssm.init_mamba2(gen, cfg, mesh, dtype, device,
+                                     cut.at("mamba"))
         return p
     if kind == "mlstm":
-        p["mlstm"] = xlstm.init_mlstm(gen, cfg, mesh, dtype, device)
+        p["mlstm"] = xlstm.init_mlstm(gen, cfg, mesh, dtype, device,
+                                      cut.at("mlstm"))
         return p
     if kind == "slstm":
-        p["slstm"] = xlstm.init_slstm(gen, cfg, mesh, dtype, device)
+        p["slstm"] = xlstm.init_slstm(gen, cfg, mesh, dtype, device,
+                                      cut.at("slstm"))
         return p
-    p["attn"] = attn.init_attention(gen, cfg, mesh, dtype, device)
+    p["attn"] = attn.init_attention(gen, cfg, mesh, dtype, device,
+                                    cut.at("attn"))
     if kind == "moe":
-        p["norm2"] = layers.init_norm(cfg, mesh, dtype, device)
-        p["moe"] = moe.init_moe(gen, cfg, mesh, dtype, device)
+        p["norm2"] = layers.init_norm(cfg, mesh, dtype, device,
+                                      cut.at("norm2"))
+        p["moe"] = moe.init_moe(gen, cfg, mesh, dtype, device, cut.at("moe"))
     elif cfg.d_ff:
-        p["norm2"] = layers.init_norm(cfg, mesh, dtype, device)
-        p["mlp"] = layers.init_mlp(gen, cfg, mesh, dtype, device)
+        p["norm2"] = layers.init_norm(cfg, mesh, dtype, device,
+                                      cut.at("norm2"))
+        p["mlp"] = layers.init_mlp(gen, cfg, mesh, dtype, device,
+                                   cut=cut.at("mlp"))
     return p
 
 
@@ -252,41 +260,38 @@ class LM(nn.Module):
     def init(self, generator: torch.Generator, *, shard: bool = False
              ) -> dict:
         """Draw the parameters from ``generator``.  With ``shard`` (under
-        an ambient mesh) each part (the embedding, the frontend, each
-        block) is cut to this rank's shards as soon as it is drawn, so a
-        rank holds its shards and at most one full block at a time; the
-        shards equal those :meth:`shard` cuts from the full init."""
+        an ambient mesh) each leaf is cut to this rank's shard as soon as
+        it is drawn (``models.common.Cut``): a dense leaf in f32 before it
+        is scaled and cast, an expert stack one expert at a time.  So a
+        rank holds its shards and at most one leaf's f32 draw (for a
+        stack, one expert's); the shards equal those :meth:`shard` cuts
+        from the full init, bit for bit."""
         cfg, mesh, dev = self.cfg, self.mesh, self.device
         dtype = getattr(torch, cfg.param_dtype)
         period, k, tail = factor_pattern(cfg.block_pattern)
-        specs = self.specs()
+        cut = Cut(self.specs(), sh) if shard else WHOLE
 
-        def cut(tree, spec):
-            return sh.shard_tree(tree, spec) if shard else tree
-
-        def block(kind, spec):
-            return cut(_init_block(generator, kind, cfg, mesh, dtype, dev),
-                       spec)
+        def block(kind, where):
+            return _init_block(generator, kind, cfg, mesh, dtype, dev, where)
 
         p: dict[str, Any] = {
-            "embed": cut(layers.init_embedding(generator, cfg, mesh, dtype,
-                                               dev), specs["embed"]),
-            "final_norm": cut(layers.init_norm(cfg, mesh, dtype, dev),
-                              specs["final_norm"]),
-            "frontend": cut(frontends.init_frontend(generator, cfg, mesh,
-                                                    dtype, dev),
-                            specs["frontend"]),
+            "embed": layers.init_embedding(generator, cfg, mesh, dtype, dev,
+                                           cut.at("embed")),
+            "final_norm": layers.init_norm(cfg, mesh, dtype, dev,
+                                           cut.at("final_norm")),
+            "frontend": frontends.init_frontend(generator, cfg, mesh, dtype,
+                                                dev, cut.at("frontend")),
         }
         if cfg.shared_block:
             # one set of tied weights for every shared_attn site
-            p["shared"] = block("attn", specs["shared"])
-        p["stack"] = [{f"b{j}_{kind}": block(kind, specs["stack"][i][
-                           f"b{j}_{kind}"])
+            p["shared"] = block("attn", cut.at("shared"))
+        p["stack"] = [{f"b{j}_{kind}": block(kind, cut.at("stack").at(i)
+                                             .at(f"b{j}_{kind}"))
                        for j, kind in enumerate(period)
                        if not self._tied(kind)}
                       for i in range(k)]
-        p["tail"] = {f"t{j}_{kind}": block(kind,
-                                           specs["tail"][f"t{j}_{kind}"])
+        p["tail"] = {f"t{j}_{kind}": block(kind, cut.at("tail")
+                                           .at(f"t{j}_{kind}"))
                      for j, kind in enumerate(tail)}
         self.params = ParamTree(p)
         return self.values()

@@ -25,8 +25,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import (HOST_MESH, MeshInfo, dense_init,
-                                       ones_init, zeros_init)
+from repro_torch.models.common import (HOST_MESH, WHOLE, Cut, MeshInfo,
+                                       dense_init, ones_init, zeros_init)
 from repro_torch.runtime import sharding as sh
 
 
@@ -157,50 +157,77 @@ def mamba2_specs(cfg, mesh: MeshInfo) -> dict:
             "w_out": (in_ax, fsdp), "norm_scale": (in_ax,)}
 
 
-def init_mamba2(gen, cfg, mesh: MeshInfo, dtype, device):
+def init_mamba2(gen, cfg, mesh: MeshInfo, dtype, device, cut: Cut = WHOLE):
     d, di, n, hh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     conv_ch = di  # conv over the x stream only (B/C kept conv-free)
-    conv_w = torch.randn((cfg.ssm_conv, conv_ch), generator=gen,
-                         dtype=torch.float32, device=device).to(dtype)
+    conv_w = cut("conv_w", torch.randn((cfg.ssm_conv, conv_ch),
+                                       generator=gen, dtype=torch.float32,
+                                       device=device))
     return {
-        "w_z": dense_init(gen, d, (d, di), dtype, device),
-        "w_x": dense_init(gen, d, (d, di), dtype, device),
-        "w_B": dense_init(gen, d, (d, n), dtype, device),
-        "w_C": dense_init(gen, d, (d, n), dtype, device),
-        "w_dt": dense_init(gen, d, (d, hh), dtype, device),
-        "dt_bias": zeros_init((hh,), torch.float32, device),
-        "A_log": torch.log(torch.arange(1, hh + 1, dtype=torch.float32,
-                                        device=device)),
-        "Dskip": ones_init((hh,), torch.float32, device),
-        "conv_w": conv_w * (1.0 / math.sqrt(cfg.ssm_conv)),
-        "conv_b": zeros_init((conv_ch,), dtype, device),
-        "w_out": dense_init(gen, di, (di, d), dtype, device),
-        "norm_scale": ones_init((di,), dtype, device),
+        "w_z": dense_init(gen, d, (d, di), dtype, device, cut.of("w_z")),
+        "w_x": dense_init(gen, d, (d, di), dtype, device, cut.of("w_x")),
+        "w_B": dense_init(gen, d, (d, n), dtype, device, cut.of("w_B")),
+        "w_C": dense_init(gen, d, (d, n), dtype, device, cut.of("w_C")),
+        "w_dt": dense_init(gen, d, (d, hh), dtype, device, cut.of("w_dt")),
+        "dt_bias": cut("dt_bias", zeros_init((hh,), torch.float32, device)),
+        "A_log": cut("A_log", torch.log(torch.arange(
+            1, hh + 1, dtype=torch.float32, device=device))),
+        "Dskip": cut("Dskip", ones_init((hh,), torch.float32, device)),
+        "conv_w": conv_w.to(dtype) * (1.0 / math.sqrt(cfg.ssm_conv)),
+        "conv_b": cut("conv_b", zeros_init((conv_ch,), dtype, device)),
+        "w_out": dense_init(gen, di, (di, d), dtype, device, cut.of("w_out")),
+        "norm_scale": cut("norm_scale", ones_init((di,), dtype, device)),
     }
 
 
-def _tp_axis(cfg, mesh: MeshInfo):
-    """The model axis this block's inner width and heads shard over, or
-    None; refuses a mesh that shards only one of them (no local layout
-    keeps whole heads then)."""
-    in_ax, h_ax = mesh.shard_if(cfg.d_inner), mesh.shard_if(cfg.ssm_heads)
-    if in_ax != h_ax and sh.axis_size(mesh.model_axis) > 1:
-        raise NotImplementedError(
-            f"mamba2 on a model axis of {mesh.model}: it divides only one "
-            f"of d_inner {cfg.d_inner} and the {cfg.ssm_heads} heads")
-    return in_ax
+def _tp_axes(cfg, mesh: MeshInfo):
+    """(``ax``, ``rep``): the model axis this block's inner channels shard
+    over, or None; and ``ax`` again where the heads stay whole on every
+    rank (the axis divides d_inner but not the heads), else None.  Under
+    ``rep`` each rank convolves its own channels, gathers every channel
+    (:func:`_all_channels`), runs the scan over all heads (so the state
+    ``h`` is whole and equal on every rank, as its spec says) and keeps
+    its channels of the result (:func:`_own_channels`); the head-wise
+    weights, whole on every rank, are read through ``copy_to``, so their
+    gradients, partial on each rank, are summed."""
+    ax, h_ax = mesh.shard_if(cfg.d_inner), mesh.shard_if(cfg.ssm_heads)
+    return ax, (ax if h_ax is None else None)
 
 
-def _mamba2_inner(params, x, cfg, ax=None):
+def _all_channels(xs, rep):
+    """Every rank's channels of ``xs`` (..., C) under ``rep``.  The
+    backward keeps this rank's slice: the other ranks' gradients for it
+    are zero, since each rank's loss reads only its own channels of the
+    scan's output and the channels are independent in the scan."""
+    return sh.gather_from(xs, rep, -1)
+
+
+def _own_channels(y, rep):
+    """This rank's channels of ``y`` (..., d_inner) under ``rep``."""
+    if not sh.communicates(rep):
+        return y
+    w = y.shape[-1] // sh.axis_size(rep)
+    i = sh.axis_index(rep)
+    return y[..., i * w:(i + 1) * w]
+
+
+def _mamba2_inner(params, x, cfg, ax=None, rep=None):
     # under a mesh B and C come whole from replicated weights; each rank
-    # reads them for its own heads, so their weights' gradients are summed
+    # reads them for its own heads (under ``rep``: its own channels), so
+    # their weights' gradients are summed, as are dt's under ``rep``
     xl = sh.copy_to(x, ax)
     z = torch.matmul(xl, params["w_z"])
     xs = torch.matmul(xl, params["w_x"])
     Bm = torch.matmul(xl, sh.copy_to(params["w_B"], ax))
     Cm = torch.matmul(xl, sh.copy_to(params["w_C"], ax))
-    dt_raw = torch.matmul(xl, params["w_dt"])
+    dt_raw = torch.matmul(xl, sh.copy_to(params["w_dt"], rep))
     return z, xs, Bm, Cm, dt_raw
+
+
+def _head_weights(params, rep):
+    """dt_bias, A_log and Dskip, read through ``copy_to`` over ``rep``."""
+    return (sh.copy_to(params[k], rep) for k in ("dt_bias", "A_log",
+                                                 "Dskip"))
 
 
 def mean_square(yf, width: int, ax=None):
@@ -235,18 +262,21 @@ def apply_mamba2(params, x, cfg, mesh: MeshInfo = HOST_MESH):
     """Prefill path.  x: (B, S, D) -> (y, h_final, conv_tail)."""
     b, s, _ = x.shape
     p = cfg.ssm_head_dim
-    ax = _tp_axis(cfg, mesh)
-    z, xs, Bm, Cm, dt_raw = _mamba2_inner(params, x, cfg, ax)
-    hh = xs.shape[-1] // p                                   # local heads
-    xs_conv = silu(causal_conv(xs, params["conv_w"], params["conv_b"]))
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])
-    a = -torch.exp(params["A_log"])[None, None, :] * dt      # (B,S,H)
+    ax, rep = _tp_axes(cfg, mesh)
+    z, xs, Bm, Cm, dt_raw = _mamba2_inner(params, x, cfg, ax, rep)
+    dt_bias, A_log, Dskip = _head_weights(params, rep)
+    xs_conv = _all_channels(
+        silu(causal_conv(xs, params["conv_w"], params["conv_b"])), rep)
+    hh = xs_conv.shape[-1] // p                  # the heads this rank scans
+    dt = F.softplus(dt_raw.float() + dt_bias)
+    a = -torch.exp(A_log)[None, None, :] * dt                # (B,S,H)
     xh = xs_conv.reshape(b, s, hh, p)
     n = cfg.ssm_state
     Bh = Bm[:, :, None, :].expand(b, s, hh, n)               # groups=1
     Ch = Cm[:, :, None, :].expand(b, s, hh, n)
     y, h_last = ssd_chunked(xh, a, dt, Bh, Ch, cfg.ssm_chunk)
-    y = y + params["Dskip"][None, None, :, None] * xh.float()
+    y = y + Dskip[None, None, :, None] * xh.float()
+    y = _own_channels(y.reshape(b, s, hh * p), rep)
     out = _gated_out(params, y.to(x.dtype), z, cfg, b, s, ax)
     return out, h_last, _conv_tail(xs, cfg.ssm_conv - 1)
 
@@ -272,21 +302,23 @@ def decode_mamba2(params, cache, x, cfg, mesh: MeshInfo = HOST_MESH):
     updated in place."""
     b = x.shape[0]
     p = cfg.ssm_head_dim
-    ax = _tp_axis(cfg, mesh)
-    z, xs, Bm, Cm, dt_raw = _mamba2_inner(params, x, cfg, ax)
-    hh = xs.shape[-1] // p
+    ax, rep = _tp_axes(cfg, mesh)
+    z, xs, Bm, Cm, dt_raw = _mamba2_inner(params, x, cfg, ax, rep)
+    dt_bias, A_log, Dskip = _head_weights(params, rep)
     xc, conv_new = causal_conv_step(cache["conv"], xs,
                                     params["conv_w"], params["conv_b"])
-    xc = silu(xc)
-    dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"])
-    a = -torch.exp(params["A_log"])[None, :] * dt            # (B,H)
+    xc = _all_channels(silu(xc), rep)
+    hh = xc.shape[-1] // p
+    dt = F.softplus(dt_raw[:, 0].float() + dt_bias)
+    a = -torch.exp(A_log)[None, :] * dt                      # (B,H)
     xh = xc.reshape(b, hh, p)
     n = cfg.ssm_state
     Bh = Bm[:, 0, None, :].expand(b, hh, n)
     Ch = Cm[:, 0, None, :].expand(b, hh, n)
     y, h_new = ssd_decode_step(cache["h"], xh, a, dt, Bh, Ch)
-    y = y + params["Dskip"][None, :, None] * xh.float()
-    out = _gated_out(params, y[:, None].to(x.dtype), z, cfg, b, 1, ax)
+    y = y + Dskip[None, :, None] * xh.float()
+    y = _own_channels(y.reshape(b, 1, hh * p), rep)
+    out = _gated_out(params, y.to(x.dtype), z, cfg, b, 1, ax)
     cache["h"].copy_(h_new)
     cache["conv"].copy_(conv_new)
     return out, cache

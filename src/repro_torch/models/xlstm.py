@@ -33,8 +33,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import (HOST_MESH, MeshInfo, dense_init,
-                                       ones_init, zeros_init)
+from repro_torch.models.common import (HOST_MESH, WHOLE, Cut, MeshInfo,
+                                       dense_init, ones_init, zeros_init)
 from repro_torch.models.layers import _gelu
 from repro_torch.runtime import sharding as sh
 from repro_torch.models.ssm import (
@@ -62,24 +62,26 @@ def mlstm_specs(cfg, mesh: MeshInfo) -> dict:
             "norm_scale": (in_ax,), "w_down": (in_ax, fsdp)}
 
 
-def init_mlstm(gen, cfg, mesh: MeshInfo, dtype, device):
+def init_mlstm(gen, cfg, mesh: MeshInfo, dtype, device, cut: Cut = WHOLE):
     d, di, hh = cfg.d_model, cfg.mlstm_inner, cfg.lstm_heads
     p = {
-        "w_up": dense_init(gen, d, (d, di), dtype, device),
-        "w_z": dense_init(gen, d, (d, di), dtype, device),
-        "w_q": dense_init(gen, di, (di, di), dtype, device),
-        "w_k": dense_init(gen, di, (di, di), dtype, device),
-        "w_v": dense_init(gen, di, (di, di), dtype, device),
-        "w_i": dense_init(gen, di, (di, hh), dtype, device),
-        "w_f": dense_init(gen, di, (di, hh), dtype, device),
-        "f_bias": torch.full((hh,), 3.0, dtype=torch.float32, device=device),
+        "w_up": dense_init(gen, d, (d, di), dtype, device, cut.of("w_up")),
+        "w_z": dense_init(gen, d, (d, di), dtype, device, cut.of("w_z")),
+        "w_q": dense_init(gen, di, (di, di), dtype, device, cut.of("w_q")),
+        "w_k": dense_init(gen, di, (di, di), dtype, device, cut.of("w_k")),
+        "w_v": dense_init(gen, di, (di, di), dtype, device, cut.of("w_v")),
+        "w_i": dense_init(gen, di, (di, hh), dtype, device, cut.of("w_i")),
+        "w_f": dense_init(gen, di, (di, hh), dtype, device, cut.of("w_f")),
+        "f_bias": cut("f_bias", torch.full((hh,), 3.0, dtype=torch.float32,
+                                           device=device)),
     }
-    conv_w = torch.randn((cfg.ssm_conv, di), generator=gen,
-                         dtype=torch.float32, device=device)
+    conv_w = cut("conv_w", torch.randn((cfg.ssm_conv, di), generator=gen,
+                                       dtype=torch.float32, device=device))
     p["conv_w"] = (conv_w / math.sqrt(cfg.ssm_conv)).to(dtype)
-    p["conv_b"] = zeros_init((di,), dtype, device)
-    p["norm_scale"] = ones_init((di,), dtype, device)
-    p["w_down"] = dense_init(gen, di, (di, d), dtype, device)
+    p["conv_b"] = cut("conv_b", zeros_init((di,), dtype, device))
+    p["norm_scale"] = cut("norm_scale", ones_init((di,), dtype, device))
+    p["w_down"] = dense_init(gen, di, (di, d), dtype, device,
+                             cut.of("w_down"))
     return p
 
 
@@ -186,20 +188,22 @@ def slstm_specs(cfg, mesh: MeshInfo) -> dict:
             "w_ff2": (ff_ax, fsdp)}
 
 
-def init_slstm(gen, cfg, mesh: MeshInfo, dtype, device):
+def init_slstm(gen, cfg, mesh: MeshInfo, dtype, device, cut: Cut = WHOLE):
     d, hh = cfg.d_model, cfg.lstm_heads
     q = d // hh
     ff = 2 * d
-    w_in = dense_init(gen, d, (d, 4, d), dtype, device)
-    r = torch.randn((hh, 4, q, q), generator=gen, dtype=torch.float32,
-                    device=device)
+    w_in = dense_init(gen, d, (d, 4, d), dtype, device, cut.of("w_in"))
+    r = cut("r", torch.randn((hh, 4, q, q), generator=gen,
+                             dtype=torch.float32, device=device))
     return {
         "w_in": w_in,
         "r": (r / math.sqrt(q)).to(dtype),
-        "bias": zeros_init((4, d), torch.float32, device),
-        "f_bias": torch.full((d,), 3.0, dtype=torch.float32, device=device),
-        "w_ff1": dense_init(gen, d, (d, ff), dtype, device),
-        "w_ff2": dense_init(gen, ff, (ff, d), dtype, device),
+        "bias": cut("bias", zeros_init((4, d), torch.float32, device)),
+        "f_bias": cut("f_bias", torch.full((d,), 3.0, dtype=torch.float32,
+                                           device=device)),
+        "w_ff1": dense_init(gen, d, (d, ff), dtype, device, cut.of("w_ff1")),
+        "w_ff2": dense_init(gen, ff, (ff, d), dtype, device,
+                            cut.of("w_ff2")),
     }
 
 

@@ -272,9 +272,9 @@ def init_train_state(lm: LM, tcfg: TrainConfig, generator: torch.Generator,
     """(param values, param specs, opt state, opt specs): ``lm``
     initialised from ``generator`` and made trainable, its values the tree
     the step trains.  Under an ambient mesh every rank draws the
-    parameters from the same generator, block by block, and keeps its
-    shards of each (``LM.init(shard=True)``); the opt state is built on
-    the shards.  The specs are in the port's layout
+    parameters from the same generator, leaf by leaf, and keeps its
+    shard of each as it is drawn (``LM.init(shard=True)``); the opt state
+    is built on the shards.  The specs are in the port's layout
     (``stack_spec_periods`` gives the JAX one)."""
     values = lm.init(generator, shard=sh.ambient_mesh() is not None)
     lm.train_mode()

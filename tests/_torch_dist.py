@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
 import threading
 import time
@@ -179,7 +180,7 @@ def fsdp_train(rank, world, data, model, values, batches, want_grads,
     int8_ef their sync (:func:`int8_sync`); the losses of three steps
     within 1e-5, the parameters after them within 1e-4 relative L2 a leaf
     (AdamW's first moves are near sign(g) * lr).  Also: ``LM.init``
-    cutting block by block gives :meth:`LM.shard`'s shards, and
+    cutting leaf by leaf gives :meth:`LM.shard`'s shards, and
     ``init_cache`` the shards' shapes."""
     from repro_torch.configs.base import ParallelConfig, TrainConfig
     from repro_torch.optim import init_opt_state
@@ -221,7 +222,7 @@ def fsdp_train(rank, world, data, model, values, batches, want_grads,
             params, opt, m = step(params, opt, local)
             _close(m["loss"], want_losses[i], f"step {i + 1} loss")
         full = _flat(sh.gather_tree(params, specs))
-        # the init cut block by block, and the cache at its local shapes
+        # the init cut leaf by leaf, and the cache at its local shapes
         drawn = [LM(cfg, minfo, device="cpu") for _ in range(2)]
         cut = drawn[0].init(torch.Generator().manual_seed(5), shard=True)
         drawn[1].init(torch.Generator().manual_seed(5))
@@ -704,3 +705,175 @@ def pipeline(rank, world, params, x, want_y, want_grads):
     for (name, g) in zip(local, grads):
         want = want_grads[name][rank * n:(rank + 1) * n]
         assert _rel_l2(g[0], want) <= 1e-5, (name, rank, _rel_l2(g[0], want))
+
+
+def _copy_prefix(caches, pref):
+    """A prefill's caches copied into the front of decode caches."""
+    if isinstance(caches, dict):
+        for key in caches:
+            _copy_prefix(caches[key], pref[key])
+    elif isinstance(caches, list):
+        for c, p in zip(caches, pref, strict=True):
+            _copy_prefix(c, p)
+    else:
+        caches[tuple(slice(0, n) for n in pref.shape)] = \
+            pref.to(caches.dtype)
+
+
+def mamba_prefill_decode(lm, params, tokens, fed):
+    """``lm``'s prefill of ``tokens`` and three decode steps after it, the
+    tokens ``fed`` fed in: (the prefill's logits, each step's logits, the
+    caches after the steps)."""
+    with torch.no_grad():
+        logits, pref = lm.prefill(params, {"tokens": tokens})
+        caches = lm.init_cache(tokens.shape[0], tokens.shape[1] + len(fed))
+        _copy_prefix(caches, pref)
+        steps = [lm.decode_step(params, caches, tok, tokens.shape[1] + i)[0]
+                 for i, tok in enumerate(fed)]
+    return logits, steps, caches
+
+
+def mamba_mesh(rank, world, overrides, values, tokens, want):
+    """zamba2 smoke with ``overrides`` on a (1, ``world``) mesh whose model
+    axis divides d_inner but not the Mamba2 heads: the prefill's logits,
+    three decode steps after it (logits, greedy tokens and the caches,
+    gathered) within 1e-5 relative L2 of the single-device port's
+    ``want``, and the CE loss's gradients (gathered) within 1e-4 a leaf;
+    every Mamba2 block gathers its channels over the model axis."""
+    from repro_torch.models import ssm
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.runtime import train_lib
+
+    mesh = _mesh(1, world)
+    cfg = _cfg("zamba2-1.2b", **overrides)
+    toks = torch.from_numpy(tokens)
+    fed = [torch.from_numpy(t) for t in want["fed"]]
+    with sh.use_mesh(mesh):
+        minfo = sh.mesh_info(mesh)
+        assert ssm._tp_axes(cfg, minfo) == ("model", "model")
+        lm = _lm(cfg, minfo, values)
+        params = lm.train_mode().shard()
+        sh.reset_collective_counts()
+        logits, steps, caches = mamba_prefill_decode(lm, params, toks, fed)
+        gathers = sh.collective_counts()["all_gather over model"]["calls"]
+        assert gathers >= 4 * cfg.block_pattern.count("mamba2"), gathers
+        assert _rel_l2(logits, want["logits"]) <= 1e-5, \
+            (rank, _rel_l2(logits, want["logits"]))
+        for i, got in enumerate(steps):
+            assert _rel_l2(got, want["steps"][i]) <= 1e-5, \
+                (rank, i, _rel_l2(got, want["steps"][i]))
+            assert torch.equal(got.argmax(-1),
+                               torch.from_numpy(want["steps"][i]).argmax(-1))
+        whole = _flat(sh.gather_tree(caches, lm.cache_specs()))
+        for path, c in whole.items():
+            assert _rel_l2(c, want["cache"][path]) <= 1e-5, \
+                (rank, path, _rel_l2(c, want["cache"][path]))
+        _, m = lm.loss_fn(params, {"tokens": toks, "labels": toks})
+        grads = torch.autograd.grad(m["ce_loss"], tree_leaves(params))
+        synced, _ = train_lib._data_sync(
+            lm, train_lib._unflatten(params, list(grads)), None)
+        for path, g in _flat(sh.gather_tree(synced, lm.specs())).items():
+            assert _rel_l2(g, want["grads"][path]) <= 1e-4, \
+                (rank, path, _rel_l2(g, want["grads"][path]))
+
+
+def init_shard_cases(rank, world, cases):
+    """For each (arch, overrides, (data, model), fsdp): ``LM.init(shard=
+    True)`` equals :meth:`LM.shard` of the whole ``LM.init()`` from the
+    same seed, bit for bit, leaf for leaf (the ranks' meshes are cut from
+    one group of ``world`` ranks)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import LM
+    from repro_torch.runtime import sharding as sh
+
+    for arch, overrides, (data, model), fsdp in cases:
+        cfg = dataclasses.replace(get_config(arch, smoke=True), **overrides)
+        mesh = _mesh(data, model)
+        with sh.use_mesh(mesh):
+            minfo = sh.mesh_info(mesh, fsdp=fsdp)
+            cut = LM(cfg, minfo, device="cpu").init(
+                torch.Generator().manual_seed(rank + 3), shard=True)
+            whole = LM(cfg, minfo, device="cpu")
+            whole.init(torch.Generator().manual_seed(rank + 3))
+            shards = whole.shard()
+            assert any(sh.spec_axes(s) for s in tree_leaves(whole.specs()))
+            for a, b in zip(tree_leaves(cut), tree_leaves(shards),
+                            strict=True):
+                assert a.shape == b.shape and a.dtype == b.dtype \
+                    and torch.equal(a, b), (arch, rank, a.shape, b.shape)
+
+
+def largest_tensor_mode():
+    """A ``TorchDispatchMode`` that keeps the bytes of the largest tensor
+    any operation run under it made (``.largest``) and that operation
+    (``.op``)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    class Largest(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.largest, self.op = 0, None
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_flatten(out)[0]:
+                if isinstance(t, torch.Tensor):
+                    n = t.numel() * t.element_size()
+                    if n > self.largest:
+                        self.largest, self.op = n, str(func)
+            return out
+
+    return Largest()
+
+
+def kimi_init_peak(layers):
+    """kimi-k2-1t-a32b at full width cut to ``layers`` blocks, initialised
+    with ``shard=True`` under ``FakeTensorMode`` as rank 0 of the 16x16
+    production mesh (FSDP, as ``default_parallel`` has it) on the dry
+    run's fake group (run it through :func:`run_alone`).  Returns the
+    largest tensor made during the init and its operation, the two leaves
+    that bound it (one expert's in f32, the largest non-expert leaf's in
+    f32), the bytes of the rank's shards and the bytes its spec tree
+    gives them."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.common import tree_leaves, tree_paths, tree_zip
+    from repro_torch.models.model import LM
+    from repro_torch.runtime import sharding as sh
+
+    full = get_config("kimi-k2-1t-a32b")
+    cfg = dataclasses.replace(full, n_layers=layers,
+                              block_pattern=full.block_pattern[:layers])
+    pcfg = sh.default_parallel(full.name)
+    with dryrun.fake_group(256):
+        mesh = make_production_mesh(device_type="cpu")
+        minfo = sh.mesh_info(mesh, fsdp=pcfg.fsdp)
+        lm = LM(cfg, minfo, device="cpu")
+        with torch.device("meta"):        # the global shapes
+            values = LM(cfg, minfo, device="meta").init(torch.Generator())
+        specs = lm.specs()
+        with sh.use_mesh(mesh):
+            expert = max(4 * math.prod(v.shape[1:])
+                         for p, v in tree_paths(values) if "moe" in p
+                         and p[-1] != "router")
+            other = max(4 * v.numel() for p, v in tree_paths(values)
+                        if not ("moe" in p and p[-1] != "router"))
+            with FakeTensorMode():
+                spec_bytes = sum(
+                    t.numel() * t.element_size() for t in tree_leaves(
+                        tree_zip(dryrun.local_empty, values, specs)))
+                mode = largest_tensor_mode()
+                with mode:
+                    shards = lm.init(torch.Generator().manual_seed(0),
+                                     shard=True)
+                shard_bytes = sum(t.numel() * t.element_size()
+                                  for t in tree_leaves(shards))
+    return {"largest": mode.largest, "op": mode.op, "expert": expert,
+            "other": other, "shard_bytes": shard_bytes,
+            "spec_bytes": spec_bytes}

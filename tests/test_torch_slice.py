@@ -38,9 +38,18 @@ def _clean_registry():
     machines.load_zoo()
 
 
+#: the drivers outside the package that run on the port
+DRIVERS = sorted(
+    os.path.join(ROOT, where, name)
+    for where in ("examples", "experiments")
+    for name in os.listdir(os.path.join(ROOT, where))
+    if name.endswith("_torch.py"))
+
+
 def test_port_imports_without_jax_or_the_jax_package():
+    assert len(DRIVERS) == 12, DRIVERS
     code = (
-        "import sys, pkgutil, importlib\n"
+        "import sys, pkgutil, importlib, importlib.util\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
         "import repro_torch\n"
@@ -48,6 +57,9 @@ def test_port_imports_without_jax_or_the_jax_package():
         "    repro_torch.__path__, 'repro_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
+        f"for i, path in enumerate({DRIVERS!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'd{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if (m == 'jax' or m.startswith(('jax.', 'repro.')))\n"
         "             and sys.modules[m] is not None)\n"
@@ -63,22 +75,23 @@ def test_port_imports_without_jax_or_the_jax_package():
     # every file is also read for ``import jax`` / ``import repro`` /
     # ``from repro...`` at any depth
     bad, files = [], 0
-    for dirpath, _, names in os.walk(os.path.join(SRC, "repro_torch")):
-        for name in sorted(n for n in names if n.endswith(".py")):
-            path = os.path.join(dirpath, name)
-            files += 1
-            with open(path) as f:
-                tree = ast.parse(f.read(), filename=path)
-            for node in ast.walk(tree):
-                if isinstance(node, ast.Import):
-                    mods = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                    mods = [node.module]
-                else:
-                    continue
-                bad += [f"{os.path.relpath(path, SRC)}:{node.lineno} {m}"
-                        for m in mods if m.split(".")[0] in ("jax", "repro")]
-    assert files >= 88 and not bad, bad
+    paths = [os.path.join(dirpath, name)
+             for dirpath, _, names in os.walk(os.path.join(SRC, "repro_torch"))
+             for name in sorted(n for n in names if n.endswith(".py"))]
+    for path in paths + DRIVERS:
+        files += 1
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module]
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, ROOT)}:{node.lineno} {m}"
+                    for m in mods if m.split(".")[0] in ("jax", "repro")]
+    assert files >= 100 and not bad, bad
 
 
 def test_chip_smoke_imports_only_the_port():
