@@ -26,7 +26,8 @@ Phases:
              memory, blocks per SM, blocks per launch at the served
              shapes; f32: shared memory), the GEMM's wgmma configuration at
              every planner tile, the RMSNorm kernels' registers and shared
-             memory per kernel, the f32 flash attention (CUDA-core)
+             memory per kernel (a spill fails) and the columns path's
+             tile at D = 1536, the f32 flash attention (CUDA-core)
              instantiations' registers and spills and their block per
              head-dim width and block height (threads, register tile, K and
              V pieces, ring, shared memory, blocks per SM; a spill fails),
@@ -61,7 +62,11 @@ Phases:
              bf16
              finding that k-outer's per-pass rounding costs more than twice
              k-inner's error; one RMSNorm call with a bf16 scale must run
-             exactly one device kernel and allocate only its output.
+             exactly one device kernel, the one of the path
+             ``kernels/rmsnorm.py:path`` names, and allocate only its
+             output, on a contiguous x, a row-strided slice, a slice off
+             16 bytes, a transposed x and a row past the single-read width
+             alike.
 3. main    — the Qwen2-1.5B GEMMs at tokens=4096, planned on ``cuda`` for
              ``h100`` (the Hopper tile model) and executed by
              ``plan.execute`` in the planner's loop order and pinned to the
@@ -170,8 +175,12 @@ Phases:
              head at a time: all 24 heads' f32 scores would take 103 GB),
              Qwen2-1.5B's (1, 4096, 12, 128) causal, head dims 16, 32,
              160, 192 and 256 and B * H = 70,000; RMSNorm of 4, 32, 4096
-             and 32768 rows of 1536 in bf16 and f32, kimi-k2-1t's 7168, a
-             ragged D = 1001 and a non-contiguous x), each timed beside its
+             and 32768 rows of 1536 in bf16 and f32, kimi-k2-1t's 7168,
+             qwen2.5-32b's 5120, a ragged D = 1001, a transposed x, a
+             row-strided slice, slices off 16 bytes at 1536 and 7168, and
+             16392 (past the single-read width) contiguous and off 16
+             bytes, each row's kernel path checked against the one it must
+             take (``NORM_EXTRA``)), each timed beside its
              plain version, one PyTorch call (SDPA, ``F.rms_norm``) and its
              bound.  RMSNorm takes the f32 scale the models keep, and is
              also timed by CUDA-graph replay (device time) and by a
@@ -180,7 +189,10 @@ Phases:
              scale must give the output of its f32 copy, bit for bit; every
              bf16 flash launch must take the wgmma route and every f32 one
              the CUDA cores (aligned copies printed).  With ``--parent``,
-             RMSNorm at 4, 32 and 32768 rows and flash attention (causal;
+             RMSNorm (``NORM_TURNS``: 4, 32 and 32768 rows of 1536, and
+             kimi-k2-1t's, qwen2.5-32b's, the ragged, the transposed, the
+             row-strided and the 16392-wide shapes in both dtypes) and
+             flash attention (causal;
              bf16 at S = 32, granite and Qwen2-1.5B at S = 4096,
              paligemma-3b's D = 256; f32 at the two S = 4096 shapes,
              paligemma-3b's D = 256, stablelm-12b's D = 160,
@@ -961,31 +973,52 @@ def sass_check(build, lib, name, need, forbid=()):
                           f"instructions")
 
 
+#: the device kernel each RMSNorm path launches (csrc/rmsnorm.cu)
+NORM_KERNELS = {"direct": "rmsnorm_direct", "element": "rmsnorm_ring",
+                "columns": "rmsnorm_columns", "two-pass": "rmsnorm_two_pass"}
+#: phase 2's RMSNorm layouts (as :func:`norm_input` takes them), widths and
+#: the path each must take
+ONE_NORM = (("contiguous", 1536, "direct"), ("slice", 1536, "direct"),
+            ("offset", 1536, "element"), ("transposed", 1536, "columns"),
+            ("contiguous", 16392, "two-pass"))
+
+
 def one_norm_kernel(dev, R):
     """Fails unless one RMSNorm call with a bf16 scale runs exactly one
-    device kernel (no conversion of the scale) and allocates only y, by
-    the profiler and the caching allocator."""
+    device kernel (no conversion of the scale, no copy of x), the kernel of
+    the path ``R.path`` names, and allocates only y, by the profiler and
+    the caching allocator, on each of ``ONE_NORM``'s layouts: a contiguous
+    x, a row-strided slice, a slice off 16 bytes, a transposed x and a row
+    past the single-read width."""
     import torch
     from torch.autograd import DeviceType
-    x = torch.randn((SERVED_NORM_ROWS[0], NORM_D), device=dev,
-                    dtype=torch.bfloat16)
-    w = torch.randn((NORM_D,), device=dev).to(torch.bfloat16)
-    R.rmsnorm(x, w)
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_stats()["allocation.all.allocated"]
-    act = torch.profiler.ProfilerActivity
-    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+    for layout, d, want in ONE_NORM:
+        g = torch.Generator(dev).manual_seed(650)
+        w = torch.randn((d,), generator=g, device=dev).to(torch.bfloat16)
+        x = norm_input(SERVED_NORM_ROWS[0], d, layout, torch.bfloat16, g,
+                       dev)
+        check(R.path(x) == want, f"an RMSNorm {layout} x of width {d} takes "
+                                 f"the {R.path(x)} path, not {want}")
         R.rmsnorm(x, w)
         torch.cuda.synchronize()
-    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - before
-    kernels = [ev.key for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA
-               and ev.self_device_time_total > 0]
-    print(f"one RMSNorm call with a bf16 scale: device kernels {kernels}, "
-          f"{allocs} allocation(s)")
-    check(len(kernels) == 1 and "rmsnorm" in kernels[0] and allocs == 1,
-          f"an RMSNorm call with a bf16 scale ran {kernels} and made "
-          f"{allocs} allocations, not the one RMSNorm kernel and y")
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        act = torch.profiler.ProfilerActivity
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            R.rmsnorm(x, w)
+            torch.cuda.synchronize()
+        allocs = (torch.cuda.memory_stats()["allocation.all.allocated"]
+                  - before)
+        kernels = [ev.key for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA
+                   and ev.self_device_time_total > 0]
+        print(f"one RMSNorm call with a bf16 scale, {layout} x of width {d} "
+              f"({want} path): device kernels {kernels}, {allocs} "
+              f"allocation(s)")
+        check(len(kernels) == 1 and NORM_KERNELS[want] in kernels[0]
+              and allocs == 1,
+              f"an RMSNorm call with a bf16 scale on a {layout} x of width "
+              f"{d} ran {kernels} and made {allocs} allocations, not the one "
+              f"{NORM_KERNELS[want]} kernel and y")
 
 
 def snapshot(K):
@@ -1263,7 +1296,7 @@ def tree_run(tree, what, out, shapes=None):
     at ``shapes``), ``"gemm_int8"`` (phase 5's int8 turn, :func:`int8_turn`
     at ``shapes``), ``"grouped"`` (phase 6's grouped times), ``"serve"``
     (phase 7's served decode step and profiled drain), ``"norm"`` (phase
-    10's RMSNorm times at the served rows), ``"flash"`` (phase 10's flash
+    10's RMSNorm times at ``NORM_TURNS``), ``"flash"`` (phase 10's flash
     attention times at ``FLASH_TURN_SHAPES``), ``"backward"`` (phase 15
     (f)'s backward products, :func:`backward_timings`; ``shapes`` says
     whether the tree is the parent) or ``"logits"`` (phase 14's tied-head
@@ -1306,7 +1339,7 @@ def time_tree(tree, what, shapes, path):
                for tag in ("bf16", "f32")}
     elif what == "norm":
         from repro_torch.kernels import rmsnorm as R
-        res = norm_timings(R, dev)
+        res = norm_timings(R, dev, shapes["paths"])
     elif what == "flash":
         from repro_torch.kernels import flash_attention as FA
         res = flash_timings(FA, dev)
@@ -2051,12 +2084,23 @@ ATTN_SHAPES = (
 #: phase 10: RMSNorm rows of D = 1536 (both models' d_model)
 NORM_ROWS = (4, 32, 4096, 32768)
 NORM_D = 1536
-#: phase 10: RMSNorm past the register path (name, rows, D, layout):
-#: kimi-k2-1t's d_model 7168 (two passes in f32), a D that is no multiple
-#: of the vector width (scalar path), a non-contiguous x (copied first)
-NORM_EXTRA = (("kimi-k2-1t d_model", 4096, 7168, "contiguous"),
-              ("ragged D", 4096, 1001, "contiguous"),
-              ("non-contiguous x", 4096, 1536, "transposed"))
+#: phase 10: RMSNorm at other widths and layouts (name, rows, D, layout,
+#: the path it must take): kimi-k2-1t's and qwen2.5-32b's d_model, a D
+#: that is no multiple of the vector width (the element path), a
+#: transposed x (the columns path), a row-strided slice of a fused buffer
+#: (the direct path, in place), slices whose base is off 16 bytes (the
+#: element path, in place; at 7168 several warps a row), and rows past the
+#: single-read width (two-pass), contiguous and off 16 bytes; see
+#: :func:`norm_input`
+NORM_EXTRA = (("kimi-k2-1t d_model", 4096, 7168, "contiguous", "direct"),
+              ("qwen2.5-32b d_model", 4096, 5120, "contiguous", "direct"),
+              ("ragged D", 4096, 1001, "contiguous", "element"),
+              ("non-contiguous x", 4096, 1536, "transposed", "columns"),
+              ("row-strided slice", 4096, 1536, "slice", "direct"),
+              ("misaligned slice", 4096, 1536, "offset", "element"),
+              ("misaligned kimi slice", 4096, 7168, "offset", "element"),
+              ("past single-read D", 4096, 16392, "contiguous", "two-pass"),
+              ("past it, misaligned", 4096, 16392, "offset", "two-pass"))
 #: the shapes phase 9 records from the served model (bucket-32 prefill,
 #: decode at max_batch 4); the kernels line sums phase 10's times at these
 SERVED_ATTN = (1, 32, 24, 64)
@@ -2078,6 +2122,24 @@ def attention_bound(b, s, h, d, causal, tag):
     t_ops = 4.0 * b * h * d * pairs / PEAK_OPS[tag]
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def norm_input(n, d, layout, dt, g, dev):
+    """An (n, d) RMSNorm input from ``g``: ``"contiguous"``;
+    ``"transposed"``, the transpose of a contiguous (d, n) tensor;
+    ``"slice"``, the middle third of each row of an (n, 3 * d) buffer (as
+    a fused projection's output holds it); ``"offset"``, columns 1 to d of
+    an (n, d + 64) buffer (each row's base off 16 bytes)."""
+    import torch
+    if layout == "transposed":
+        return torch.randn((d, n), generator=g, device=dev, dtype=dt).t()
+    if layout == "slice":
+        return torch.randn((n, 3 * d), generator=g, device=dev,
+                           dtype=dt)[:, d:2 * d]
+    if layout == "offset":
+        return torch.randn((n, d + 64), generator=g, device=dev,
+                           dtype=dt)[:, 1:d + 1]
+    return torch.randn((n, d), generator=g, device=dev, dtype=dt)
 
 
 def norm_bound(rows, d, tag):
@@ -2282,16 +2344,16 @@ def attention_norm_phase(dev, FA, R, ops):
     flash_routes(FA, "phase 10", expect)
     f32_launches = expect["cuda_cores"]
     check(f32_launches > 0, "phase 10 launched no f32 flash attention kernel")
-    norms = [(f"{n} rows", n, NORM_D, "contiguous") for n in NORM_ROWS]
-    for i, (nname, n, nd, layout) in enumerate(norms + list(NORM_EXTRA)):
+    norms = [(f"{n} rows", n, NORM_D, "contiguous", "direct")
+             for n in NORM_ROWS]
+    for i, (nname, n, nd, layout, npath) in enumerate(norms
+                                                      + list(NORM_EXTRA)):
         for tag in ("bf16", "f32"):
             g = torch.Generator(dev).manual_seed(600 + i)
             dt = {"bf16": torch.bfloat16, "f32": torch.float32}[tag]
-            if layout == "transposed":
-                x = torch.randn((nd, n), generator=g, device=dev,
-                                dtype=dt).t()
-            else:
-                x = torch.randn((n, nd), generator=g, device=dev, dtype=dt)
+            x = norm_input(n, nd, layout, dt, g, dev)
+            check(R.path(x) == npath, f"rmsnorm {nname} {tag} takes the "
+                                      f"{R.path(x)} path, not {npath}")
             # the scale in f32, as the models keep it (cast_for_compute);
             # F.rms_norm takes its weight in x's dtype
             scale = torch.randn((nd,), generator=g, device=dev)
@@ -2318,7 +2380,7 @@ def attention_norm_phase(dev, FA, R, ops):
             bms, by = norm_bound(n, nd, tag)
             row = {"kernel": "rmsnorm", "shape_name": nname,
                    "shape": [n, nd], "dtype": tag, "layout": layout,
-                   "path": R.kernel_input(x, scale)[1],
+                   "path": R.path(x),
                    "max_abs_err": err,
                    "served": (n in SERVED_NORM_ROWS and nd == NORM_D
                               and tag == "bf16"),
@@ -2334,8 +2396,8 @@ def attention_norm_phase(dev, FA, R, ops):
                    / ms / 1e6,
                    "bound_share": bms / ms}
             rows.append(row)
-            print(f"rmsnorm {nname:<19}{n:>6} x {nd} {tag:<5}{layout:<11}"
-                  f"{row['path']:<10}: device {ms:.4f} ms "
+            print(f"rmsnorm {nname:<20}{n:>6} x {nd} {tag:<5}{layout:<11}"
+                  f"{row['path']:<9}: device {ms:.4f} ms "
                   f"({row['gb_per_s']:.1f} GB/s, {100 * bms / ms:.2f}% of "
                   f"the bound), events {row['event_ms']:.4f} ms, host "
                   f"{row['host_us']:.1f} us/call; plain {row['plain_ms']:.4f}"
@@ -2365,28 +2427,42 @@ def attention_norm_phase(dev, FA, R, ops):
     return rows, f32_launches
 
 
-#: phase 10 with ``--parent``: RMSNorm rows of NORM_D timed in both trees
-NORM_TURN_ROWS = (4, 32, 32768)
+#: phase 10 with ``--parent``: RMSNorm shapes timed in both trees (name,
+#: rows, D, layout as :func:`norm_input` takes it, dtype of x)
+NORM_TURNS = (
+    ("4 rows", 4, NORM_D, "contiguous", "bf16"),
+    ("32 rows", 32, NORM_D, "contiguous", "bf16"),
+    ("32768 rows", 32768, NORM_D, "contiguous", "bf16"),
+    ("32768 rows", 32768, NORM_D, "contiguous", "f32"),
+    *((name, n, d, layout, tag) for name, n, d, layout, _ in NORM_EXTRA
+      if layout != "offset" for tag in ("bf16", "f32")),
+)
 
 
-def norm_timings(R, dev):
-    """RMSNorm (bf16 x, the models' f32 scale) at ``NORM_TURN_ROWS`` rows:
-    device ms by CUDA-graph replay, CUDA-event ms and host µs per call.
-    Takes only ``R.rmsnorm``, so it also times an older tree's module."""
+def norm_timings(R, dev, paths):
+    """RMSNorm (the models' f32 scale) at ``NORM_TURNS``: device ms by
+    CUDA-graph replay, CUDA-event ms and host µs per call, and with
+    ``paths`` the path ``R.path`` names.  Without ``paths`` it takes only
+    ``R.rmsnorm``, so it also times an older tree's module."""
     import torch
 
     rows = []
-    for n in NORM_TURN_ROWS:
-        g = torch.Generator(dev).manual_seed(700 + n)
-        x = torch.randn((n, NORM_D), generator=g, device=dev,
-                        dtype=torch.bfloat16)
-        scale = torch.randn((NORM_D,), generator=g, device=dev)
+    for i, (name, n, d, layout, tag) in enumerate(NORM_TURNS):
+        g = torch.Generator(dev).manual_seed(700 + i)
+        dt = {"bf16": torch.bfloat16, "f32": torch.float32}[tag]
+        x = norm_input(n, d, layout, dt, g, dev)
+        scale = torch.randn((d,), generator=g, device=dev)
 
         def kernel():
             return R.rmsnorm(x, scale)
 
-        rows.append({"rows": n, "ms": graph_ms(kernel),
-                     "event_ms": cuda_ms(kernel), "host_us": host_us(kernel)})
+        rows.append({"name": name, "rows": n, "d": d, "layout": layout,
+                     "dtype": tag, "ms": graph_ms(kernel),
+                     "event_ms": cuda_ms(kernel), "host_us": host_us(kernel),
+                     "path": R.path(x) if paths else None,
+                     "bound_ms": norm_bound(n, d, tag)[0]})
+        del x
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2394,14 +2470,20 @@ def compare_norms(turns):
     """Prints RMSNorm's times of parent and change, each in a fresh process
     on this card, in the order parent, change, change, parent."""
     p0, c1, c2, p1 = turns
-    print("RMSNorm (bf16, f32 scale), parent vs this change on this card "
-          "(fresh processes, order: parent, change, change, parent):")
+    print("RMSNorm (f32 scale), parent vs this change on this card "
+          "(fresh processes, order: parent, change, change, parent; the "
+          "share is of the bytes bound, from the change's faster turn):")
     for r0, r1, r2, r3 in zip(p0, c1, c2, p1):
-        print(f"  {r1['rows']:>6} rows: device ms parent {r0['ms']:.4f} / "
-              f"{r3['ms']:.4f}, change {r1['ms']:.4f} / {r2['ms']:.4f}; "
-              f"events ms parent {r0['event_ms']:.4f} / {r3['event_ms']:.4f}"
-              f", change {r1['event_ms']:.4f} / {r2['event_ms']:.4f}; host "
-              f"us parent {r0['host_us']:.1f} / {r3['host_us']:.1f}, change "
+        best = min(r1["ms"], r2["ms"])
+        print(f"  {r1['name']:<20}{r1['rows']:>6} x {r1['d']:<5} "
+              f"{r1['dtype']:<5}{r1['layout']:<11}{r1['path'] or '':<9}: "
+              f"device ms parent {r0['ms']:.4f} / {r3['ms']:.4f}, change "
+              f"{r1['ms']:.4f} / {r2['ms']:.4f} "
+              f"({100 * r1['bound_ms'] / best:.1f}% of "
+              f"{r1['bound_ms']:.4f}); events ms parent "
+              f"{r0['event_ms']:.4f} / {r3['event_ms']:.4f}, change "
+              f"{r1['event_ms']:.4f} / {r2['event_ms']:.4f}; host us parent "
+              f"{r0['host_us']:.1f} / {r3['host_us']:.1f}, change "
               f"{r1['host_us']:.1f} / {r2['host_us']:.1f}")
 
 
@@ -5560,7 +5642,14 @@ def main(argv=None) -> int:
         print(f"grouped f32 (CUDA cores) C = {c}: tile {t}, "
               f"{core_line(K.launch_config(t, 'f32'))}")
     flash_f32_phase1(FA, flash_f32_entries)
-    print("RMSNorm: no dynamic shared memory")
+    rms_spills = [(v, fn, sp) for v in paths if v.startswith("rmsnorm")
+                  for fn, _, _, sp in ptxas_entries(build.build_log(v))
+                  if not (" 0 bytes spill stores" in sp
+                          and " 0 bytes spill loads" in sp)]
+    check(not rms_spills, f"RMSNorm kernels spill: {rms_spills}")
+    print(f"RMSNorm columns: {R.column_rows(torch.bfloat16, NORM_D)} bf16 / "
+          f"{R.column_rows(torch.float32, NORM_D)} f32 rows a block at D = "
+          f"{NORM_D}; widest D {R.max_columns_dim()}")
     picks = planner_tiles(gemm, get_config, model_gemm_shapes, TABLE2,
                           GemmShape)
     # and the tiles phases 4 and 5 time besides the planner's
@@ -5947,7 +6036,7 @@ def main(argv=None) -> int:
     attn_rows, flash_f32_launches = attention_norm_phase(dev, FA, R, ops)
     norm_turns, flash_turns = [], []
     if args.parent:
-        norm_turns = [tree_run(t, "norm", args.out)
+        norm_turns = [tree_run(t, "norm", args.out, {"paths": t == HERE})
                       for t in (args.parent, HERE, HERE, args.parent)]
         compare_norms(norm_turns)
         flash_turns = [tree_run(t, "flash", args.out)

@@ -80,8 +80,9 @@ _FLASH_WGMMA_ARGS = (_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32,
 #: batch strides; box rows
 _FLASH_ENCODE_ARGS = (_VP, _VP, _I32, _I32, _I32, _I32, _I64, _I64, _I64,
                       _I32)
-#: x, scale, y; rows, D; eps; scale is bf16 (else f32); stream
-_RMSNORM_ARGS = (_VP, _VP, _VP, _I32, _I32, _F32, _I32, _VP)
+#: x; x's row and column strides; scale, y; rows, D; eps; scale is bf16
+#: (else f32); stream
+_RMSNORM_ARGS = (_VP, _I64, _I64, _VP, _VP, _I32, _I32, _F32, _I32, _VP)
 
 
 class Target(NamedTuple):

@@ -710,6 +710,11 @@ def test_rmsnorm_reads_a_bf16_scale_as_its_f32_copy(shape, dt):
         dtype="bf16")
     rows = x.numel() // shape[-1]
     assert R.kernel_scale(scale) is scale
+    # a first call outside the profiler: it may build the kernels, and
+    # nvcc run inside a profiled region left later sessions recording no
+    # device kernel at all
+    R.rmsnorm(x, scale, eps=1e-6, block_rows=rows)
+    torch.cuda.synchronize()
     act = torch.profiler.ProfilerActivity
     with torch.profiler.profile(activities=[act.CUDA]) as prof:
         got = R.rmsnorm(x, scale, eps=1e-6, block_rows=rows)
@@ -845,18 +850,162 @@ def test_rmsnorm_kernel_refuses_ragged_rows_and_widths():
 
 
 def test_rmsnorm_takes_a_misaligned_scale_on_the_scalar_path():
-    """A bf16 scale whose base is off 16 bytes is read in place, element
-    by element (the scalar path), not cloned."""
+    """A bf16 scale whose base is off 16 bytes is read in place, not
+    cloned: element by element into registers (the direct path, 64 and
+    640 rows) or into shared memory (the ring's element path, 640 rows of
+    an x off 16 bytes; no bulk copy of the scale).  The name is
+    historical: x keeps its own path, and the scalar path is gone."""
     from repro_torch.kernels import rmsnorm as R
 
-    x = torch.randn(64, 1536, dtype=torch.bfloat16, device="cuda")
     s = torch.randn(1537, device="cuda").to(torch.bfloat16)[1:]
-    assert R.kernel_scale(s) is s and R.kernel_input(x, s)[1] == "scalar"
-    got = R.rmsnorm(x, s, block_rows=64)
+    for rows, offset, path in ((64, 0, "direct"), (640, 0, "direct"),
+                               (640, 1, "element")):
+        x = torch.randn(rows * 1536 + offset, dtype=torch.bfloat16,
+                        device="cuda")[offset:].view(rows, 1536)
+        assert R.kernel_scale(s) is s and R.kernel_input(x)[1] == path
+        got = R.rmsnorm(x, s, block_rows=64)
+        torch.cuda.synchronize()
+        want = R.rmsnorm_plain(x, s)
+        assert bool(((got.float() - want.float()).abs()
+                     <= _bf16_ulp(want)).all())
+
+
+def _rmsnorm_case(x, scale, want_path):
+    """One call on ``x`` in place: its path, one launch, the plain
+    version's result (f32 rtol = atol = 1e-5, bf16 one ulp of |y|), y
+    contiguous in x's shape."""
+    from repro_torch.kernels import rmsnorm as R
+
+    x2, path = R.kernel_input(x)
+    assert path == want_path and x2.data_ptr() == x.data_ptr()
+    before = R.LAUNCHES["rmsnorm"]
+    got = R.rmsnorm(x, scale, eps=1e-6, block_rows=x2.shape[0])
     torch.cuda.synchronize()
-    want = R.rmsnorm_plain(x, s)
-    assert bool(((got.float() - want.float()).abs()
-                 <= _bf16_ulp(want)).all())
+    assert R.LAUNCHES["rmsnorm"] == before + 1
+    assert got.is_contiguous() and got.shape == x.shape
+    want = R.rmsnorm_plain(x, scale, eps=1e-6)
+    if x.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert bool(((got.float() - want.float()).abs()
+                     <= _bf16_ulp(want)).all())
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,d,path", [
+    (4096, 5120, "direct"),       # qwen2.5-32b's d_model
+    (4096, 7168, "direct"),       # kimi-k2-1t's
+    (200, 16384, "direct"),       # the widest row read once
+    (8, 16385, "two-pass"),       # one beyond it
+    (3, 16384, "direct"),         # fewer rows than SMs
+    (131, 7168, "direct"),
+    (4, 1536, "direct"),          # granite's served decode
+])
+def test_rmsnorm_ring_at_model_widths(rows, d, path, dt):
+    """Aligned rows at the models' widths, up to the widest read once and
+    one beyond.  The name is historical: aligned rows take the direct path
+    at every row count; the ring's own widths are
+    :func:`test_rmsnorm_element_path_at_model_widths`'."""
+    g = torch.Generator("cuda").manual_seed(rows + d)
+    x = torch.randn(rows, d, generator=g, device="cuda", dtype=dt)
+    scale = torch.randn(d, generator=g, device="cuda")
+    _rmsnorm_case(x, scale, path)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,d,path", [
+    (4096, 5120, "element"),      # several warps a row, two stages
+    (4096, 7168, "element"),
+    (200, 16384, "element"),      # the widest row read once: one group
+    (3, 16384, "element"),        # fewer rows than SMs: a block a row
+    (8, 16392, "two-pass"),       # past it, off 16 bytes
+])
+def test_rmsnorm_element_path_at_model_widths(rows, d, path, dt):
+    """Rows whose base is off 16 bytes (columns 1 to D of a wider buffer)
+    at the models' widths: the ring's groups of several warps, and the
+    two-pass kernel on a row stride."""
+    g = torch.Generator("cuda").manual_seed(rows + d + 1)
+    x = torch.randn(rows, d + 64, generator=g, device="cuda",
+                    dtype=dt)[:, 1:d + 1]
+    scale = torch.randn(d, generator=g, device="cuda")
+    _rmsnorm_case(x, scale, path)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [1001, 1002])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_rmsnorm_element_path_ragged_and_misaligned(d, offset, dt):
+    """Ragged D at base offsets of 0-3 elements: each row one bulk copy of
+    every 16-byte granule it touches, walked in shared memory from the
+    row's own offset."""
+    g = torch.Generator("cuda").manual_seed(d + offset)
+    buf = torch.randn(600 * d + offset, generator=g, device="cuda",
+                      dtype=dt)
+    x = buf[offset:].view(600, d)
+    scale = torch.randn(d, generator=g, device="cuda").to(dt)
+    _rmsnorm_case(x, scale, "element")
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout,path", [
+    ("slice", "direct"), ("offset", "element"), ("transposed", "columns"),
+    ("transposed-odd", "columns"), ("batched", "direct")])
+def test_rmsnorm_reads_strided_x_in_place(layout, path, dt):
+    """A row-strided slice, a slice off 16 bytes, a transposed x (also
+    with an odd row count: a bf16 word's second row masked) and a 3-D
+    slice whose leading axes merge: one launch, no copy (one device
+    kernel, y the only allocation), the plain version's result."""
+    from repro_torch.kernels import rmsnorm as R
+
+    g = torch.Generator("cuda").manual_seed(len(layout))
+    if layout == "slice":
+        x = torch.randn(1000, 3 * 1536, generator=g, device="cuda",
+                        dtype=dt)[:, 1536:3072]
+    elif layout == "offset":
+        x = torch.randn(1000, 1600, generator=g, device="cuda",
+                        dtype=dt)[:, 1:1537]
+    elif layout == "transposed":
+        x = torch.randn(1536, 1000, generator=g, device="cuda",
+                        dtype=dt).t()
+    elif layout == "transposed-odd":
+        x = torch.randn(1536, 1002, generator=g, device="cuda",
+                        dtype=dt)[:, :999].t()
+    else:
+        x = torch.randn(4, 250, 2048, generator=g, device="cuda",
+                        dtype=dt)[..., :1536]
+    scale = torch.randn(1536, generator=g, device="cuda").to(torch.bfloat16)
+    _rmsnorm_case(x, scale, path)
+    R.rmsnorm(x, scale, block_rows=1)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CUDA]) as prof:
+        R.rmsnorm(x, scale, block_rows=1)
+        torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+    kernels = [ev.key for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and ev.self_device_time_total > 0]
+    assert len(kernels) == 1 and "rmsnorm" in kernels[0], kernels
+    assert allocs == 1
+
+
+def test_rmsnorm_copies_only_what_no_path_reads():
+    """Neither axis unit-stride: one copy into a contiguous tensor, then
+    the direct path; still one RMSNorm launch and the plain version's
+    result."""
+    from repro_torch.kernels import rmsnorm as R
+
+    x = torch.randn(1536, 600, 2, device="cuda")[..., 0].t()
+    assert R.path(x) == "copy"
+    x2, path = R.kernel_input(x)
+    assert path == "direct" and x2.is_contiguous()
+    before = R.LAUNCHES["rmsnorm"]
+    got = R.rmsnorm(x, torch.ones(1536, device="cuda"), block_rows=600)
+    torch.cuda.synchronize()
+    assert R.LAUNCHES["rmsnorm"] == before + 1
+    torch.testing.assert_close(got, R.rmsnorm_plain(
+        x, torch.ones(1536, device="cuda")), rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
