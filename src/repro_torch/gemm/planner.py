@@ -1,6 +1,8 @@
 """``plan()`` — the single entry point of the predict→choose→run loop."""
 from __future__ import annotations
 
+import math
+
 from repro_torch import obs
 from repro_torch.core.precision import PrecisionConfig
 from repro_torch.gemm.api import GemmPlan, GemmProblem, resolve_machine
@@ -205,8 +207,19 @@ def matmul(x, w, *, backend: str | None = None):
     matrix (the tied logits head): the bf16 kernels read it in place.
     Differentiable: when autograd records it, the backward products run
     planned on the same backend, on views of the saved operands
-    (``gemm/autograd.py``).
+    (``gemm/autograd.py``).  While ``obs`` records, each call is a
+    ``gemm.matmul`` span (``m``, ``n``, ``k``, ``dtype``) whose child
+    ``gemm.plan_many`` is the plan layer's.
     """
+    if obs.recorder.enabled:
+        with obs.recorder.span("gemm.matmul", m=math.prod(x.shape[:-1]),
+                               n=w.shape[-1], k=x.shape[-1],
+                               dtype=dtype_tag(x.dtype)):
+            return _matmul(x, w, backend)
+    return _matmul(x, w, backend)
+
+
+def _matmul(x, w, backend):
     from repro_torch.gemm import autograd
     lead = x.shape[:-1]
     a2 = x if x.ndim == 2 else x.reshape(-1, x.shape[-1])
@@ -230,8 +243,20 @@ def grouped_matmul(x, w):
     ``(E, lead * C, D)`` computes what the JAX package's ``jax.vmap`` over
     the leading dims does, reading the expert weights once.
     Differentiable: both backward products run on the grouped kernel
-    (``gemm/autograd.py``).
+    (``gemm/autograd.py``).  While ``obs`` records, each call is a
+    ``gemm.grouped_matmul`` span (``m`` an expert's rows, ``n``, ``k``,
+    ``groups``, ``dtype``).
     """
+    if obs.recorder.enabled:
+        with obs.recorder.span("gemm.grouped_matmul",
+                               m=math.prod(x.shape[:-3]) * x.shape[-2],
+                               n=w.shape[-1], k=x.shape[-1],
+                               groups=x.shape[-3], dtype=dtype_tag(x.dtype)):
+            return _grouped_matmul(x, w)
+    return _grouped_matmul(x, w)
+
+
+def _grouped_matmul(x, w):
     from repro_torch.gemm import autograd
     from repro_torch.kernels import ops
     run = (autograd.grouped_matmul if autograd.wanted(x, w)

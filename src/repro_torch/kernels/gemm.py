@@ -63,6 +63,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.tpu_model import DTYPE_BYTES, GridOrder, TileConfig
 from repro_torch.kernels import ref
 
@@ -603,10 +604,12 @@ def _as_read(a, b):
     ta, tb = wgmma_layout(a, b)
     bf16 = _tag(a.dtype) == "bf16"
     if ta and (not tb or not bf16):
-        a, ta = a.contiguous(), 0
+        with obs.span("gemm.copy", kind="transposed"):
+            a, ta = a.contiguous(), 0
         COPIES["transposed"] += 1
     if not tb and not bf16:
-        b, tb = b.contiguous(), 1
+        with obs.span("gemm.copy", kind="transposed"):
+            b, tb = b.contiguous(), 1
         COPIES["transposed"] += 1
     return a, b, (ta, tb)
 
@@ -682,13 +685,16 @@ def _wgmma_maps(lib, encode, a, b, c, m: int, n: int, k: int, tile, cfg,
     ta, tb = layout or (0, 1)
     sa, sb = (a.t() if ta else a), (b if tb else b.t())
     if needs_aligned_copy(sa):
-        sa = aligned_copy(sa)
+        with obs.span("gemm.copy", kind="aligned"):
+            sa = aligned_copy(sa)
         COPIES["aligned"] += 1
     if a.dtype == torch.int8:
-        sb = transposed_copy(sb)
+        with obs.span("gemm.copy", kind="transposed"):
+            sb = transposed_copy(sb)
         COPIES["transposed"] += 1
     elif needs_aligned_copy(sb):
-        sb = aligned_copy(sb)
+        with obs.span("gemm.copy", kind="aligned"):
+            sb = aligned_copy(sb)
         COPIES["aligned"] += 1
     maps = ctypes.create_string_buffer(384)
     err = encode(sa.data_ptr(), sb.data_ptr(), c.data_ptr(), m, n, k,

@@ -55,6 +55,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.tpu_model import TileConfig
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import gemm as K
@@ -325,7 +326,8 @@ def tma_rows(t, cols: int):
         return t, cols, False
     t = t.view(-1, cols)
     if K.needs_aligned_copy(t):
-        t = K.aligned_copy(t)
+        with obs.span("gemm.copy", kind="aligned"):
+            t = K.aligned_copy(t)
         return t, K._tma_row_stride(t), True
     return t, K._tma_row_stride(t), False
 
@@ -385,10 +387,12 @@ def _as_read(x, w, p: Plan):
     copied contiguous once, counted in ``COPIES["transposed"]``."""
     ta, tb = p.layout
     if not ta and stored_transposed(x):
-        x = x.contiguous()
+        with obs.span("gemm.copy", kind="transposed"):
+            x = x.contiguous()
         COPIES["transposed"] += 1
     if tb and stored_transposed(w):
-        w = w.contiguous()
+        with obs.span("gemm.copy", kind="transposed"):
+            w = w.contiguous()
         COPIES["transposed"] += 1
     return x, w
 

@@ -21,7 +21,12 @@ One vocabulary across every layer of plan → serve → simulate → calibrate:
 Overhead contract: with tracing disabled every ``obs.span(...)`` call
 site costs one method call returning a shared no-op — the
 ``obs_overhead`` workload in ``benchmarks/bench_planner.py`` asserts
-<2% on the Table-2 sweep.  See docs/OBSERVABILITY.md.
+<2% on the Table-2 sweep.  The port's per-call sites (``gemm.matmul``,
+``gemm.grouped_matmul``) test ``recorder.enabled`` first and build no
+attributes while it is false.  While enabled, each thread nests its own
+spans, spans are mirrored into ``torch.profiler`` while one records, and
+Python's collections are ``python.gc`` spans.  See docs/OBSERVABILITY.md,
+and ``obs/README.md`` for the port's spans.
 """
 from repro_torch.obs.drift import (
     DEFAULT_MAX_DRIFT,
@@ -59,11 +64,14 @@ def add_span(name: str, t0: float, t1: float, *, track: str = "wall",
 
 
 def enable():
-    """Turn the span channel on (events and metrics are always on)."""
+    """Turn the span channel on (events and metrics are always on), with
+    the ``python.gc`` hook and the profiler mirroring
+    (:meth:`Recorder.enable`)."""
     return recorder.enable()
 
 
 def disable():
+    """Turn the span channel off and remove the ``python.gc`` hook."""
     return recorder.disable()
 
 

@@ -20,11 +20,32 @@ perf-counter timestamps, "sim" for simulator time) maps to its own tid
 with a ``thread_name`` metadata row.  Timestamps are microseconds, per
 the `Trace Event Format
 <https://docs.google.com/document/d/1CvAClvFfyA5R-PhYUmn5OOQtYMH4h6I0nSsKchNAySU>`_.
+
+A live recorder (one turned on with :meth:`Recorder.enable`) also:
+
+* keeps one span stack per thread, so that a span opened on another
+  thread (autograd's device thread runs the backward) nests under nothing
+  of the main thread's, and exports each thread's spans on a track of
+  their own;
+* mirrors every span into ``torch.profiler`` while a profiler records: a
+  range of the same name opens just after the span's start and closes
+  just before its end, so the span sits in the profiler's own event
+  stream, on its clock, beside the kernels it launched;
+* stamps one ``(time.time_ns(), perf_counter_ns())`` pair, whose
+  difference its export carries as ``metadata["clock_offset_ns"]``: a
+  span's ``ts`` plus that offset (in microseconds) is on the Unix-epoch
+  clock of the profiler's events;
+* records Python's garbage collections as ``python.gc`` spans
+  (attributes ``generation`` and ``collected``), through a
+  ``gc.callbacks`` hook that :meth:`Recorder.disable` removes.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
+import itertools
 import json
+import threading
 import time
 from typing import Any, Mapping
 
@@ -43,6 +64,8 @@ class Span:
     attrs: dict[str, Any] = dataclasses.field(default_factory=dict)
     track: str = "wall"
     parent: int | None = None
+    #: the ident of the thread that opened it (None: a retrospective span)
+    thread: int | None = None
 
     @property
     def duration_s(self) -> float | None:
@@ -51,7 +74,7 @@ class Span:
     def as_dict(self) -> dict:
         return {"sid": self.sid, "name": self.name, "t0": self.t0,
                 "t1": self.t1, "track": self.track, "parent": self.parent,
-                "attrs": dict(self.attrs)}
+                "thread": self.thread, "attrs": dict(self.attrs)}
 
 
 class _NullSpan:
@@ -77,13 +100,15 @@ _NULL = _NullSpan()
 
 
 class _LiveSpan:
-    """Context-manager handle for one recorder-backed span."""
+    """Context-manager handle for one recorder-backed span (and, while a
+    profiler records, its profiler range)."""
 
-    __slots__ = ("_rec", "_span")
+    __slots__ = ("_rec", "_span", "_range")
 
-    def __init__(self, rec: "Recorder", span: Span):
+    def __init__(self, rec: "Recorder", span: Span, rng=None):
         self._rec = rec
         self._span = span
+        self._range = rng
 
     def __enter__(self):
         return self
@@ -91,7 +116,7 @@ class _LiveSpan:
     def __exit__(self, exc_type, exc, tb):
         if exc_type is not None:
             self._span.attrs.setdefault("error", exc_type.__name__)
-        self._rec._close(self._span)
+        self._rec._close(self._span, self._range)
         return False
 
     def set(self, **attrs):
@@ -104,36 +129,61 @@ class Recorder:
     """Process-local store of spans and serving events.
 
     One module-level instance (``repro.obs.recorder``) backs the whole
-    process; tests may construct private recorders.  Not thread-safe by
-    design — the repo's hot paths are single-threaded, and a lock on the
-    disabled fast path would defeat the <2% overhead budget.
+    process; tests may construct private recorders.  Spans may be opened
+    on any thread: each thread nests its spans on a stack of its own, and
+    appending a span is atomic under the interpreter lock.  There is no
+    lock, which a disabled fast path could not afford.
     """
 
     def __init__(self, enabled: bool = False):
         self.enabled = bool(enabled)
         self.spans: list[Span] = []
         self.events: list[dict] = []
-        self._stack: list[Span] = []
-        self._next_sid = 0
+        self._local = threading.local()
+        self._sids = itertools.count()
         self.clock = time.perf_counter
+        #: ``(time.time_ns(), perf_counter_ns())`` taken by :meth:`enable`
+        self.clock_pair: tuple[int, int] | None = None
+        self._profiler = None
+        self._gc_hook = self._on_gc
+        self._gc_live = None
 
     # -- lifecycle -----------------------------------------------------------
 
     def enable(self) -> "Recorder":
+        """Turn spans on, stamp the clock pair, mirror spans into
+        ``torch.profiler`` whenever one records, and record Python's
+        collections."""
+        import torch.autograd.profiler as profiler
+        self._profiler = profiler
+        self.clock_pair = (time.time_ns(), time.perf_counter_ns())
         self.enabled = True
+        if self._gc_hook not in gc.callbacks:
+            gc.callbacks.append(self._gc_hook)
         return self
 
     def disable(self) -> "Recorder":
         self.enabled = False
+        while self._gc_hook in gc.callbacks:
+            gc.callbacks.remove(self._gc_hook)
         return self
 
     def clear(self) -> "Recorder":
         """Drop all recorded spans and events (enablement unchanged)."""
         self.spans.clear()
         self.events.clear()
-        self._stack.clear()
-        self._next_sid = 0
+        self._local = threading.local()
+        self._sids = itertools.count()
         return self
+
+    @property
+    def _stack(self) -> list[Span]:
+        """The calling thread's stack of open spans."""
+        try:
+            return self._local.stack
+        except AttributeError:
+            self._local.stack = []
+            return self._local.stack
 
     # -- span channel (gated on ``enabled``) ---------------------------------
 
@@ -141,22 +191,50 @@ class Recorder:
         """Open a nested span; no-op singleton when disabled."""
         if not self.enabled:
             return _NULL
-        s = Span(sid=self._next_sid, name=name, t0=self.clock(),
+        stack = self._stack
+        s = Span(sid=next(self._sids), name=name, t0=self.clock(),
                  attrs=dict(attrs), track=track,
-                 parent=self._stack[-1].sid if self._stack else None)
-        self._next_sid += 1
+                 parent=stack[-1].sid if stack else None,
+                 thread=threading.get_ident())
         self.spans.append(s)
-        self._stack.append(s)
-        return _LiveSpan(self, s)
+        stack.append(s)
+        return _LiveSpan(self, s, self._open_range(name))
 
-    def _close(self, span: Span) -> None:
+    def _open_range(self, name: str):
+        """A profiler range named ``name``, opened, while a profiler
+        records (else None)."""
+        prof = self._profiler
+        if prof is None or not prof._is_profiler_enabled:
+            return None
+        rng = prof.record_function(name)
+        rng.__enter__()
+        return rng
+
+    def _close(self, span: Span, rng=None) -> None:
+        if rng is not None:
+            rng.__exit__(None, None, None)
         span.t1 = self.clock()
+        stack = self._stack
         # tolerate out-of-order exits (generators, re-raised errors)
-        if span in self._stack:
-            while self._stack and self._stack[-1] is not span:
-                self._stack.pop()
-            if self._stack:
-                self._stack.pop()
+        if span in stack:
+            while stack and stack[-1] is not span:
+                stack.pop()
+            if stack:
+                stack.pop()
+
+    def _on_gc(self, phase: str, info: dict) -> None:
+        """``gc.callbacks`` hook: one ``python.gc`` span a collection."""
+        if not self.enabled:
+            return
+        if phase == "start":
+            self._gc_live = self.span("python.gc",
+                                      generation=info["generation"])
+            return
+        live, self._gc_live = self._gc_live, None
+        if live is None:
+            return
+        live.set(collected=info.get("collected", 0))
+        live.__exit__(None, None, None)
 
     def add_span(self, name: str, t0: float, t1: float, *,
                  track: str = "wall", parent: int | None = None,
@@ -166,9 +244,9 @@ class Recorder:
         ``enabled`` like :meth:`span`; returns the span or ``None``."""
         if not self.enabled:
             return None
-        s = Span(sid=self._next_sid, name=name, t0=float(t0), t1=float(t1),
-                 attrs=dict(attrs), track=track, parent=parent)
-        self._next_sid += 1
+        s = Span(sid=next(self._sids), name=name, t0=float(t0),
+                 t1=float(t1), attrs=dict(attrs), track=track,
+                 parent=parent)
         self.spans.append(s)
         return s
 
@@ -215,13 +293,17 @@ class Recorder:
                 tracks[track] = len(tracks) + 1
             return tracks[track]
 
+        main = threading.main_thread().ident
         trace_events: list[dict] = []
         for s in self.spans:
             t1 = s.t1 if s.t1 is not None else s.t0
+            # another thread's spans go on a track of their own
+            track = s.track if s.thread in (None, main) \
+                else f"{s.track} (thread {s.thread})"
             trace_events.append({
                 "name": s.name, "ph": "X", "cat": "repro",
                 "ts": s.t0 * 1e6, "dur": max(0.0, (t1 - s.t0) * 1e6),
-                "pid": pid, "tid": tid_of(s.track),
+                "pid": pid, "tid": tid_of(track),
                 "args": _jsonable(s.attrs),
             })
         for e in self.events:
@@ -239,12 +321,15 @@ class Recorder:
                 "name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
                 "args": {"name": track},
             })
+        meta = {"schema": TRACE_EXPORT_SCHEMA, "spans": len(self.spans),
+                "events": len(self.events)}
+        if self.clock_pair is not None:
+            epoch_ns, counter_ns = self.clock_pair
+            meta["clock_offset_ns"] = epoch_ns - counter_ns
         return {
             "traceEvents": trace_events,
             "displayTimeUnit": "ms",
-            "metadata": {"schema": TRACE_EXPORT_SCHEMA,
-                         "spans": len(self.spans),
-                         "events": len(self.events)},
+            "metadata": meta,
         }
 
     def save_chrome_trace(self, path) -> dict:

@@ -40,10 +40,12 @@ bit.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Callable
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig, ParallelConfig, TrainConfig
 from repro_torch.models.common import tree_leaves, tree_map, tree_zip
 from repro_torch.models.model import LM
@@ -187,45 +189,66 @@ def make_train_step(lm: LM, tcfg: TrainConfig, pcfg: ParallelConfig
     """Returns ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)``.  With ``pcfg.grad_compression == "int8_ef"`` the
     opt state must carry an error buffer (see :func:`init_train_state`).
-    The step runs under the mesh that is ambient when it is called."""
+    The step runs under the mesh that is ambient when it is called.
+
+    While ``obs`` records, a step's body is covered by three phase spans,
+    each with the step's host-side count (from 0, this function's calls)
+    as ``step``: ``train.forward`` (the leaves made trainable, then
+    ``LM.loss_fn``), ``train.backward`` (``torch.autograd.grad``, the
+    microbatch sums and the gradient tree) and ``train.optimizer`` (the
+    data sync under a mesh, int8_ef, the schedule and ``adamw_update``).
+    With microbatches, forward and backward alternate once a microbatch."""
     ocfg = make_adamw_config(lm.cfg, tcfg)
     remat = pcfg.remat
     int8_ef = pcfg.grad_compression == "int8_ef"
+    k = max(1, pcfg.microbatches)
+    steps = itertools.count()
 
-    def grads_of(params, leaves, mb):
-        loss, metrics = lm.loss_fn(params, mb, remat=remat)
+    def backward(loss, metrics, leaves):
         # a leaf the loss does not read (the audio frontend's token table)
         # gets a zero gradient, as jax.grad gives it
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
         return loss.detach(), {
-            k: torch.as_tensor(v, device=loss.device).detach()
-            for k, v in metrics.items()}, grads
+            k_: torch.as_tensor(v, device=loss.device).detach()
+            for k_, v in metrics.items()}, grads
 
     def train_step(params, opt_state, batch):
-        leaves = tree_leaves(params)
-        for p in leaves:
-            if not p.requires_grad:
-                p.requires_grad_(True)
-        with torch.enable_grad():
-            if pcfg.microbatches > 1:
-                k = pcfg.microbatches
-                acc = [torch.zeros(p.shape, dtype=torch.float32,
-                                   device=p.device) for p in leaves]
-                loss = 0.0
-                metrics = {}
-                for mb in _split_microbatches(batch, k):
-                    l_, m_, g_ = grads_of(params, leaves, mb)
+        step = next(steps)
+        mbs = _split_microbatches(batch, k) if k > 1 else [batch]
+        acc, loss, metrics = None, 0.0, {}
+        for i, mb in enumerate(mbs):
+            with obs.span("train.forward", step=step):
+                if i == 0:
+                    leaves = tree_leaves(params)
+                    for p in leaves:
+                        if not p.requires_grad:
+                            p.requires_grad_(True)
+                with torch.enable_grad():
+                    out = lm.loss_fn(params, mb, remat=remat)
+            with obs.span("train.backward", step=step), torch.enable_grad():
+                l_, m_, g_ = backward(*out, leaves)
+                del out
+                if k == 1:
+                    loss, metrics, grads = l_, m_, g_
+                else:
+                    if acc is None:
+                        acc = [torch.zeros(p.shape, dtype=torch.float32,
+                                           device=p.device) for p in leaves]
                     for a, g in zip(acc, g_):
                         a += g
                     loss = loss + l_
                     for key, v in m_.items():
                         metrics[key] = metrics.get(key, 0.0) + v / k
-                grads = [a / float(k) for a in acc]
-                loss = loss / float(k)
-            else:
-                loss, metrics, grads = grads_of(params, leaves, batch)
-        grads = _unflatten(params, grads)
+                    if i == k - 1:
+                        grads = [a / float(k) for a in acc]
+                        loss = loss / float(k)
+                if i == k - 1:
+                    grads = _unflatten(params, grads)
+        with obs.span("train.optimizer", step=step):
+            return optimizer_step(params, opt_state, grads, loss, metrics)
+
+    def optimizer_step(params, opt_state, grads, loss, metrics):
         gnorm = None
         ebuf = opt_state.get("err") if int8_ef else None
         if sh.ambient_mesh() is not None:
