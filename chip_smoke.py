@@ -1410,6 +1410,8 @@ GROUPED_SHAPES = {
     "bucket-512 down": (40, 128, 512, 1536),     # served run's max_len 256
     "ragged": (40, 24, 1536, 512),
     "ragged D/F": (3, 24, 201, 75),   # rows TMA cannot read: both copied
+    "4k gate+up": (40, 819, 1536, 1024),  # the benchmark's pass at 4,096
+    "4k down": (40, 819, 512, 1536),      # tokens: the wide design
 }
 #: the shapes phase 7's served run launches; the kernels line sums these
 SERVED_SHAPES = ("decode gate/up", "decode down", "prefill gate/up",
@@ -1434,6 +1436,7 @@ def grouped_phase(args, dev, G):
     expect = {"wgmma": 0, "cuda_cores": 0}
     copies = 0
     for i, (name, (e, c, d, f)) in enumerate(GROUPED_SHAPES.items()):
+        tiles = {}
         for tag in ("bf16", "f32"):
             g = torch.Generator(dev).manual_seed(300 + i)
             dt = {"bf16": torch.bfloat16, "f32": torch.float32}[tag]
@@ -1444,6 +1447,7 @@ def grouped_phase(args, dev, G):
                  * d ** -0.5).to(dt)
             got = G.grouped_gemm(x, w)
             torch.cuda.synchronize()
+            tiles[tag] = f"{G.plan(x, w).tile}"
             expect[G.route(dt)] += 1
             if tag == "bf16":
                 copies += (d % 8 != 0) + (f % 8 != 0)
@@ -1455,13 +1459,13 @@ def grouped_phase(args, dev, G):
                     exact[side] = max(exact[side], float(
                         (y.double() - ref).abs().max()))
         print(f"{name:<19}({e}, {c}, {d}) @ ({e}, {d}, {f}) tile "
-              f"{G.grouped_tile(c, torch.bfloat16)} (bf16), "
-              f"{G.grouped_tile(c, torch.float32)} (f32): both match the "
-              f"plain version")
+              f"{tiles['bf16']} (bf16, {G.design(c, f)} design), "
+              f"{tiles['f32']} (f32): both match the plain version")
     routes = dict(G.ROUTES)
     print(f"phase 6 grouped launches by route: {routes}, expected {expect} "
           f"(every bf16 launch on wgmma, every f32 one on the CUDA cores); "
-          f"aligned copies {G.COPIES['aligned']}, expected {copies}")
+          f"by design {G.DESIGNS}; aligned copies {G.COPIES['aligned']}, "
+          f"expected {copies}")
     check(routes == expect and G.LAUNCHES["grouped_gemm"] == sum(
         expect.values()), f"phase 6 grouped launches by route {routes} are "
                           f"not {expect}")
@@ -1572,7 +1576,7 @@ def grouped_timings(G, dev, *, plain=True, tag="bf16"):
         ms = row["ms"]
         bms, by = grouped_bound(e, c, d, f, tag)
         row.update({
-            "tile": str(G.grouped_tile(c, dt)),
+            "tile": str(G.plan(x, w).tile),
             "plain_ms": graph_ms(lambda: G.grouped_gemm_plain(x, w),
                                  calls=4),
             "plain_event_ms": cuda_ms(lambda: G.grouped_gemm_plain(x, w),
@@ -5624,7 +5628,7 @@ def main(argv=None) -> int:
               f"warpgroup(s) ({c.block_q} query rows), {c.block_k} keys a "
               f"step, {c.stages} K/V stages of {c.stage_bytes} B, "
               f"{c.smem_bytes} B dynamic shared memory, {c.threads} threads")
-    for c in (8, 24, 32, 128):
+    for c in (8, 24, 32, 64):
         t = G.grouped_tile(c, torch.bfloat16)
         cfg = G.grouped_config(t)
         blocks = {n: G.grid_blocks(e, c, f, t) for n, (e, cc, d, f) in
@@ -5637,6 +5641,12 @@ def main(argv=None) -> int:
               f"{cfg.threads} threads"
               + (f"; blocks per launch {blocks} on {G.SMS} SMs" if blocks
                  else ""))
+    cfg = G.wide_config()
+    print(f"grouped bf16 (wgmma) from C = {G.WIDE_MIN_C}: the wide design, "
+          f"tile {G.WIDE_TILE}, {cfg.consumers} consumer warpgroups of "
+          f"m64n{cfg.nw}k16, {cfg.stages} stages of {cfg.stage_bytes} B, "
+          f"{cfg.smem_bytes} B dynamic shared memory, {cfg.threads} threads, "
+          f"one block an SM walking tiles")
     for c in (8, 24, 32, 128):
         t = G.grouped_tile(c, torch.float32)
         print(f"grouped f32 (CUDA cores) C = {c}: tile {t}, "

@@ -245,13 +245,16 @@ def grouped_matmul(x, w):
     Differentiable: both backward products run on the grouped kernel
     (``gemm/autograd.py``).  While ``obs`` records, each call is a
     ``gemm.grouped_matmul`` span (``m`` an expert's rows, ``n``, ``k``,
-    ``groups``, ``dtype``).
+    ``groups``, ``dtype``, and ``design``: the bf16 forward's kernel design
+    on the card, ``kernels.grouped_gemm.design``; None for f32).
     """
     if obs.recorder.enabled:
+        from repro_torch.kernels import grouped_gemm
         with obs.recorder.span("gemm.grouped_matmul",
                                m=math.prod(x.shape[:-3]) * x.shape[-2],
                                n=w.shape[-1], k=x.shape[-1],
-                               groups=x.shape[-3], dtype=dtype_tag(x.dtype)):
+                               groups=x.shape[-3], dtype=dtype_tag(x.dtype),
+                               design=grouped_gemm.design_of(x, w)):
             return _grouped_matmul(x, w)
     return _grouped_matmul(x, w)
 

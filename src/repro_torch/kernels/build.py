@@ -64,6 +64,10 @@ _GROUPED_ARGS = (_VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
 #: strides; bm, bn, ks, stages, group; ta, tb; stream
 _GROUPED_WGMMA_ARGS = (_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I64,
                        _I64, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _VP)
+#: maps of x, w, y; E, C, D, F; stages, group; stream (the bf16 grouped
+#: GEMM's wide design)
+_GROUPED_WIDE_ARGS = (_VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32,
+                      _VP)
 #: map (128 bytes, written); base; rows, cols, depth; ld, plane; operand;
 #: bm, bn, ks; trans (the operand stored transposed)
 _GROUPED_ENCODE_ARGS = (_VP, _VP, _I32, _I32, _I32, _I64, _I64, _I32, _I32,
@@ -111,7 +115,9 @@ TARGETS = {
                                 "repro_grouped_gemm_wgmma",
                                 _GROUPED_WGMMA_ARGS,
                                 (("repro_grouped_encode",
-                                  _GROUPED_ENCODE_ARGS),)),
+                                  _GROUPED_ENCODE_ARGS),
+                                 ("repro_grouped_gemm_wide",
+                                  _GROUPED_WIDE_ARGS))),
     "grouped_gemm_f32": Target("grouped_gemm.cu", "REPRO_GEMM_F32",
                                "repro_grouped_gemm", _GROUPED_ARGS),
     "flash_attention_bf16": Target("flash_attention.cu", "REPRO_ELEM_BF16",

@@ -9,18 +9,25 @@ taken, anything else raises.
 
 Bound on an H100: at serving's decode shapes each call reads every
 expert's weights once (62.9 MB for one granite projection) for about
-2 GFLOP, far below the ~295 flop/byte bf16 ridge, so the bound is bytes.
+2 GFLOP, far below the ~295 flop/byte bf16 ridge, so the bound is bytes;
+at a prefill's hundreds of rows an expert (819 at 4,096 tokens) the
+products are bound by operations.
 
 Two routes, by dtype (:func:`route`), as for the GEMM (``kernels/gemm.py``):
 
-* ``"wgmma"``: bf16 runs on the tensor cores, the kernel body of
-  ``csrc/wgmma_gemm.cuh`` with the expert as ``blockIdx.z`` and rank-3
-  tensor maps, so every TMA box fills and clips at its own expert's edges.
-  The tile (:func:`grouped_tile`) is bc = C rounded up to a power of two
-  (at most 128) tokens by 64 F columns, in slabs 64 deep, in a ring of at
-  most three stages (:func:`grouped_config`): the kernel is bound by bytes,
-  and its blocks are short-lived, so what matters is many blocks in flight
-  on every SM, each with a few slabs of weights.  Each encoded tensor map
+* ``"wgmma"``: bf16 runs on the tensor cores, over rank-3 tensor maps, so
+  every TMA box fills and clips at its own expert's edges, in one of two
+  designs chosen by shape (:func:`design`, counted in ``DESIGNS``).
+  ``"decode"``: the kernel body of ``csrc/wgmma_gemm.cuh`` with the expert
+  as ``blockIdx.z``; the tile (:func:`grouped_tile`) is bc = C rounded up
+  to a power of two (at most 128) tokens by 64 F columns, in slabs 64
+  deep, in a ring of at most three stages (:func:`grouped_config`): the
+  kernel is bound by bytes, and its blocks are short-lived, so what
+  matters is many blocks in flight on every SM, each with a few slabs of
+  weights.  ``"wide"``, for the row-major forward from
+  :data:`WIDE_MIN_C` rows an expert: 128 x 256 tiles of two m64n256k16
+  warpgroups, a ring of three stages, one persistent block an SM walking
+  every expert's tiles (:func:`wide_config`).  Each encoded tensor map
   is kept, keyed by everything the encoding is a function of
   (:func:`map_key`), so the expert weights' maps are encoded once and a
   call encodes none.  Operands whose rows TMA cannot read (D or F not a
@@ -46,11 +53,13 @@ edges are handled in the kernels, so C, D and F need not divide the tile.
 (``ref.grouped_gemm_ref``).  The wrapper runs it only when its operands lie
 on the CPU; CUDA operands launch the kernel or raise.
 ``LAUNCHES["grouped_gemm"]`` counts kernel launches, one per launch, and
-nothing else; ``ROUTES`` counts the same launches by route.
+nothing else; ``ROUTES`` counts the same launches by route, ``DESIGNS`` the
+bf16 ones by design.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -65,6 +74,8 @@ from repro_torch.kernels.gemm import on_device, raw_stream
 LAUNCHES = {"grouped_gemm": 0}
 #: the same launches by route: tensor cores (bf16) or CUDA cores (f32)
 ROUTES = {"wgmma": 0, "cuda_cores": 0}
+#: the bf16 launches by kernel design (:func:`design`)
+DESIGNS = {"decode": 0, "wide": 0}
 #: operands copied before a launch: into a TMA-aligned buffer (wgmma), or
 #: from a transposed view the route does not read in place
 COPIES = {"aligned": 0, "transposed": 0}
@@ -89,10 +100,27 @@ WGMMA_MAX_STAGES = 3
 SM_SMEM_BYTES = K.SM_SMEM_BYTES
 BLOCK_RESERVED_SMEM = K.BLOCK_RESERVED_SMEM
 SMS = K.SMS
+#: the wide design's tile (:func:`design`): 128 rows by 256 F columns, two
+#: consumer warpgroups each issuing m64n256k16 over 64-deep slabs.  At
+#: granite's 819 rows an expert it took 0.1647 ms (gate+up) and 0.0975
+#: (down) of device time, where 128 x 128 tiles took at best 0.1734 and
+#: 0.0952 (NVIDIA H100 80GB HBM3, 700 W; PERF.md)
+WIDE_TILE = TileConfig(128, 256, 64)
+#: its ring: three 48 KB stages beside the 64 KB bf16 C tile (213,048 B of
+#: the 232,448 a block may claim; a fourth does not fit), one block an SM
+WIDE_STAGES = 3
+#: its threads: two consumer warpgroups and a producer warpgroup that hands
+#: them its registers (setmaxnreg)
+WIDE_THREADS = 384
+#: rows an expert from which the row-major forward takes the wide design:
+#: past 64 the decode design's tile is 128 rows too, and from 65 rows the
+#: wide one took 1.16-1.52x less device time at every granite shape; at 64
+#: and below it lost on gate+up at F = 1024 (0.87-0.93x; PERF.md)
+WIDE_MIN_C = 65
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, ROUTES, COPIES):
+    for counts in (LAUNCHES, ROUTES, DESIGNS, COPIES):
         for name in counts:
             counts[name] = 0
 
@@ -110,9 +138,21 @@ def route(dtype) -> str:
     return "wgmma" if _tag(dtype) == "bf16" else "cuda_cores"
 
 
+def design(c: int, f: int, layout: tuple[int, int] = (0, 1)) -> str:
+    """The bf16 route's kernel for experts of ``c`` rows by ``f`` output
+    columns, read in ``layout``: ``"wide"`` for the row-major forward at
+    :data:`WIDE_MIN_C` rows or more with ``f`` a multiple of 8 (the wide
+    kernel stores y's tiles by TMA), where the product is bound by
+    operations; ``"decode"`` for every other call (decode, short prefill,
+    the backward layouts), bound by bytes."""
+    return ("wide" if tuple(layout) == (0, 1) and c >= WIDE_MIN_C
+            and f % 8 == 0 else "decode")
+
+
 def grouped_tile(c: int, dtype) -> TileConfig:
     """The ``(bc, bf, bk)`` thread-block tile of the route for capacity
-    ``c``: bc is the smallest power of two >= min(c, 128)."""
+    ``c`` (bf16: of the decode design): bc is the smallest power of two >=
+    min(c, 128)."""
     bc = 1
     while bc < min(max(c, 1), MAX_BLOCK_C):
         bc *= 2
@@ -170,6 +210,18 @@ def grouped_config(tile: TileConfig, layout: tuple[int, int] = (0, 1)
                          K.resident_blocks(smem, threads))
 
 
+def wide_config() -> K.WgmmaConfig:
+    """How the wide kernel runs :data:`WIDE_TILE`: two consumer warpgroups
+    of 64 rows, each issuing m64n256k16, :data:`WIDE_STAGES` stages beside
+    the bf16 C tile, one block an SM walking the tiles of every expert."""
+    t = WIDE_TILE
+    stage, rest = K._wgmma_stage(t.bm, t.bn, t.bk, True)
+    smem = K._wgmma_smem(stage, rest, WIDE_STAGES)
+    return K.WgmmaConfig(t.bn, 2, 1, t.bk, WIDE_STAGES, stage, smem,
+                         WIDE_THREADS, True,
+                         K.resident_blocks(smem, WIDE_THREADS))
+
+
 def check_tile(tile: TileConfig, dtype, layout: tuple[int, int] = (0, 1)):
     """The route's config for ``tile`` (:func:`grouped_config` for bf16, in
     the operands' ``layout``, ``kernels.gemm.launch_config`` for f32);
@@ -219,6 +271,9 @@ class Plan(NamedTuple):
     group: int
     #: wgmma's transpose bits for x and w as read (:func:`layout`)
     layout: tuple[int, int] = (0, 1)
+    #: the wgmma route's kernel design (:func:`design`; None on the CUDA
+    #: cores)
+    design: str | None = None
 
 
 #: plans by (x's shape, w's shape, dtypes, layout, the tile asked for);
@@ -262,11 +317,17 @@ def plan(x, w, tile: TileConfig | None = None,
     if p is None:
         e, c, d = x.shape
         f = w.shape[2]
-        t = grouped_tile(c, x.dtype) if tile is None else tile
-        cfg = check_tile(t, x.dtype, lay)
         rt = route(x.dtype)
+        # an explicit tile runs on the decode design's kernel
+        dsg = (None if rt != "wgmma" else
+               design(c, f, lay) if tile is None else "decode")
+        if dsg == "wide":
+            t, cfg = WIDE_TILE, wide_config()
+        else:
+            t = grouped_tile(c, x.dtype) if tile is None else tile
+            cfg = check_tile(t, x.dtype, lay)
         p = (Plan(e, c, d, f, t, rt, cfg.ks, cfg.stages,
-                  K.raster_group(c, d, t.bm), lay) if rt == "wgmma"
+                  K.raster_group(c, d, t.bm), lay, dsg) if rt == "wgmma"
              else Plan(e, c, d, f, t, rt, 0, 0, 0))
         if len(_PLANS) >= MAX_PLANS:
             _PLANS.clear()
@@ -368,12 +429,18 @@ def _launch_wgmma(x, w, y, p: Plan) -> None:
         mw = _tensor_map(lib, "w", wa.data_ptr(), *ws.shape[1:], e, ldw,
                          tile, not tb)
         # y (fresh, contiguous) goes out by TMA where its rows are 16 bytes
+        # (always on the wide design: its F is a multiple of 8)
         my = (_tensor_map(lib, "y", y.data_ptr(), c, f, e, f, tile)
               if f % 8 == 0 and y.data_ptr() % 16 == 0 and tile.bn >= 8
               else None)
-        err = lib.repro_grouped_gemm_wgmma(
-            mx, mw, my, y.data_ptr(), e, c, d, f, f, c * f, tile.bm, tile.bn,
-            p.ks, p.stages, p.group, ta, tb, raw_stream(y))
+        if p.design == "wide":
+            err = lib.repro_grouped_gemm_wide(mx, mw, my, e, c, d, f,
+                                              p.stages, p.group,
+                                              raw_stream(y))
+        else:
+            err = lib.repro_grouped_gemm_wgmma(
+                mx, mw, my, y.data_ptr(), e, c, d, f, f, c * f, tile.bm,
+                tile.bn, p.ks, p.stages, p.group, ta, tb, raw_stream(y))
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"grouped wgmma launch failed for ({e}, {c}, {d}) "
@@ -421,4 +488,18 @@ def grouped_gemm(x, w, *, tile: TileConfig | None = None):
     _launch(x, w, y, p)
     LAUNCHES["grouped_gemm"] += 1
     ROUTES[p.route] += 1
+    if p.design is not None:
+        DESIGNS[p.design] += 1
     return y
+
+
+def design_of(x, w) -> str | None:
+    """The design of the launch that ``gemm.grouped_matmul(x, w)`` makes
+    for x ``(..., E, C, D)`` and w ``(E, D, F)`` on the card (leading dims
+    fold into C, into a contiguous x), for its span: None for operands the
+    wgmma route does not run."""
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        return None
+    lay = (layout(x, w) if x.ndim == 3
+           else (0, int(not stored_transposed(w))))
+    return design(math.prod(x.shape[:-3]) * x.shape[-2], w.shape[-1], lay)

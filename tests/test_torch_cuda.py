@@ -409,11 +409,15 @@ def test_int8_routes_to_wgmma_and_raises_on_an_unbuilt_tile():
 #: granite-moe-3b-a800m's expert products: decode with max_batch 4
 #: (C = 4 x 8) and one request's prefill at bucket 32 (C = 8), the shapes
 #: the served run launches; a prefill at bucket 512 (C = 128); a ragged C;
-#: a ragged D and F (rows TMA cannot read in place: both copied)
+#: a ragged D and F (rows TMA cannot read in place: both copied); the
+#: benchmark's pass at 4,096 tokens (C = 819: gate+up fused, then down)
+#: and a C that is a multiple of 128 (the wide design from C = 65)
 GROUPED_SHAPES = [(40, 32, 1536, 512), (40, 32, 512, 1536),
                   (40, 8, 1536, 512), (40, 8, 512, 1536),
                   (40, 128, 1536, 512), (40, 128, 512, 1536),
-                  (40, 24, 1536, 512), (3, 24, 200, 72), (3, 24, 201, 75)]
+                  (40, 24, 1536, 512), (3, 24, 200, 72), (3, 24, 201, 75),
+                  (40, 819, 1536, 1024), (40, 819, 512, 1536),
+                  (8, 1024, 1536, 1024)]
 
 
 def _grouped_operands(e, c, d, f, dt):
@@ -430,18 +434,24 @@ def _grouped_operands(e, c, d, f, dt):
 @pytest.mark.parametrize("e,c,d,f", GROUPED_SHAPES)
 def test_grouped_kernel_matches_plain_version(e, c, d, f, dt):
     """Every bf16 launch on the wgmma route (its ragged D and F copied to
-    aligned rows first), every f32 one on the CUDA cores."""
+    aligned rows first), on the wide design from 65 rows an expert (with F
+    a multiple of 8) and on the decode design under it; every f32 one on
+    the CUDA cores."""
     from repro_torch.kernels import grouped_gemm as G
 
     x, w = _grouped_operands(e, c, d, f, dt)
     before = G.LAUNCHES["grouped_gemm"]
     routes, copies = dict(G.ROUTES), G.COPIES["aligned"]
+    designs = dict(G.DESIGNS)
     got = G.grouped_gemm(x, w)
     torch.cuda.synchronize()
     assert G.LAUNCHES["grouped_gemm"] == before + 1
     route = "wgmma" if dt == "bf16" else "cuda_cores"
     assert {r: G.ROUTES[r] - routes[r] for r in routes} == {
         r: int(r == route) for r in routes}
+    design = "wide" if c > 64 and f % 8 == 0 else "decode"
+    assert {k: G.DESIGNS[k] - designs[k] for k in designs} == {
+        k: int(dt == "bf16" and k == design) for k in designs}
     assert G.COPIES["aligned"] - copies == (
         (d % 8 != 0) + (f % 8 != 0) if dt == "bf16" else 0)
     want = G.grouped_gemm_plain(x, w)
@@ -467,6 +477,31 @@ def test_grouped_kernel_keeps_each_expert_to_its_own_rows(f):
     alone = [G.grouped_gemm(x[i:i + 1].contiguous(), w[i:i + 1].contiguous())
              for i in range(e)]
     torch.cuda.synchronize()
+    assert bool((got[1::2] == 0).all())
+    for i in range(e):
+        assert torch.equal(got[i], alone[i][0]), f"expert {i}"
+    torch.testing.assert_close(got.float(), G.grouped_gemm_plain(x, w).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("f", [520, 1024])
+def test_wide_kernel_keeps_each_expert_to_its_own_rows(f):
+    """The wide design at C = 333 (two full 128-row tiles and 77 rows) and
+    F = 520 (two 256-column tiles and 8 columns): each expert's rows equal
+    a launch of that expert alone (same kernel, same sum order), and the
+    odd experts, whose weights are zero, stay exactly zero: the persistent
+    blocks' TMA stores clip at every expert's C and F."""
+    from repro_torch.kernels import grouped_gemm as G
+
+    e, c, d = 6, 333, 1536
+    x, w = _grouped_operands(e, c, d, f, "bf16")
+    w[1::2] = 0
+    designs = dict(G.DESIGNS)
+    got = G.grouped_gemm(x, w)
+    alone = [G.grouped_gemm(x[i:i + 1].contiguous(), w[i:i + 1].contiguous())
+             for i in range(e)]
+    torch.cuda.synchronize()
+    assert G.DESIGNS["wide"] - designs["wide"] == e + 1
     assert bool((got[1::2] == 0).all())
     for i in range(e):
         assert torch.equal(got[i], alone[i][0]), f"expert {i}"
@@ -1054,6 +1089,10 @@ def test_grouped_matmul_backward_runs_on_the_kernel(dt):
     torch.cuda.synchronize()
     assert G.LAUNCHES["grouped_gemm"] == 3
     assert G.ROUTES[G.route(tdt)] == 3
+    # the forward at 4 x 32 rows an expert is wide; dx and dw keep the
+    # decode design
+    assert G.DESIGNS == ({"decode": 2, "wide": 1} if dt == "bf16"
+                         else {"decode": 0, "wide": 0})
     x3 = x.detach().transpose(0, 1).reshape(40, -1, 1536)
     d3 = dy.transpose(0, 1).reshape(40, -1, 512)
     tol = (dict(rtol=2e-2, atol=2e-2) if dt == "bf16"

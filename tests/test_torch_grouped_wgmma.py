@@ -56,6 +56,13 @@ SERVED = [(40, 32, 1536, 512), (40, 32, 512, 1536), (40, 8, 1536, 512),
           (40, 8, 512, 1536)]
 #: D and F no multiple of 8: both operands' rows need aligned copies
 RAGGED_DF = (3, 24, 201, 75)
+#: the benchmark's granite pass at 4,096 tokens (819 rows an expert) and a
+#: C that is a multiple of 128: the wide design's shapes
+WIDE = [(40, 819, 1536, 1024), (40, 819, 512, 1536), (8, 1024, 1536, 1024)]
+#: the decode design's configuration at the served shapes before the wide
+#: design was added: (tile, stages, shared memory, threads)
+SERVED_CONFIG = {8: (TileConfig(8, 64, 64), 3, 35896, 160),
+                 32: (TileConfig(32, 64, 64), 3, 45112, 160)}
 
 
 def _np(shape, seed):
@@ -77,27 +84,110 @@ def test_route_refuses_other_dtypes(dtype):
 def test_the_card_tests_cover_the_served_and_ragged_shapes():
     assert set(SERVED) <= set(CARD_SHAPES)
     assert RAGGED_DF in CARD_SHAPES
+    assert set(WIDE) <= set(CARD_SHAPES)
+
+
+def _meta(e, c, d, f, dtype=torch.bfloat16):
+    return (torch.empty(e, c, d, dtype=dtype, device="meta"),
+            torch.empty(e, d, f, dtype=dtype, device="meta"))
 
 
 @pytest.mark.parametrize("e,c,d,f", CARD_SHAPES)
 def test_route_config_at_every_card_shape(e, c, d, f):
-    """The bf16 tile fits a Hopper block's shared memory with a ring of at
+    """Under :data:`WIDE_MIN_C` rows an expert the bf16 tile is the decode
+    design's: it fits a Hopper block's shared memory with a ring of at
     least two stages, three blocks share an SM, and every served shape
-    launches more blocks than the card has SMs; the f32 tile is one the
-    CUDA-core kernel takes."""
-    tile = G.grouped_tile(c, torch.bfloat16)
-    assert tile.bm >= min(c, G.MAX_BLOCK_C) and tile.bm < 2 * max(c, 1)
-    assert (tile.bn, tile.bk) == (G.WGMMA_BLOCK_F, G.WGMMA_BLOCK_K)
-    cfg = G.check_tile(tile, torch.bfloat16)
-    assert cfg.smem_bytes <= K.MAX_SMEM_BYTES
-    assert 2 <= cfg.stages <= G.WGMMA_MAX_STAGES and cfg.ks == tile.bk
-    assert G.resident_blocks(cfg) >= G.WGMMA_BLOCKS_PER_SM
-    assert cfg.threads == 128 * cfg.consumers + 32 and cfg.nw == 64
+    launches more blocks than the card has SMs.  From it, the wide
+    design's 128 x 256 x 64 tile, one 384-thread block an SM.  The f32
+    tile is one the CUDA-core kernel takes."""
+    p = G.plan(*_meta(e, c, d, f))
+    tile = p.tile
+    if c < G.WIDE_MIN_C:
+        assert p.design == "decode" and tile == G.grouped_tile(
+            c, torch.bfloat16)
+        assert tile.bm >= min(c, G.MAX_BLOCK_C) and tile.bm < 2 * max(c, 1)
+        assert (tile.bn, tile.bk) == (G.WGMMA_BLOCK_F, G.WGMMA_BLOCK_K)
+        cfg = G.check_tile(tile, torch.bfloat16)
+        assert cfg.smem_bytes <= K.MAX_SMEM_BYTES
+        assert 2 <= cfg.stages <= G.WGMMA_MAX_STAGES and cfg.ks == tile.bk
+        assert G.resident_blocks(cfg) >= G.WGMMA_BLOCKS_PER_SM
+        assert cfg.threads == 128 * cfg.consumers + 32 and cfg.nw == 64
+    else:
+        assert p.design == "wide" and tile == G.WIDE_TILE
+        cfg = G.wide_config()
+        assert cfg.smem_bytes <= K.MAX_SMEM_BYTES and cfg.walk
+        assert (cfg.nw, cfg.consumers, cfg.threads) == (256, 2, 384)
+    assert (p.ks, p.stages) == (cfg.ks, cfg.stages)
     if (e, c, d, f) in SERVED:
         assert G.grid_blocks(e, c, f, tile) >= G.SMS
     threads = G.check_tile(G.grouped_tile(c, torch.float32),
                            torch.float32).threads
     assert threads <= K.MAX_THREADS
+
+
+@pytest.mark.parametrize("c,want", [
+    (8, "decode"), (32, "decode"), (64, "decode"), (65, "wide"),
+    (128, "wide"), (819, "wide"), (1024, "wide")])
+@pytest.mark.parametrize("f", [512, 1024, 1536])
+def test_the_design_turns_wide_at_the_threshold(c, want, f):
+    """The row-major forward takes the wide design from 65 rows an expert,
+    where the decode design's tile is 128 rows too; an F that is no
+    multiple of 8 (y's tiles not stored by TMA) keeps the decode design."""
+    assert G.WIDE_MIN_C == 65
+    assert G.design(c, f) == want
+    assert G.design(c, f + 3) == "decode"
+    assert G.plan(*_meta(40, c, 512, f)).design == want
+    assert G.plan(*_meta(40, c, 512, f, torch.float32)).design is None
+
+
+@pytest.mark.parametrize("c", [32, 256, 819])
+@pytest.mark.parametrize("lay", [(0, 0), (1, 1)])
+def test_the_backward_layouts_keep_the_decode_design(c, lay):
+    """dx reads w K-major (0, 0) and dw reads x MN-major (1, 1) at any C:
+    their plans are the decode design's, configured as before."""
+    assert G.design(c, 1536, lay) == "decode"
+    x, w = _meta(40, c, 512, 1536)
+    p = G.plan(x, w, lay=lay)
+    assert p.design == "decode" and p.layout == lay
+    cfg = G.grouped_config(G.grouped_tile(c, torch.bfloat16), lay)
+    assert (p.tile, p.ks, p.stages) == (G.grouped_tile(c, torch.bfloat16),
+                                        cfg.ks, cfg.stages)
+    dx = (torch.empty(40, c, 1536, dtype=torch.bfloat16, device="meta"),
+          torch.empty(40, 512, 1536, dtype=torch.bfloat16,
+                      device="meta").transpose(1, 2))
+    dw = (torch.empty(40, c, 512, dtype=torch.bfloat16,
+                      device="meta").transpose(1, 2),
+          torch.empty(40, c, 1536, dtype=torch.bfloat16, device="meta"))
+    assert G.layout(*dx) == (0, 0) and G.layout(*dw) == (1, 1)
+    assert G.design_of(*dx) == G.design_of(*dw) == "decode"
+
+
+@pytest.mark.parametrize("e,c,d,f", SERVED)
+def test_the_served_shapes_keep_their_configuration(e, c, d, f):
+    """Decode (C = 32) and a bucket-32 prefill (C = 8) run the decode
+    design exactly as they did before the wide design was added."""
+    p = G.plan(*_meta(e, c, d, f))
+    cfg = G.grouped_config(p.tile)
+    assert p.design == "decode" == G.design(c, f)
+    assert (p.tile, p.stages, cfg.smem_bytes, cfg.threads) == \
+        SERVED_CONFIG[c]
+
+
+def test_the_wide_config():
+    """Two consumer warpgroups of m64n256k16 and a producer warpgroup (384
+    threads); three 49,152 B stages (x's 128 x 64 box, w's four 64 x 64
+    boxes) beside the 65,536 B C tile and the mbarriers: 213,048 B of the
+    232,448 B a block may claim, one block an SM; a fourth stage does not
+    fit."""
+    cfg = G.wide_config()
+    assert G.WIDE_TILE == TileConfig(128, 256, 64)
+    assert (cfg.nw, cfg.consumers, cfg.rounds, cfg.ks) == (256, 2, 1, 64)
+    assert (cfg.stages, cfg.stage_bytes) == (3, 49152)
+    assert cfg.smem_bytes == 3 * (49152 + 16) + 65536 + 8 == 213048
+    assert cfg.smem_bytes <= K.MAX_SMEM_BYTES
+    assert cfg.smem_bytes + 49152 + 16 > K.MAX_SMEM_BYTES
+    assert (cfg.threads, cfg.blocks_per_sm, cfg.walk) == (384, 1, True)
+    assert G.resident_blocks(cfg) == 1
 
 
 @pytest.mark.parametrize("c,stages", [(8, 3), (24, 3), (32, 3), (128, 2)])
@@ -176,7 +266,15 @@ def test_cpu_tensors_count_nothing_on_either_route(dtype, shape):
                    torch.ones(e, d, f, dtype=dtype))
     assert G.LAUNCHES == {"grouped_gemm": 0}
     assert G.ROUTES == {"wgmma": 0, "cuda_cores": 0}
+    assert G.DESIGNS == {"decode": 0, "wide": 0}
     assert G.COPIES == {"aligned": 0, "transposed": 0}
+
+
+def test_reset_zeroes_the_design_counts():
+    G.DESIGNS["decode"] += 3
+    G.DESIGNS["wide"] += 2
+    G.reset_launch_counts()
+    assert G.DESIGNS == {"decode": 0, "wide": 0}
 
 
 def test_map_key_hits_on_the_same_values_and_misses_on_a_changed_stride():
@@ -253,7 +351,8 @@ _CTYPE_OF = {"int64_t": ctypes.c_int64, "int": ctypes.c_int}
 
 
 @pytest.mark.parametrize("name", ["repro_grouped_gemm_wgmma",
-                                  "repro_grouped_encode"])
+                                  "repro_grouped_encode",
+                                  "repro_grouped_gemm_wide"])
 def test_grouped_library_functions_match_their_c_signatures(name):
     spec = build.target("grouped_gemm_bf16")
     funcs = dict([(spec.launcher, spec.argtypes), *spec.helpers])

@@ -196,7 +196,21 @@ def test_planned_calls_are_spans_with_their_shape(spans):
     assert plan.parent == mm.sid
     (gm,) = _named(spans, "gemm.grouped_matmul")
     assert gm.attrs == {"m": 35, "n": 8, "k": 16, "groups": 4,
-                        "dtype": "f32"}
+                        "dtype": "f32", "design": None}
+
+
+@pytest.mark.parametrize("lead,c,want", [((), 32, "decode"),
+                                         ((), 819, "wide"),
+                                         ((3,), 24, "wide"),
+                                         ((2,), 32, "decode")])
+def test_a_grouped_span_names_the_design_of_its_launch(spans, lead, c, want):
+    """bf16: the wide design from 65 rows an expert, the leading dims
+    folded into C (3 x 24 = 72 rows), as the card's launch takes it."""
+    x = torch.randn(*lead, 2, c, 16, dtype=torch.bfloat16)
+    gemm.grouped_matmul(x, torch.randn(2, 16, 8, dtype=torch.bfloat16))
+    (gm,) = _named(spans, "gemm.grouped_matmul")
+    assert gm.attrs["design"] == want
+    assert gm.attrs["m"] == c * (lead[0] if lead else 1)
 
 
 def test_each_operand_copy_is_a_gemm_copy_span(spans):
