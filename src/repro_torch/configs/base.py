@@ -79,12 +79,26 @@ class ModelConfig:
     # --- attention scalability ----------------------------------------------
     attn_chunk: int = 1024          # KV-chunk for the blockwise reference path
 
+    # --- designs the JAX package does not have: DeepSeekV3Config's fields,
+    # plain class attributes here, so that this class's fields stay the
+    # JAX package's one for one -----------------------------------------------
+    attn_type = "gqa"
+    router = "softmax"
+    kv_lora_rank = qk_nope_head_dim = qk_rope_head_dim = v_head_dim = 0
+    n_shared_experts = 0
+    routed_scale = 1.0
+    bias_rate = bias_init_std = 0.0
+    experts_held = ()
+    first_k_dense = 0
+
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // max(self.n_heads, 1))
         if not self.block_pattern:
             kind = "moe" if self.n_experts else "attn"
-            object.__setattr__(self, "block_pattern", tuple([kind] * self.n_layers))
+            pattern = ["attn"] * self.first_k_dense + [kind] * (
+                self.n_layers - self.first_k_dense)
+            object.__setattr__(self, "block_pattern", tuple(pattern))
         assert len(self.block_pattern) == self.n_layers, (
             f"{self.name}: pattern len {len(self.block_pattern)} != {self.n_layers}")
 
@@ -105,6 +119,15 @@ class ModelConfig:
     def mlstm_inner(self) -> int:
         return self.mlstm_expand * self.d_model
 
+    @property
+    def n_experts_held(self) -> int:
+        """Routed experts whose weights this device holds."""
+        return len(self.experts_held) or self.n_experts
+
+    @property
+    def qk_head_dim(self) -> int:   # MLA: the width q.k runs over
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
     def block_counts(self) -> dict[str, int]:
         """Occurrences of each block kind in ``block_pattern`` — the layer
         census ``param_count`` sums over and the serving footprint model
@@ -119,10 +142,18 @@ class ModelConfig:
         if not self.tie_embeddings:
             n += self.padded_vocab * d
         shared = 0
+        if self.attn_type == "mla":
+            r, h = self.kv_lora_rank, self.n_heads
+            attn = (d * h * self.qk_head_dim
+                    + d * (r + self.qk_rope_head_dim) + r
+                    + r * h * (self.qk_nope_head_dim + self.v_head_dim)
+                    + h * self.v_head_dim * d)
+        else:
+            attn = (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+                    + self.n_heads * hd * d)
         for kind, cnt in self.block_counts().items():
             if kind in ("attn", "shared_attn"):
-                per = (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
-                       + self.n_heads * hd * d)
+                per = attn
                 if self.d_ff:
                     per += 3 * d * self.d_ff if self.act == "swiglu" else 2 * d * self.d_ff
                 if kind == "shared_attn" and self.shared_block:
@@ -130,10 +161,11 @@ class ModelConfig:
                     continue
                 n += cnt * per
             elif kind == "moe":
-                per = (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
-                       + self.n_heads * hd * d)
-                per += self.n_experts * 3 * d * self.moe_d_ff
+                per = attn + self.n_experts_held * 3 * d * self.moe_d_ff
                 per += d * self.n_experts  # router
+                if self.router == "sigmoid":
+                    per += self.n_experts  # its correction bias
+                    per += 3 * d * self.n_shared_experts * self.moe_d_ff
                 n += cnt * per
             elif kind == "mamba2":
                 di = self.d_inner
@@ -151,12 +183,56 @@ class ModelConfig:
         return int(n)
 
     def active_param_count(self) -> int:
-        """Active params per token (MoE: only routed experts count)."""
+        """Active params per token (MoE: only routed experts count; of the
+        experts held, the share routed to them)."""
         if not self.n_experts:
             return self.param_count()
-        dead = (self.n_experts - self.experts_per_token) * 3 * self.d_model * self.moe_d_ff
+        held = self.n_experts_held
+        if held == self.n_experts:
+            dead = (self.n_experts - self.experts_per_token) * 3 * self.d_model * self.moe_d_ff
+        else:
+            dead = (held - self.experts_per_token * held / self.n_experts
+                    ) * 3 * self.d_model * self.moe_d_ff
         moe_layers = sum(1 for k in self.block_pattern if k == "moe")
         return int(self.param_count() - moe_layers * dead)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepSeekV3Config(ModelConfig):
+    """DeepSeek-V3's block, which the JAX package does not have (the
+    port's ``models/attention.py`` ``apply_mla`` and ``models/moe.py``
+    ``apply_moe_sigmoid``; one device, or replicated over the data axes).
+
+    * Latent attention (``attn_type="mla"``): no query low rank; a joint
+      key-value latent of ``kv_lora_rank`` with its RMSNorm; q.k over
+      ``qk_nope_head_dim + qk_rope_head_dim`` dims, RoPE on the rope part
+      (the key's one vector shared by every head); values of
+      ``v_head_dim``.
+    * The sigmoid router (``router="sigmoid"``): sigmoid scores over the
+      ``n_experts`` routed over, the top ``experts_per_token`` of scores
+      plus a correction bias chosen (drawn at N(0, ``bias_init_std``);
+      training moves it by ``bias_rate`` a step), the chosen scores
+      normalised and scaled by ``routed_scale``; no token dropped;
+      ``n_shared_experts`` shared experts of width ``moe_d_ff`` on every
+      token; the sequence-wise balance loss at ``router_aux_coef``.
+      ``experts_held`` names the experts whose weights this device holds
+      (empty: all of them).
+    * ``first_k_dense`` leading layers outside the repeating pattern
+      (``first_k_dense_replace``), each its own remat unit, under
+      ``lead`` in the parameter tree.
+    """
+    attn_type: str = "mla"          # gqa | mla
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    router: str = "sigmoid"         # softmax | sigmoid
+    n_shared_experts: int = 0
+    routed_scale: float = 1.0
+    bias_rate: float = 0.0
+    bias_init_std: float = 0.0
+    experts_held: tuple = ()
+    first_k_dense: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,4 +1,5 @@
-"""GQA attention with RoPE, prefix-LM masks and KV caches.
+"""GQA attention with RoPE, prefix-LM masks and KV caches; latent
+attention (MLA) for training and prefill.
 
 The counterparts of ``repro.models.attention``: head padding for tensor
 parallelism (``head_layout``: query heads padded up to a multiple of the
@@ -16,6 +17,11 @@ heads are computed whole on every rank and pass ``copy_to`` before each
 rank picks the ones its query heads read, so their gradient sums the
 ranks' partial uses.
 
+DeepSeek-V3's latent attention (:func:`apply_mla`), which the JAX package
+does not have, runs the full sequence on one device: its projections are
+planned GEMMs, its values are narrower than its q.k
+(``blockwise_attention`` takes each width), and no latent cache exists.
+
 Unlike the JAX package, ``decode_attention`` writes the new key and value
 into the caller's cache tensors in place (and returns the same dict):
 the JAX version returns an updated copy of every cache, which on the card
@@ -28,9 +34,12 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import gemm as gemm_api
+from repro_torch import obs
 from repro_torch.models.common import (WHOLE, Cut, MeshInfo, dense_init,
-                                       zeros_init)
-from repro_torch.models.layers import apply_rope, rope_tables
+                                       ones_init, zeros_init)
+from repro_torch.models.layers import (apply_norm, apply_rope,
+                                       apply_rope_pairs, rope_tables)
 from repro_torch.runtime import sharding as sh
 
 NEG_INF = -1e30
@@ -198,9 +207,11 @@ def blockwise_attention(q, k, v, *, chunk: int, causal: bool,
                         prefix_len: int = 0):
     """Online-softmax attention over KV chunks; O(S*chunk) memory.
 
-    q: (B, Sq, H, hd); k, v: (B, Skv, H, hd) (KV already repeated to H).
-    ``causal`` masks by position; ``prefix_len`` positions attend
-    bidirectionally (prefix-LM).
+    q, k: (B, Sq, H, hd), (B, Skv, H, hd) (KV already repeated to H); v:
+    (B, Skv, H, hd_v), its width its own (MLA's values are narrower than
+    its q.k); the softmax scale is q's width's.  ``causal`` masks by
+    position; ``prefix_len`` positions attend bidirectionally (prefix-LM).
+    Returns (B, Sq, H, hd_v).
     """
     b, sq, h, hd = q.shape
     skv = k.shape[1]
@@ -213,7 +224,8 @@ def blockwise_attention(q, k, v, *, chunk: int, causal: bool,
 
     m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, h, sq, hd), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, h, sq, v.shape[-1]), dtype=torch.float32,
+                      device=dev)
     for idx in range(n_chunks):
         kb = k[:, idx * chunk:(idx + 1) * chunk].float()
         vb = v[:, idx * chunk:(idx + 1) * chunk].float()
@@ -231,7 +243,7 @@ def blockwise_attention(q, k, v, *, chunk: int, causal: bool,
         acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vb)
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]
-    return out.transpose(1, 2).to(q.dtype)                 # (B, Sq, H, hd)
+    return out.transpose(1, 2).to(q.dtype)               # (B, Sq, H, hd_v)
 
 
 def apply_attention(params, x, cfg, mesh: MeshInfo, *, positions=None,
@@ -249,6 +261,72 @@ def apply_attention(params, x, cfg, mesh: MeshInfo, *, positions=None,
                               chunk=cfg.attn_chunk, causal=True,
                               prefix_len=prefix_len)
     return output_projection(out, params, cfg, mesh)
+
+
+# ---------------------------------------------------------------------------
+# Latent attention (MLA): DeepSeek-V3's training and prefill forward
+# ---------------------------------------------------------------------------
+
+
+def mla_specs(cfg, mesh: MeshInfo) -> dict:
+    """The specs of :func:`init_mla`'s leaves: whole on every rank (MLA
+    runs on one device or replicated over the data axes)."""
+    return {"wq": (None, None), "wkv_a": (None, None), "kv_norm": (None,),
+            "wkv_b": (None, None), "wo": (None, None)}
+
+
+def init_mla(gen, cfg, mesh: MeshInfo, dtype, device, cut: Cut = WHOLE):
+    """MLA's matrices as the planned GEMM takes them, ``(in, out)``: ``wq``
+    (D, H x (nope + rope)), each head's nope dims then its rope dims;
+    ``wkv_a`` (D, latent + rope), the joint key-value latent then the key's
+    rope part, one for every head; ``kv_norm`` the latent's RMSNorm scale;
+    ``wkv_b`` (latent, H x (nope + v)), each head's key then its value;
+    ``wo`` (H x v, D).  No query low rank (``q_lora_rank`` null)."""
+    d, h, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    rope, nope, dv = cfg.qk_rope_head_dim, cfg.qk_nope_head_dim, cfg.v_head_dim
+    return {
+        "wq": dense_init(gen, d, (d, h * cfg.qk_head_dim), dtype, device,
+                         cut.of("wq")),
+        "wkv_a": dense_init(gen, d, (d, r + rope), dtype, device,
+                            cut.of("wkv_a")),
+        "kv_norm": cut("kv_norm", ones_init((r,), dtype, device)),
+        "wkv_b": dense_init(gen, r, (r, h * (nope + dv)), dtype, device,
+                            cut.of("wkv_b")),
+        "wo": dense_init(gen, h * dv, (h * dv, d), dtype, device,
+                         cut.of("wo")),
+    }
+
+
+def apply_mla(params, x, cfg, *, positions=None, prefix_len: int = 0):
+    """MLA over the full sequence.  x: (B, S, D) -> (B, S, D).
+
+    q = x wq; [c, k_rope] = x wkv_a; [k_nope, v] = RMSNorm(c) wkv_b, per
+    head.  RoPE (``apply_rope_pairs``) turns q's rope part and the one
+    key rope vector every head shares; q.k runs over nope + rope dims, the
+    scale from that width, and the values keep their own
+    (``blockwise_attention``).  Every product is a planned GEMM.  While
+    ``obs`` records, one ``attn.mla`` span (``b``, ``s``)."""
+    b, s, _ = x.shape
+    with obs.span("attn.mla", b=b, s=s):
+        h, r = cfg.n_heads, cfg.kv_lora_rank
+        nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+        if positions is None:
+            positions = torch.arange(s, device=x.device).expand(b, s)
+        sin, cos = rope_tables(positions, rope, cfg.rope_theta)
+        q = gemm_api.matmul(x, params["wq"]).view(b, s, h, nope + rope)
+        q = torch.cat([q[..., :nope],
+                       apply_rope_pairs(q[..., nope:], sin, cos)], dim=-1)
+        kv_a = gemm_api.matmul(x, params["wkv_a"])
+        latent = apply_norm({"scale": params["kv_norm"]}, kv_a[..., :r], cfg)
+        k_rope = apply_rope_pairs(kv_a[..., None, r:], sin, cos)
+        kv = gemm_api.matmul(latent, params["wkv_b"]).view(
+            b, s, h, nope + cfg.v_head_dim)
+        k = torch.cat([kv[..., :nope], k_rope.expand(b, s, h, rope)],
+                      dim=-1)
+        out = blockwise_attention(q, k, kv[..., nope:], chunk=cfg.attn_chunk,
+                                  causal=True, prefix_len=prefix_len)
+        return gemm_api.matmul(out.reshape(b, s, h * cfg.v_head_dim),
+                               params["wo"])
 
 
 # ---------------------------------------------------------------------------

@@ -88,6 +88,19 @@ def apply_rope(x, sin, cos):
     return out.to(x.dtype)
 
 
+def apply_rope_pairs(x, sin, cos):
+    """RoPE on adjacent pairs: dims (2i, 2i+1) rotate at frequency i, the
+    layout DeepSeek-V3's published modelling code gives its rope dims (it
+    de-interleaves them and rotates halves: the scores are the same).
+    Shapes as :func:`apply_rope`; f32 inside, cast back."""
+    xf = x.float().unflatten(-1, (-1, 2))
+    x1, x2 = xf[..., 0], xf[..., 1]
+    s = sin[..., None, :]
+    c = cos[..., None, :]
+    out = torch.stack([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out.flatten(-2).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLP (SwiGLU / GeLU)
 # ---------------------------------------------------------------------------

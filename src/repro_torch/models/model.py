@@ -35,6 +35,7 @@ specs say (``models/ssm.py``, ``xlstm.py``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 import torch
@@ -80,6 +81,13 @@ def factor_pattern(pattern: tuple) -> tuple[tuple, int, tuple]:
     return tuple(pattern), 1, ()
 
 
+def split_pattern(cfg) -> tuple[tuple, tuple, int, tuple]:
+    """(lead, period, n_periods, tail): the ``first_k_dense`` leading
+    layers, then :func:`factor_pattern` of the rest."""
+    lead = tuple(cfg.block_pattern[:cfg.first_k_dense])
+    return (lead, *factor_pattern(cfg.block_pattern[cfg.first_k_dense:]))
+
+
 # ---------------------------------------------------------------------------
 # Single blocks (norm + mixer (+ mlp)), init / apply / decode
 # ---------------------------------------------------------------------------
@@ -101,12 +109,15 @@ def _init_block(gen, kind: str, cfg, mesh, dtype, device, cut=WHOLE):
         p["slstm"] = xlstm.init_slstm(gen, cfg, mesh, dtype, device,
                                       cut.at("slstm"))
         return p
-    p["attn"] = attn.init_attention(gen, cfg, mesh, dtype, device,
-                                    cut.at("attn"))
+    init_attn = attn.init_mla if cfg.attn_type == "mla" else \
+        attn.init_attention
+    p["attn"] = init_attn(gen, cfg, mesh, dtype, device, cut.at("attn"))
     if kind == "moe":
         p["norm2"] = layers.init_norm(cfg, mesh, dtype, device,
                                       cut.at("norm2"))
-        p["moe"] = moe.init_moe(gen, cfg, mesh, dtype, device, cut.at("moe"))
+        init_moe = moe.init_moe_sigmoid if cfg.router == "sigmoid" else \
+            moe.init_moe
+        p["moe"] = init_moe(gen, cfg, mesh, dtype, device, cut.at("moe"))
     elif cfg.d_ff:
         p["norm2"] = layers.init_norm(cfg, mesh, dtype, device,
                                       cut.at("norm2"))
@@ -128,10 +139,12 @@ def _block_specs(kind: str, cfg, mesh):
     if kind == "slstm":
         p["slstm"] = xlstm.slstm_specs(cfg, mesh)
         return p
-    p["attn"] = attn.attention_specs(cfg, mesh)
+    p["attn"] = (attn.mla_specs if cfg.attn_type == "mla" else
+                 attn.attention_specs)(cfg, mesh)
     if kind == "moe":
         p["norm2"] = layers.norm_specs(cfg, mesh)
-        p["moe"] = moe.moe_specs(cfg, mesh)
+        p["moe"] = (moe.sigmoid_specs if cfg.router == "sigmoid" else
+                    moe.moe_specs)(cfg, mesh)
     elif cfg.d_ff:
         p["norm2"] = layers.norm_specs(cfg, mesh)
         p["mlp"] = layers.mlp_specs(cfg, mesh)
@@ -143,7 +156,9 @@ def _ffn(params, kind: str, x, cfg, mesh, *, ep: bool = False):
     may take the expert-parallel branch (the full-sequence forward)."""
     if kind == "moe":
         h2 = layers.apply_norm(params["norm2"], x, cfg)
-        if ep and moe.ep_applicable(cfg, mesh, h2.shape[1]):
+        if cfg.router == "sigmoid":
+            y, aux = moe.apply_moe_sigmoid(params["moe"], h2, cfg)
+        elif ep and moe.ep_applicable(cfg, mesh, h2.shape[1]):
             y, aux = moe.apply_moe_ep(params["moe"], h2, cfg, mesh)
         else:
             y, aux = moe.apply_moe(params["moe"], h2, cfg, mesh)
@@ -169,6 +184,10 @@ def _apply_block(params, kind: str, x, cfg, mesh, *, prefix_len: int = 0):
     if kind == "slstm":
         y, (hs, cs, ns) = xlstm.apply_slstm(params["slstm"], h, cfg, mesh)
         return x + y, 0.0, {"h": hs, "c": cs, "n": ns}
+    if cfg.attn_type == "mla":
+        x = x + attn.apply_mla(params["attn"], h, cfg, prefix_len=prefix_len)
+        x, aux = _ffn(params, kind, x, cfg, mesh)
+        return x, aux, {}
     b, s, _ = h.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = attn.project_local(params["attn"], h, cfg, mesh, positions)
@@ -243,6 +262,12 @@ class LM(nn.Module):
             raise ValueError(f"unknown frontend {cfg.frontend!r}")
         for kind in cfg.block_pattern:
             _check_kind(kind)
+        if (cfg.attn_type == "mla" or cfg.router == "sigmoid") \
+                and mesh.model > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: latent attention and the sigmoid router run "
+                f"on one device or replicated over the data axes, not on "
+                f"a model axis of {mesh.model}")
         self.cfg = cfg
         self.mesh = mesh
         self.device = require_device(device)
@@ -268,7 +293,7 @@ class LM(nn.Module):
         from the full init, bit for bit."""
         cfg, mesh, dev = self.cfg, self.mesh, self.device
         dtype = getattr(torch, cfg.param_dtype)
-        period, k, tail = factor_pattern(cfg.block_pattern)
+        lead, period, k, tail = split_pattern(cfg)
         cut = Cut(self.specs(), sh) if shard else WHOLE
 
         def block(kind, where):
@@ -285,6 +310,10 @@ class LM(nn.Module):
         if cfg.shared_block:
             # one set of tied weights for every shared_attn site
             p["shared"] = block("attn", cut.at("shared"))
+        if lead:
+            p["lead"] = {f"l{j}_{kind}": block(kind, cut.at("lead")
+                                               .at(f"l{j}_{kind}"))
+                         for j, kind in enumerate(lead)}
         p["stack"] = [{f"b{j}_{kind}": block(kind, cut.at("stack").at(i)
                                              .at(f"b{j}_{kind}"))
                        for j, kind in enumerate(period)
@@ -307,7 +336,7 @@ class LM(nn.Module):
 
     def _build_specs(self) -> dict:
         cfg, mesh = self.cfg, self.mesh
-        period, k, tail = factor_pattern(cfg.block_pattern)
+        lead, period, k, tail = split_pattern(cfg)
         p: dict[str, Any] = {
             "embed": layers.embedding_specs(cfg, mesh),
             "final_norm": layers.norm_specs(cfg, mesh),
@@ -315,6 +344,9 @@ class LM(nn.Module):
         }
         if cfg.shared_block:
             p["shared"] = _block_specs("attn", cfg, mesh)
+        if lead:
+            p["lead"] = {f"l{j}_{kind}": _block_specs(kind, cfg, mesh)
+                         for j, kind in enumerate(lead)}
         p["stack"] = [{f"b{j}_{kind}": _block_specs(kind, cfg, mesh)
                        for j, kind in enumerate(period)
                        if not self._tied(kind)}
@@ -394,7 +426,10 @@ class LM(nn.Module):
         """(kind, parameter path, cache path) of every layer, in order.  A
         tied ``shared_attn`` site reads the ``shared`` block; its cache is
         the site's own."""
-        period, k, tail = factor_pattern(self.cfg.block_pattern)
+        lead, period, k, tail = split_pattern(self.cfg)
+        for j, kind in enumerate(lead):
+            path = ("lead", f"l{j}_{kind}")
+            yield kind, path, path
         for i in range(k):
             for j, kind in enumerate(period):
                 path = ("stack", i, f"b{j}_{kind}")
@@ -427,11 +462,13 @@ class LM(nn.Module):
     # -- training ---------------------------------------------------------------
     def _run_stack(self, params, x, *, prefix_len: int, remat):
         """Forward through every layer for a loss: returns (x, aux).  Each
-        period of the stack is one remat unit, as in the JAX package:
-        ``"block"`` (or True) recomputes all of it in the backward pass,
-        ``"dots"`` keeps the GEMM and grouped-GEMM outputs and recomputes
-        the rest, ``"none"`` (or False / None) keeps everything; the tail
-        layers keep everything."""
+        period of the stack, and each leading layer, is one remat unit, as
+        in the JAX package: ``"block"`` (or True) recomputes all of it in
+        the backward pass, ``"dots"`` keeps the GEMM and grouped-GEMM
+        outputs and recomputes the rest, ``"none"`` (or False / None) keeps
+        everything; the tail layers keep everything.  With the sigmoid
+        router the recompute also reuses the rows each MoE layer's forward
+        read (``moe.remat_context``)."""
         cfg, mesh = self.cfg, self.mesh
         if remat not in (None, False, True, "none", "block", "dots"):
             raise ValueError(f"remat {remat!r}: one of 'block', 'dots', "
@@ -456,17 +493,18 @@ class LM(nn.Module):
                     aux = aux + a
             return x, aux
 
+        fns = [gemm_autograd.dots_context] if remat == "dots" else []
+        if cfg.router == "sigmoid":
+            fns.append(moe.remat_context)
+        ctx = {"context_fn": fns[0] if len(fns) == 1 else _joined(fns)} \
+            if fns else {}
         aux_total = 0.0
         for key, unit in units.items():
             if key[0] == "tail" or remat in (None, False, "none"):
                 x, aux = body(x, unit)
-            elif remat in ("block", True):
+            else:
                 x, aux = checkpoint(body, x, unit, use_reentrant=False,
-                                    preserve_rng_state=False)
-            elif remat == "dots":
-                x, aux = checkpoint(body, x, unit, use_reentrant=False,
-                                    preserve_rng_state=False,
-                                    context_fn=gemm_autograd.dots_context)
+                                    preserve_rng_state=False, **ctx)
             aux_total = aux_total + aux
         return x, aux_total
 
@@ -515,8 +553,15 @@ class LM(nn.Module):
 
     # -- serving: decode ---------------------------------------------------------
     def _empty_tree(self) -> dict:
-        period, k, _ = factor_pattern(self.cfg.block_pattern)
-        return {"stack": [{} for _ in range(k)], "tail": {}}
+        lead, _, k, _ = split_pattern(self.cfg)
+        return {**({"lead": {}} if lead else {}),
+                "stack": [{} for _ in range(k)], "tail": {}}
+
+    def _no_latent_cache(self) -> None:
+        if self.cfg.attn_type == "mla":
+            raise NotImplementedError(
+                f"{self.cfg.name}: decoding through a latent (MLA) cache is "
+                f"not supported")
 
     def init_cache(self, batch: int, max_len: int, *,
                    seq_shard: bool = False, batch_shard: bool = True) -> dict:
@@ -528,6 +573,7 @@ class LM(nn.Module):
         their local shapes; with ``seq_shard`` the KV caches' sequence
         axis is split over the data axes (decode them with
         ``decode_step(..., seq_shard=True)``)."""
+        self._no_latent_cache()
         caches = self._empty_tree()
         for kind, _, path in self._layout():
             _put(caches, path, _init_block_cache(
@@ -558,6 +604,7 @@ class LM(nn.Module):
         seq_shard=True)`` (``attention.decode_attention``)."""
         cfg, mesh = self.cfg, self.mesh
         self._check_mesh()
+        self._no_latent_cache()
         params = self.compute_params(params)
         embed = self._gathered(params, ("embed",))
         if token.ndim == 3:  # audio frames pass through the frontend
@@ -572,6 +619,23 @@ class LM(nn.Module):
         x = layers.apply_norm(params["final_norm"], x, cfg)
         logits = layers.logits_head(embed, x, cfg, mesh)
         return layers.gather_logits(logits, cfg, mesh)[:, 0], caches
+
+
+def _joined(fns):
+    """One ``context_fn`` for ``torch.utils.checkpoint`` from several:
+    their forward contexts entered together, and their recompute ones."""
+    def fn():
+        pairs = [f() for f in fns]
+        return _all([p[0] for p in pairs]), _all([p[1] for p in pairs])
+    return fn
+
+
+@contextlib.contextmanager
+def _all(contexts):
+    with contextlib.ExitStack() as stack:
+        for c in contexts:
+            stack.enter_context(c)
+        yield
 
 
 def _get(tree, path):

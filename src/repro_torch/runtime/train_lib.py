@@ -8,7 +8,12 @@ The counterpart of ``repro.runtime.train_lib``, eagerly:
 * remat per layer period (``ParallelConfig.remat``: ``block``, ``dots``,
   ``none``) through ``torch.utils.checkpoint`` (``LM.loss_fn``);
 * ``grad_compression == "int8_ef"`` round-trips the gradient through int8
-  with error feedback, the buffer kept in ``opt_state["err"]``.
+  with error feedback, the buffer kept in ``opt_state["err"]``;
+* the sigmoid router's correction bias (``models.moe.BIAS``) is state the
+  step does not train: no gradient, moment, decay or clipping touches it
+  (:func:`trained` is the tree they cover), and after AdamW it moves by
+  ``cfg.bias_rate`` toward balance on the loads the step's forward routed
+  (``moe.update_bias``).
 
 The step updates the parameters and the optimizer's moments in place (the
 JAX trainer donates them to its jitted step) and returns them with the
@@ -48,6 +53,7 @@ import torch
 from repro_torch import obs
 from repro_torch.configs.base import ModelConfig, ParallelConfig, TrainConfig
 from repro_torch.models.common import tree_leaves, tree_map, tree_zip
+from repro_torch.models import moe
 from repro_torch.models.model import LM
 from repro_torch.optim import (
     AdamWConfig,
@@ -73,13 +79,26 @@ def make_adamw_config(cfg: ModelConfig, tcfg: TrainConfig) -> AdamWConfig:
                        moment_dtype=cfg.opt_state_dtype)
 
 
+def trained(tree):
+    """``tree`` (parameters, or a tree of their structure) without the
+    leaves training does not train, the sigmoid router's bias
+    (``moe.BIAS``): the tree the gradients, AdamW's moments, decay and
+    clipping cover.  The same leaves, in the same order."""
+    if isinstance(tree, dict):
+        return {k: trained(v) for k, v in tree.items() if k != moe.BIAS}
+    if isinstance(tree, list):
+        return [trained(v) for v in tree]
+    return tree
+
+
 def decay_ranks(params: dict) -> dict:
     """The rank AdamW's "decay matrices only" rule reads for each leaf: the
     JAX package stacks the layer periods' leaves, so it sees every leaf
     under ``stack`` one rank higher and decays the stacked norm scales and
     biases too.  The port keeps that (the tail and zamba2's shared block
-    are not stacked in either package)."""
-    return {k: tree_map(lambda p: p.ndim + (k == "stack"), v)
+    are not stacked in either package), and treats the leading layers
+    (``lead``, which the JAX package does not have) as stacked ones."""
+    return {k: tree_map(lambda p: p.ndim + (k in ("stack", "lead")), v)
             for k, v in params.items()}
 
 
@@ -132,13 +151,14 @@ def _data_sync(lm: LM, grads: dict, err):
     without int8_ef)."""
     dp, data_axes = lm.mesh.dp(), set(lm.mesh.data_axes)
     n = sh.axis_size(dp)
+    specs = trained(lm.specs())
 
     def fsdp(spec):
         return bool(data_axes & set(sh.spec_axes(spec)))
 
     if err is None:
         return tree_zip(lambda g, s: (g if fsdp(s) else sh.all_reduce_(g, dp))
-                        / n, grads, lm.specs()), None
+                        / n, grads, specs), None
 
     def one(g, e, spec):
         # the JAX package's round trip on the synchronised gradient: sum
@@ -156,7 +176,7 @@ def _data_sync(lm: LM, grads: dict, err):
 
     # one scale a tensor of the JAX package's layout (as on one rank)
     pairs = tree_zip(one, stack_periods(grads), stack_periods(err),
-                     stack_spec_periods(lm.specs()))
+                     stack_spec_periods(specs))
     return (unstack_periods(tree_map(lambda t: t[0], pairs,
                                      is_leaf=_is_pair)),
             unstack_periods(tree_map(lambda t: t[1], pairs,
@@ -196,8 +216,10 @@ def make_train_step(lm: LM, tcfg: TrainConfig, pcfg: ParallelConfig
     as ``step``: ``train.forward`` (the leaves made trainable, then
     ``LM.loss_fn``), ``train.backward`` (``torch.autograd.grad``, the
     microbatch sums and the gradient tree) and ``train.optimizer`` (the
-    data sync under a mesh, int8_ef, the schedule and ``adamw_update``).
-    With microbatches, forward and backward alternate once a microbatch."""
+    data sync under a mesh, int8_ef, the schedule and ``adamw_update``),
+    and inside it ``train.router_bias`` (``step``; the bias update, where
+    the model has a sigmoid router).  With microbatches, forward and
+    backward alternate once a microbatch."""
     ocfg = make_adamw_config(lm.cfg, tcfg)
     remat = pcfg.remat
     int8_ef = pcfg.grad_compression == "int8_ef"
@@ -216,16 +238,18 @@ def make_train_step(lm: LM, tcfg: TrainConfig, pcfg: ParallelConfig
     def train_step(params, opt_state, batch):
         step = next(steps)
         mbs = _split_microbatches(batch, k) if k > 1 else [batch]
-        acc, loss, metrics = None, 0.0, {}
+        acc, loss, metrics, loads = None, 0.0, {}, []
         for i, mb in enumerate(mbs):
             with obs.span("train.forward", step=step):
                 if i == 0:
-                    leaves = tree_leaves(params)
+                    train_tree = trained(params)
+                    leaves = tree_leaves(train_tree)
                     for p in leaves:
                         if not p.requires_grad:
                             p.requires_grad_(True)
-                with torch.enable_grad():
+                with torch.enable_grad(), moe.collect_loads() as got:
                     out = lm.loss_fn(params, mb, remat=remat)
+                loads += got
             with obs.span("train.backward", step=step), torch.enable_grad():
                 l_, m_, g_ = backward(*out, leaves)
                 del out
@@ -244,16 +268,24 @@ def make_train_step(lm: LM, tcfg: TrainConfig, pcfg: ParallelConfig
                         grads = [a / float(k) for a in acc]
                         loss = loss / float(k)
                 if i == k - 1:
-                    grads = _unflatten(params, grads)
+                    grads = _unflatten(train_tree, grads)
         with obs.span("train.optimizer", step=step):
-            return optimizer_step(params, opt_state, grads, loss, metrics)
+            _, opt_state, out = optimizer_step(train_tree, opt_state, grads,
+                                               loss, metrics)
+            if loads:
+                with obs.span("train.router_bias", step=step):
+                    if sh.ambient_mesh() is not None:
+                        loads = [(b, sh.all_reduce_(n.clone(), lm.mesh.dp()))
+                                 for b, n in loads]
+                    moe.update_bias(loads, lm.cfg.bias_rate)
+            return params, opt_state, out
 
     def optimizer_step(params, opt_state, grads, loss, metrics):
         gnorm = None
         ebuf = opt_state.get("err") if int8_ef else None
         if sh.ambient_mesh() is not None:
             grads, ebuf = _data_sync(lm, grads, ebuf)
-            gnorm = sharded_global_norm(grads, lm.specs())
+            gnorm = sharded_global_norm(grads, trained(lm.specs()))
             dp = lm.mesh.dp()
             loss, metrics = (
                 sh.all_reduce_(loss.clone(), dp) / sh.axis_size(dp),
@@ -282,11 +314,11 @@ def make_train_step(lm: LM, tcfg: TrainConfig, pcfg: ParallelConfig
 def _state(lm: LM, values: dict, tcfg: TrainConfig,
            pcfg: ParallelConfig | None):
     specs = lm.specs()
-    opt = init_opt_state(values, make_adamw_config(lm.cfg, tcfg))
-    ospecs = opt_state_specs(specs)
+    opt = init_opt_state(trained(values), make_adamw_config(lm.cfg, tcfg))
+    ospecs = opt_state_specs(trained(specs))
     if pcfg is not None and pcfg.grad_compression == "int8_ef":
-        opt["err"] = init_error_buffer(values)
-        ospecs = {**ospecs, "err": specs}
+        opt["err"] = init_error_buffer(trained(values))
+        ospecs = {**ospecs, "err": trained(specs)}
     return values, specs, opt, ospecs
 
 

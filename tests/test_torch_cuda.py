@@ -1223,6 +1223,35 @@ def test_backward_tied_head_reads_the_table_in_place(m):
                                rtol=2e-2, atol=2e-2)
 
 
+#: (E, C, D, F): Moonlight-16B-A3B's expert products as one card of eight
+#: holds them, 8 experts at their mean load of 768 rows: gate and up (D
+#: 2048, F 1408) and down (D 1408, F 2048).  1,408 is no multiple of the
+#: wide design's 256-wide tile, nor of the decode design's 64-deep slab.
+MOONLIGHT_GROUPED = [(8, 768, 2048, 1408), (8, 768, 1408, 2048)]
+
+
+@pytest.mark.parametrize("direction", ["forward", "dx", "dw"])
+@pytest.mark.parametrize("e,c,d,f", MOONLIGHT_GROUPED)
+def test_grouped_kernel_at_moonlight_expert_shapes(direction, e, c, d, f):
+    """The forward on the wide design, dx (w K-major) and dw (x MN-major)
+    on the decode design, each against ``torch.bmm`` in f32 on the same
+    bf16 operands, within bf16 2e-2."""
+    from repro_torch.kernels import grouped_gemm as G
+
+    x, w = _grouped_operands(e, c, d, f, "bf16")
+    dy = torch.randn(e, c, f, device="cuda").to(torch.bfloat16)
+    p, q = {"forward": (x, w), "dx": (dy, w.transpose(1, 2)),
+            "dw": (x.transpose(1, 2), dy)}[direction]
+    assert G.plan(p, q).design == ("wide" if direction == "forward"
+                                   else "decode")
+    copies = dict(G.COPIES)
+    got = G.grouped_gemm(p, q)
+    torch.cuda.synchronize()
+    assert G.COPIES == copies
+    torch.testing.assert_close(got.float(), torch.bmm(p.float(), q.float()),
+                               rtol=2e-2, atol=2e-2)
+
+
 #: (E, C, D, F): granite's training shapes (C = 256), D and F no multiple
 #: of 8 (the stored rows are copied to aligned ones), C not a multiple of 8
 GROUPED_BACKWARD = [(40, 256, 1536, 512), (40, 256, 512, 1536),

@@ -36,20 +36,24 @@ from repro_torch.kernels import grouped_gemm as G
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def _card_shapes():
-    """``GROUPED_SHAPES`` of ``tests/test_torch_cuda.py``, read from its
-    source (that module is the card's)."""
+def _card_shapes(name="GROUPED_SHAPES"):
+    """``name`` of ``tests/test_torch_cuda.py``, read from its source (that
+    module is the card's)."""
     with open(os.path.join(HERE, "test_torch_cuda.py")) as f:
         tree = ast.parse(f.read())
     for node in tree.body:
         if isinstance(node, ast.Assign) and any(
-                getattr(t, "id", None) == "GROUPED_SHAPES"
-                for t in node.targets):
+                getattr(t, "id", None) == name for t in node.targets):
             return [tuple(s) for s in ast.literal_eval(node.value)]
-    raise AssertionError("tests/test_torch_cuda.py has no GROUPED_SHAPES")
+    raise AssertionError(f"tests/test_torch_cuda.py has no {name}")
 
 
 CARD_SHAPES = _card_shapes()
+#: Moonlight-16B-A3B's expert products on one card of eight: 8 experts at
+#: 768 rows, gate and up (2048 -> 1408) and down (1408 -> 2048); the card
+#: runs them, forward and both backward layouts, against ``torch.bmm``
+#: (``test_grouped_kernel_at_moonlight_expert_shapes``)
+MOONLIGHT = [(8, 768, 2048, 1408), (8, 768, 1408, 2048)]
 #: granite-moe-3b-a800m's expert products in the served run: decode at
 #: max_batch 4 (C = 32) and one request's prefill at bucket 32 (C = 8)
 SERVED = [(40, 32, 1536, 512), (40, 32, 512, 1536), (40, 8, 1536, 512),
@@ -160,6 +164,30 @@ def test_the_backward_layouts_keep_the_decode_design(c, lay):
           torch.empty(40, c, 1536, dtype=torch.bfloat16, device="meta"))
     assert G.layout(*dx) == (0, 0) and G.layout(*dw) == (1, 1)
     assert G.design_of(*dx) == G.design_of(*dw) == "decode"
+
+
+def test_the_card_runs_moonlights_expert_shapes():
+    assert _card_shapes("MOONLIGHT_GROUPED") == MOONLIGHT
+
+
+@pytest.mark.parametrize("e,c,d,f", MOONLIGHT)
+def test_moonlights_expert_shapes_plan_wide_forward_and_decode_backward(
+        e, c, d, f):
+    """At 768 rows an expert the forward takes the wide design; dx (w
+    K-major) and dw (x MN-major, 2048 or 1408 rows over K = 768) take the
+    decode design at a configuration the route accepts, with no operand
+    copied (every row is 16-byte aligned)."""
+    x, w = _meta(e, c, d, f)
+    assert G.plan(x, w).design == "wide"
+    dy = torch.empty(e, c, f, dtype=torch.bfloat16, device="meta")
+    for p, q, lay in ((dy, w.transpose(1, 2), (0, 0)),
+                      (x.transpose(1, 2), dy, (1, 1))):
+        assert G.layout(p, q) == lay
+        plan = G.plan(p, q)
+        assert plan.design == "decode" and plan.layout == lay
+        cfg = G.check_tile(plan.tile, torch.bfloat16, lay)
+        assert cfg.smem_bytes <= K.MAX_SMEM_BYTES and cfg.stages >= 2
+        assert cfg.threads == 128 * cfg.consumers + 32
 
 
 @pytest.mark.parametrize("e,c,d,f", SERVED)

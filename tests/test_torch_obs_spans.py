@@ -229,3 +229,73 @@ def test_each_operand_copy_is_a_gemm_copy_span(spans):
     obs.disable()
     K._as_read(a, bt.t())
     assert len(_named(spans, "gemm.copy")) == 2
+
+
+#: the spans each latent-attention or sigmoid-router MoE layer opens
+LAYER_SPANS = {"attn.mla": 3, "moe.route": 2, "moe.dispatch": 2,
+               "moe.experts": 2, "moe.shared": 2, "moe.combine": 2}
+
+
+def _moonlight_smoke():
+    """Moonlight's smoke model in f32 on the benchmark reference's seeded
+    leaves: (reference sizes, the reference's leaves, the model, its
+    tree, a batch)."""
+    import dataclasses
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from perfbench.drivers.train import program_tree
+    from perfbench.drivers.train_moe import program_paths
+    from perfbench.reference import mla_moe_lm as ref
+    from repro_torch.configs.moonlight_16b_a3b import smoke_config
+    from test_torch_mla_moe import arch
+
+    cfg = dataclasses.replace(smoke_config(), compute_dtype="float32")
+    a = arch(cfg)
+    _, views = ref.make_params(a, 4, "cpu")
+    lm = LM(cfg, device="cpu")
+    params = program_tree(lm, views, program_paths(a))
+    toks = torch.randint(0, cfg.vocab_size, (2, 41),
+                         generator=torch.Generator().manual_seed(5))
+    return a, views, lm, params, {"tokens": toks[:, :-1],
+                                  "labels": toks[:, 1:]}
+
+
+def test_each_mla_and_moe_layer_is_one_span_of_each_kind_in_the_forward(
+        spans):
+    """Moonlight's smoke model (3 layers of latent attention, the last 2
+    with the sigmoid router's MoE layer): each layer opens each of its
+    spans once in the forward, the dispatch with the rows it padded to and
+    routed.  ``moe.rows_routed`` is the number of (token, choice) pairs
+    the plain reference routes to the held experts on the same leaves and
+    tokens."""
+    from perfbench.reference import mla_moe_lm as ref
+    a, views, lm, params, batch = _moonlight_smoke()
+    with torch.no_grad():
+        lm.loss_fn(params, batch, remat="none")
+    names = [s.name for s in spans.spans]
+    for name, n in LAYER_SPANS.items():
+        assert names.count(name) == n, name
+    with torch.no_grad():
+        loads = [ref.row_logits(views, a, batch["tokens"][r], remat=False)[2]
+                 for r in range(2)]
+    routed = sum(float(load[a["held"]].sum()) for row in loads
+                 for load in row.values())
+    assert obs.metrics.get("moe.rows_routed") == routed > 0
+    for s in _named(spans, "moe.dispatch"):
+        assert s.attrs["cap"] % 64 == 0 and s.attrs["rows"] > 0
+    assert obs.metrics.get("moe.load_reads") == 2
+    assert obs.metrics.get("moe.rows_padded") == sum(
+        2 * s.attrs["cap"] - s.attrs["rows"]
+        for s in _named(spans, "moe.dispatch"))
+
+
+def test_no_layer_span_or_counter_while_obs_is_off():
+    _, _, lm, params, batch = _moonlight_smoke()
+    obs.clear()
+    with torch.no_grad():
+        lm.loss_fn(params, batch, remat="none")
+    assert not obs.recorder.spans
+    assert not {k for k in obs.metrics.counters if k.startswith("moe.")}
